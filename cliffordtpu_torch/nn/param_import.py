@@ -1,0 +1,161 @@
+"""Carry JAX ``CliffordARVAE`` parameters into the port's modules.
+
+Input is the flat dict that ``cliffordtpu/serving.py::_flatten_params``
+writes to ``params.npz`` (keys like
+``"encoder_vit/ResDownBlock_0/Conv_0/kernel"``), as numpy arrays.  Rules:
+
+* Dense kernel (in, out)             -> Linear weight (out, in): ``.T``
+* Conv kernel HWIO                   -> Conv2d weight OIHW
+* ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
+  (in, out, kh, kw) after a spatial flip (torch's transposed convolution
+  correlates with the flipped kernel; flax's ``transpose_kernel=False``
+  does not)
+* RMSNorm / GroupNorm ``scale``      -> ``weight``; ``bias`` as it is
+* ``register_token``                 as it is
+
+q and k weights need no permutation: the port keeps JAX's half-split RoPE
+basis.  Every key of the input must be used, so a tree of another layout
+(``fused_proj``, ``scan_layers``) is refused instead of half loaded.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+
+def _same(a):
+    return a
+
+
+def _dense(a):
+    return a.T
+
+
+def _conv(a):
+    return a.transpose(3, 2, 0, 1)
+
+
+def _conv_t(a):
+    return np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
+
+
+# (port name, jax name, transform) under a common prefix
+Rule = Tuple[str, str, Callable]
+
+
+def _gn(port: str, jax: str) -> List[Rule]:
+    return [(f"{port}.weight", f"{jax}/scale", _same),
+            (f"{port}.bias", f"{jax}/bias", _same)]
+
+
+def transformer_block_rules() -> List[Rule]:
+    return [
+        ("norm1.weight", "RMSNorm_0/scale", _same),
+        ("attn.wq.weight", "Attention_0/Dense_0/kernel", _dense),
+        ("attn.wk.weight", "Attention_0/Dense_1/kernel", _dense),
+        ("attn.wv.weight", "Attention_0/Dense_2/kernel", _dense),
+        ("attn.wo.weight", "Attention_0/Dense_3/kernel", _dense),
+        ("norm2.weight", "RMSNorm_1/scale", _same),
+        ("ffn.w1.weight", "SwiGLU_0/Dense_0/kernel", _dense),
+        ("ffn.w3.weight", "SwiGLU_0/Dense_1/kernel", _dense),
+        ("ffn.w2.weight", "SwiGLU_0/Dense_2/kernel", _dense),
+    ]
+
+
+def res_down_block_rules() -> List[Rule]:
+    return [*_gn("norm1", "GroupNorm_0"),
+            ("conv1.weight", "Conv_0/kernel", _conv),
+            *_gn("norm2", "GroupNorm_1"),
+            ("conv2.weight", "Conv_1/kernel", _conv),
+            ("shortcut.weight", "Conv_2/kernel", _conv)]
+
+
+def res_up_block_rules() -> List[Rule]:
+    return [*_gn("norm1", "GroupNorm_0"),
+            ("conv1.weight", "ConvTranspose_0/kernel", _conv_t),
+            *_gn("norm2", "GroupNorm_1"),
+            ("conv2.weight", "Conv_0/kernel", _conv),
+            ("shortcut.weight", "ConvTranspose_1/kernel", _conv_t),
+            *_gn("norm3", "GroupNorm_2"),
+            ("conv3.weight", "Conv_1/kernel", _conv),
+            *_gn("norm4", "GroupNorm_3"),
+            ("conv4.weight", "Conv_2/kernel", _conv)]
+
+
+def _nest(rules: List[Rule], port: str, jax: str) -> List[Rule]:
+    return [(f"{port}.{p}", f"{jax}/{j}", f) for p, j, f in rules]
+
+
+def _count(flat, prefix: str) -> int:
+    i = 0
+    while any(k.startswith(f"{prefix}_{i}/") for k in flat):
+        i += 1
+    return i
+
+
+def _blocks(flat, jax_prefix: str) -> List[Rule]:
+    n = _count(flat, f"{jax_prefix}TransformerBlock")
+    return [r for i in range(n) for r in _nest(
+        transformer_block_rules(), f"layers.{i}",
+        f"{jax_prefix}TransformerBlock_{i}")]
+
+
+def vit_encoder_rules(flat, jax_prefix: str = "") -> List[Rule]:
+    n_down = _count(flat, f"{jax_prefix}ResDownBlock")
+    return [
+        ("conv_in.weight", f"{jax_prefix}Conv_0/kernel", _conv),
+        *[r for i in range(n_down) for r in _nest(
+            res_down_block_rules(), f"down.{i}",
+            f"{jax_prefix}ResDownBlock_{i}")],
+        ("register_token", f"{jax_prefix}register_token", _same),
+        *_blocks(flat, jax_prefix),
+        ("norm.weight", f"{jax_prefix}RMSNorm_0/scale", _same),
+        ("output.weight", f"{jax_prefix}Dense_0/kernel", _dense),
+    ]
+
+
+def vit_decoder_rules(flat, jax_prefix: str = "") -> List[Rule]:
+    n_up = _count(flat, f"{jax_prefix}ResUpBlock")
+    return [
+        ("conv_in.weight", f"{jax_prefix}Conv_0/kernel", _conv),
+        ("register_token", f"{jax_prefix}register_token", _same),
+        *_blocks(flat, jax_prefix),
+        *[r for i in range(n_up) for r in _nest(
+            res_up_block_rules(), f"up.{i}", f"{jax_prefix}ResUpBlock_{i}")],
+        *_gn("norm_out", f"{jax_prefix}GroupNorm_0"),
+        ("conv_out.weight", f"{jax_prefix}Conv_1/kernel", _conv),
+    ]
+
+
+def cliffordar_rules(flat) -> List[Rule]:
+    return [
+        *[(f"encoder_vit.{p}", j, f)
+          for p, j, f in vit_encoder_rules(flat, "encoder_vit/")],
+        ("quant_proj.weight", "quant_proj/kernel", _dense),
+        ("quant_proj.bias", "quant_proj/bias", _same),
+        ("post_quant_proj.weight", "post_quant_proj/kernel", _dense),
+        *[(f"decoder_vit.{p}", j, f)
+          for p, j, f in vit_decoder_rules(flat, "decoder_vit/")],
+    ]
+
+
+def convert(flat: Dict[str, np.ndarray], rules: List[Rule]
+            ) -> Dict[str, torch.Tensor]:
+    """Apply ``rules`` to ``flat``; every key of ``flat`` must be used."""
+    unused = set(flat) - {j for _, j, _ in rules}
+    if unused:
+        raise ValueError(f"JAX params not carried by the port: "
+                         f"{sorted(unused)[:8]}")
+    return {p: torch.tensor(np.ascontiguousarray(
+                f(np.asarray(flat[j], dtype=np.float32))))
+            for p, j, f in rules}
+
+
+def cliffordar_from_jax(flat: Dict[str, np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``CliffordARVAE`` params (flat ``params.npz`` keys) -> a state
+    dict for ``cliffordtpu_torch.nn.vit_vae.CliffordARVAE``."""
+    return convert(flat, cliffordar_rules(flat))

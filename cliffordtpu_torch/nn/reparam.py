@@ -1,0 +1,26 @@
+"""Posterior construction and sampling (port of ``cliffordtpu/nn/reparam.py``,
+clifford branch only).
+
+The prior ``CliffordTorusUniform`` and the KL come with training; until
+then ``reparameterize`` returns the posterior alone.
+"""
+
+from __future__ import annotations
+
+from cliffordtpu_torch.distributions.clifford_torus import (
+    CliffordPowerSphericalDistribution,
+)
+
+
+def reparameterize(distribution: str, z_mean, z_param2, z_dim: int):
+    """The posterior q_z from the encoder heads; ``z_param2`` is the
+    concentration."""
+    if distribution != "clifford":
+        raise NotImplementedError(
+            f"only the clifford latent is ported, not {distribution!r}")
+    return CliffordPowerSphericalDistribution(z_mean, z_param2)
+
+
+def sample_latent(key, distribution: str, q_z):
+    """One reparameterised draw of q_z on the keyed stream."""
+    return q_z.sample(key)

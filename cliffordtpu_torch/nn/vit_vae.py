@@ -1,0 +1,387 @@
+"""Hybrid CNN+ViT S-VAE with per-token Clifford latents: the forward
+(serving) path of ``cliffordtpu/nn/vit_vae.py`` in PyTorch.
+
+Layouts at the public functions follow the JAX package: images
+(B, H, W, C), tokens (B, S, D), attention heads (B, S, H, hd).  Convolutions
+run in PyTorch's NCHW inside the modules.
+
+``compute_dtype`` plays the role of JAX's ``dtype``: the convolutions of
+the CNN stacks and the transformer projections hold their weights and run
+in it (float32 or bfloat16), as flax casts them at use; norms, their
+parameters, the register tokens, the encoder head, ``quant_proj``,
+``post_quant_proj``, the decoder's first and last convolutions and the
+distribution math stay float32.  The attention core of every block is the
+fused RoPE + attention kernel (``kernels/attention.py``).
+
+Not ported in this slice: ``fused_proj``, ``scan_layers``, the Gaussian
+and PowerSpherical heads and the training-only methods.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cliffordtpu_torch.kernels import attention as attention_kernel
+from cliffordtpu_torch.nn.mlp_vae import l2_normalize
+from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
+from cliffordtpu_torch.nn.rope import apply_rotary_half, rope_2d_cos_sin
+
+__all__ = [
+    "rope_2d_cos_sin", "apply_rotary_half", "RMSNorm", "GroupNorm",
+    "SwiGLU", "Attention", "TransformerBlock", "ResDownBlock", "ResUpBlock",
+    "ViTEncoder", "ViTDecoder", "default_config", "CliffordARVAE",
+]
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm(epsilon=1e-6)``: statistics in float32, returns the
+    input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        ms = xf.pow(2).mean(-1, keepdim=True)
+        return (xf * (torch.rsqrt(ms + self.eps) * self.weight)).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``_gn``: groups = min(32, max(1, ch // 4)), eps 1e-6, statistics
+    in float32, returns the input dtype."""
+
+    def __init__(self, ch: int):
+        super().__init__(min(32, max(1, ch // 4)), ch, eps=1e-6)
+
+    def forward(self, x):
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+def _linear(d_in, d_out, dtype, bias=False):
+    return nn.Linear(d_in, d_out, bias=bias, dtype=dtype)
+
+
+class SwiGLU(nn.Module):
+    """w2(silu(w1 x) * w3 x), d_ff = 8/3 d rounded up to 256."""
+
+    def __init__(self, d_model: int, dtype=torch.float32):
+        super().__init__()
+        d_ff = ((int(d_model * 8 / 3) + 255) // 256) * 256
+        self.w1 = _linear(d_model, d_ff, dtype)
+        self.w3 = _linear(d_model, d_ff, dtype)
+        self.w2 = _linear(d_ff, d_model, dtype)
+
+    def forward(self, x):
+        x = x.to(self.w1.weight.dtype)
+        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+
+
+class Attention(nn.Module):
+    """Non-causal multi-head attention with 2-D RoPE.  The projections are
+    plain matrix products; the core is the fused kernel."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.n_heads = n_heads
+        self.wq = _linear(d_model, d_model, dtype)
+        self.wk = _linear(d_model, d_model, dtype)
+        self.wv = _linear(d_model, d_model, dtype)
+        self.wo = _linear(d_model, d_model, dtype)
+
+    def forward(self, x, cos, sin):
+        B, S, D = x.shape
+        x = x.to(self.wq.weight.dtype)
+        heads = (B, S, self.n_heads, D // self.n_heads)
+        q = self.wq(x).view(heads)
+        k = self.wk(x).view(heads)
+        v = self.wv(x).view(heads)
+        out = attention_kernel.fused_attention(q, k, v, cos, sin)
+        return self.wo(out.reshape(B, S, D))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm block: x + attn(norm1(x)), then + ffn(norm2(x))."""
+
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.norm1 = RMSNorm(d_model)
+        self.attn = Attention(d_model, n_heads, dtype)
+        self.norm2 = RMSNorm(d_model)
+        self.ffn = SwiGLU(d_model, dtype)
+
+    def forward(self, x, cos, sin):
+        x = x + self.attn(self.norm1(x), cos, sin).to(x.dtype)
+        return x + self.ffn(self.norm2(x)).to(x.dtype)
+
+
+def _conv(c_in, c_out, k, stride=1, padding=0, dtype=torch.float32):
+    return nn.Conv2d(c_in, c_out, k, stride=stride, padding=padding,
+                     bias=False, dtype=dtype)
+
+
+def _conv_t(c_in, c_out, k, padding, dtype):
+    # flax ConvTranspose stride 2: 4x4 "SAME" == torch padding 1,
+    # 2x2 "VALID" == padding 0 (with the kernel flipped, param_import.py)
+    return nn.ConvTranspose2d(c_in, c_out, k, stride=2, padding=padding,
+                              bias=False, dtype=dtype)
+
+
+class ResDownBlock(nn.Module):
+    """GN, SiLU, 3x3 s2 conv, GN, SiLU, 3x3 conv, plus a 2x2 s2 shortcut.
+    NCHW in and out."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
+        super().__init__()
+        self.norm1 = GroupNorm(in_ch)
+        self.conv1 = _conv(in_ch, out_ch, 3, 2, 1, dtype)
+        self.norm2 = GroupNorm(out_ch)
+        self.conv2 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.shortcut = _conv(in_ch, out_ch, 2, 2, 0, dtype)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        return self.shortcut(x) + h
+
+
+class ResUpBlock(nn.Module):
+    """Decoder up-block with the extra two-conv residual.  NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
+        super().__init__()
+        self.norm1 = GroupNorm(in_ch)
+        self.conv1 = _conv_t(in_ch, out_ch, 4, 1, dtype)
+        self.norm2 = GroupNorm(out_ch)
+        self.conv2 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.shortcut = _conv_t(in_ch, out_ch, 2, 0, dtype)
+        self.norm3 = GroupNorm(out_ch)
+        self.conv3 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.norm4 = GroupNorm(out_ch)
+        self.conv4 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
+
+    def forward(self, x):
+        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv2(F.silu(self.norm2(h)))
+        x = self.shortcut(x) + h
+        h = self.conv3(F.silu(self.norm3(x)))
+        h = self.conv4(F.silu(self.norm4(h)))
+        return x + h
+
+
+class _RopeStack(nn.Module):
+    """Register tokens + the RoPE tables + the transformer layers, shared
+    by the encoder and the decoder."""
+
+    def __init__(self, n_layers, n_heads, d_model, image_size, patch_size,
+                 register_tokens, dtype):
+        super().__init__()
+        self.register_tokens = register_tokens
+        self.register_token = nn.Parameter(
+            torch.zeros(register_tokens, d_model))
+        cos, sin = rope_2d_cos_sin(image_size, image_size // patch_size,
+                                   d_model // n_heads,
+                                   cls_token_num=register_tokens)
+        self.register_buffer("rope_cos", torch.from_numpy(cos),
+                             persistent=False)
+        self.register_buffer("rope_sin", torch.from_numpy(sin),
+                             persistent=False)
+        self.layers = nn.ModuleList(
+            TransformerBlock(d_model, n_heads, dtype) for _ in range(n_layers))
+
+    def run_blocks(self, x):
+        """(B, T, D) tokens -> (B, T, D), registers prepended then dropped."""
+        reg = self.register_token.to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([reg, x], dim=1)
+        for layer in self.layers:
+            x = layer(x, self.rope_cos, self.rope_sin)
+        return x[:, self.register_tokens:]
+
+
+class ViTEncoder(_RopeStack):
+    """Conv patchify -> ViT blocks -> RMSNorm + Dense (float32).
+    Image (B, H, W, C) -> tokens (B, T, d_model)."""
+
+    def __init__(self, n_layers: int, n_heads: int, d_model: int,
+                 cnn_chs: Sequence[int], image_size: int, patch_size: int,
+                 in_channels: int, register_tokens: int = 4,
+                 dtype=torch.float32):
+        super().__init__(n_layers, n_heads, d_model, image_size, patch_size,
+                         register_tokens, dtype)
+        self.conv_in = _conv(in_channels, cnn_chs[0], 3, 1, 1, dtype)
+        self.down = nn.ModuleList(
+            ResDownBlock(a, b, dtype) for a, b in zip(cnn_chs, cnn_chs[1:]))
+        self.norm = RMSNorm(d_model)
+        self.output = _linear(d_model, d_model, torch.float32)
+
+    def forward(self, image):
+        x = image.permute(0, 3, 1, 2).to(self.conv_in.weight.dtype)
+        x = self.conv_in(x)
+        for block in self.down:
+            x = block(x)
+        x = x.flatten(2).transpose(1, 2)  # (B, H*W, C), row-major tokens
+        x = self.run_blocks(x)
+        return self.output(self.norm(x.float()))
+
+
+class ViTDecoder(_RopeStack):
+    """Conv in -> ViT blocks -> conv unpatchify.  Tokens (B, T, d_model)
+    -> image (B, H, W, out_channels)."""
+
+    def __init__(self, n_layers: int, n_heads: int, d_model: int,
+                 cnn_chs: Sequence[int], out_channels: int, image_size: int,
+                 patch_size: int, register_tokens: int = 4,
+                 dtype=torch.float32):
+        super().__init__(n_layers, n_heads, d_model, image_size, patch_size,
+                         register_tokens, dtype)
+        self.compute_dtype = dtype
+        self.conv_in = _conv(d_model, d_model, 3, 1, 1, torch.float32)
+        self.up = nn.ModuleList(
+            ResUpBlock(a, b, dtype) for a, b in zip(cnn_chs, cnn_chs[1:]))
+        self.norm_out = GroupNorm(cnn_chs[-1])
+        self.conv_out = _conv(cnn_chs[-1], out_channels, 3, 1, 1,
+                              torch.float32)
+
+    def forward(self, x):
+        B, T, C = x.shape
+        g = math.isqrt(T)
+        h = self.conv_in(x.float().transpose(1, 2).reshape(B, C, g, g))
+        x = h.flatten(2).transpose(1, 2).to(self.compute_dtype)
+        x = self.run_blocks(x)
+        x = x.transpose(1, 2).reshape(B, -1, g, g)
+        for block in self.up:
+            x = block(x)
+        x = self.conv_out(F.silu(self.norm_out(x.float())))
+        return x.permute(0, 2, 3, 1)
+
+
+def default_config(image_size: int) -> dict:
+    """Per-image-size defaults (``cliffordtpu/nn/vit_vae.py:462``)."""
+    if image_size == 256:
+        return dict(cnn_chs=[64, 64, 128, 256, 512], z_channels=512,
+                    encoder_vit_layers=6, decoder_vit_layers=12,
+                    patch_size=16)
+    if image_size == 64:
+        return dict(cnn_chs=[64, 128, 256, 512], z_channels=512,
+                    encoder_vit_layers=4, decoder_vit_layers=8, patch_size=8)
+    if image_size == 32:
+        return dict(cnn_chs=[64, 256, 512], z_channels=512,
+                    encoder_vit_layers=4, decoder_vit_layers=8, patch_size=4)
+    num_stages = max(1, int(math.log2(image_size)) - 3)
+    chs, c = [64], 64
+    for _ in range(num_stages):
+        c = min(c * 2, 512)
+        chs.append(c)
+    return dict(cnn_chs=chs, z_channels=chs[-1], encoder_vit_layers=4,
+                decoder_vit_layers=8,
+                patch_size=image_size // (2 ** num_stages))
+
+
+class CliffordARVAE(nn.Module):
+    """Hybrid CNN+ViT S-VAE with per-token Clifford-torus latents, forward
+    path: ``encode_heads``, ``reparam``, ``decode``, ``get_flat_latent``.
+
+    ``seed`` makes the random initialisation (xavier-uniform weights,
+    unit-normal register tokens, zero biases) reproducible; weights
+    carried from JAX replace it (``nn/param_import.py``)."""
+
+    def __init__(self, latent_dim: int = 16, image_size: int = 256,
+                 in_channels: int = 3, distribution: str = "clifford",
+                 cnn_chs: Optional[Sequence[int]] = None,
+                 z_channels: Optional[int] = None,
+                 encoder_vit_layers: Optional[int] = None,
+                 decoder_vit_layers: Optional[int] = None,
+                 patch_size: Optional[int] = None, register_tokens: int = 4,
+                 concentration_floor: float = 0.03,
+                 compute_dtype: torch.dtype = torch.float32, seed: int = 0):
+        super().__init__()
+        if distribution != "clifford":
+            raise NotImplementedError(
+                f"only the clifford latent is ported, not {distribution!r}")
+        if compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, "
+                             f"got {compute_dtype}")
+        cfg = default_config(image_size)
+        cnn_chs = list(cnn_chs or cfg["cnn_chs"])
+        zc = z_channels or cfg["z_channels"]
+        patch_size = patch_size or cfg["patch_size"]
+        n_heads = max(1, zc // 64)
+        self.latent_dim = latent_dim
+        self.image_size = image_size
+        self.in_channels = in_channels
+        self.distribution = distribution
+        self.concentration_floor = concentration_floor
+        self.compute_dtype = compute_dtype
+        grid = image_size // (2 ** (len(cnn_chs) - 1))
+        self.num_tokens = grid * grid
+        self.encoder_vit = ViTEncoder(
+            encoder_vit_layers or cfg["encoder_vit_layers"], n_heads, zc,
+            cnn_chs, image_size, patch_size, in_channels, register_tokens,
+            compute_dtype)
+        self.quant_proj = _linear(zc, latent_dim + 1, torch.float32,
+                                  bias=True)
+        self.post_quant_proj = _linear(2 * latent_dim, zc, torch.float32)
+        self.decoder_vit = ViTDecoder(
+            decoder_vit_layers or cfg["decoder_vit_layers"], n_heads, zc,
+            cnn_chs[::-1], in_channels, image_size, patch_size,
+            register_tokens, compute_dtype)
+        self.reset_parameters(seed)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int):
+        """JAX's initialisers, drawn in float32 from ``seed`` and rounded
+        into each parameter's dtype (so both compute dtypes start from the
+        same weights)."""
+        gen = torch.Generator().manual_seed(seed)
+        for name, p in self.named_parameters():
+            if name.endswith("register_token"):
+                val = torch.randn(p.shape, generator=gen)
+            elif name.endswith(".bias"):
+                val = torch.zeros(p.shape)
+            elif p.dim() == 1:  # norm scales
+                val = torch.ones(p.shape)
+            else:
+                rf = p[0, 0].numel()  # receptive field (1 for Linear)
+                limit = math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * rf))
+                val = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
+            p.copy_(val)
+
+    def encode_heads(self, x):
+        """Image (B, H, W, C) -> per-token (mu (B, T, d), kappa (B, T)),
+        kappa = clip(softplus(.) + floor, <= 10)."""
+        proj = self.quant_proj(self.encoder_vit(x))
+        mu, kappa = proj[..., :-1], proj[..., -1]
+        kappa = torch.clamp(F.softplus(kappa) + self.concentration_floor,
+                            max=10.0)
+        return mu, kappa
+
+    def reparam(self, mu, kappa, key):
+        """Per-token torus latents (B, T, 2d) drawn with the sampling
+        ``key`` (two uint32 words)."""
+        q_z = reparameterize(self.distribution, mu,
+                             kappa[..., None].expand(mu.shape),
+                             self.latent_dim)
+        return sample_latent(key, self.distribution, q_z)
+
+    def decode(self, z):
+        """(B, T, 2d) or flat (B, T*2d) latents -> image (B, H, W, C)."""
+        if z.dim() == 2:
+            z = z.reshape(z.shape[0], self.num_tokens, 2 * self.latent_dim)
+        return self.decoder_vit(self.post_quant_proj(z))
+
+    def get_flat_latent(self, x, key):
+        """(B, num_tokens * 2d) sampled latents."""
+        mu, kappa = self.encode_heads(x)
+        z = self.reparam(mu, kappa, key)
+        return z.reshape(z.shape[0], -1)
+
+    def normalize(self, x):
+        """L2 normalise * sqrt(d)."""
+        return l2_normalize(x) * (self.latent_dim ** 0.5)

@@ -1,0 +1,111 @@
+"""Clifford-torus embedding as an exact real DFT (port of
+``cliffordtpu/ops/torus.py``).
+
+d phase angles embed in R^{2d} as
+
+    x_j = c_j + sum_{k=1}^{d-1} cos(th_k) C[k, j] + sin(th_k) S[k, j]
+
+with n = 2d, C[k, j] = (2/n) cos(2 pi k j / n), S[k, j] = -(2/n)
+sin(2 pi k j / n) and c_j = (1 + (-1)^j) / n.  Angle index 0 is pinned to
+phase 0: only the d-1 angles 1..d-1 enter.  This module is the plain
+embedding; the fused sampler kernel (``kernels/sampler.py``) builds the
+same basis in its own body.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# above this latent dim the reference switches to an FFT; not ported
+MATMUL_MAX_DIM = 4096
+# up to this dim the bases are host float64 -> float32 constants; above
+# it they are made on the device from int32 (k*j) mod n phases
+HOST_CONST_MAX_DIM = 512
+
+
+@functools.lru_cache(maxsize=32)
+def _torus_bases_host(d: int):
+    n = 2 * d
+    k = np.arange(1, d, dtype=np.float64)
+    j = np.arange(n, dtype=np.float64)
+    phase = 2.0 * np.pi * np.outer(k, j) / n
+    cos_b = (2.0 / n) * np.cos(phase)
+    sin_b = -(2.0 / n) * np.sin(phase)
+    const = (1.0 + np.cos(np.pi * j)) / n
+    return (cos_b.astype(np.float32), sin_b.astype(np.float32),
+            const.astype(np.float32))
+
+
+def _torus_bases_device(d: int, device):
+    """The bases from int32 phases: (k*j) reaches 33.5M at d = 4096,
+    beyond float32's exact integers, while (k*j) mod n is always exact."""
+    n = 2 * d
+    k = torch.arange(1, d, dtype=torch.int32, device=device)
+    j = torch.arange(n, dtype=torch.int32, device=device)
+    kj = (k[:, None] * j[None, :]) % n
+    phase = kj.to(torch.float32) * torch.tensor(
+        2.0 * np.pi / n, dtype=torch.float32)
+    cos_b = (2.0 / n) * torch.cos(phase)
+    sin_b = -(2.0 / n) * torch.sin(phase)
+    const = (1.0 + torch.cos(np.pi * j.to(torch.float32))) / n
+    return cos_b, sin_b, const
+
+
+def torus_bases(d: int, device=None):
+    """(C, S, c): (d-1, 2d), (d-1, 2d), (2d,) float32 on ``device``."""
+    if d > HOST_CONST_MAX_DIM:
+        return _torus_bases_device(d, device)
+    return tuple(torch.from_numpy(b).to(device) for b in _torus_bases_host(d))
+
+
+@functools.lru_cache(maxsize=32)
+def _fft_bases_host(d: int):
+    n = 2 * d
+    j = np.arange(n, dtype=np.float64)
+    k = np.arange(d, dtype=np.float64)
+    phase = 2.0 * np.pi * np.outer(j, k) / n
+    return np.cos(phase).astype(np.float32), -np.sin(phase).astype(np.float32)
+
+
+def _fft_bases(d: int, device):
+    if d > HOST_CONST_MAX_DIM:
+        n = 2 * d
+        j = torch.arange(n, dtype=torch.int32, device=device)
+        k = torch.arange(d, dtype=torch.int32, device=device)
+        phase = ((j[:, None] * k[None, :]) % n).to(torch.float32) * \
+            torch.tensor(2.0 * np.pi / n, dtype=torch.float32)
+        return torch.cos(phase), -torch.sin(phase)
+    return tuple(torch.from_numpy(b).to(device) for b in _fft_bases_host(d))
+
+
+def _check_dim(d: int):
+    if not 2 <= d <= MATMUL_MAX_DIM:
+        raise ValueError(
+            f"latent dim {d} outside [2, {MATMUL_MAX_DIM}]; the FFT path "
+            "for larger dims is not ported")
+
+
+def angles_to_torus(angles: torch.Tensor) -> torch.Tensor:
+    """Embed d angles (..., d) onto the Clifford torus in R^{2d}."""
+    d = angles.shape[-1]
+    _check_dim(d)
+    cos_b, sin_b, const = (b.to(angles.dtype)
+                           for b in torus_bases(d, angles.device))
+    th = angles[..., 1:]
+    return torch.cos(th) @ cos_b + torch.sin(th) @ sin_b + const
+
+
+def torus_to_angles(x: torch.Tensor) -> torch.Tensor:
+    """Recover d angles from a torus point (..., 2d): ``angle(fft(x)[:d])``."""
+    d = x.shape[-1] // 2
+    _check_dim(d)
+    cos_b, sin_b = (b.to(x.dtype) for b in _fft_bases(d, x.device))
+    return torch.atan2(x @ sin_b, x @ cos_b)
+
+
+def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
+    """Wrap angles to (-pi, pi]."""
+    return torch.atan2(torch.sin(theta), torch.cos(theta))

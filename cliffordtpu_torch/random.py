@@ -1,0 +1,109 @@
+"""The pieces of ``jax.random`` the port needs, bit for bit.
+
+Threefry-2x32 is counter-based, so there is no hidden generator: a key is
+two uint32 words that the caller passes, and every draw is a pure function
+of (key, counter).  Under jax's partitionable threefry (the default on
+jax 0.9):
+
+* ``split(key)[i] = threefry2x32(key, hi=0, lo=i)``
+  (``jax._src.prng._threefry_split_foldlike``);
+* the 32 random bits at flat index q of a draw are
+  ``x0 ^ x1`` with ``(x0, x1) = threefry2x32(key, hi=0, lo=q)``
+  (``_threefry_random_bits_partitionable``);
+* ``uniform`` turns bits into a float with the mantissa trick and
+  ``max(minval, f * (maxval - minval) + minval)`` in float32
+  (``jax._src.random._uniform``).
+
+Words are held in int64 tensors masked to 32 bits, so every operation is
+exact on any device.  The CUDA sampler kernel (``csrc/sampler_keyed.cu``)
+computes the same words and is held to these functions bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+Key = Union[Sequence[int], np.ndarray, torch.Tensor]
+
+
+def key_words(key: Key) -> Tuple[int, int]:
+    """A key as two Python ints in [0, 2**32): accepts a pair of ints, a
+    uint32 array of shape (2,) (a raw ``jax.random.PRNGKey``) or a tensor."""
+    if isinstance(key, torch.Tensor):
+        key = key.detach().cpu().numpy()
+    words = [int(w) for w in np.asarray(key).reshape(-1)]
+    if len(words) != 2:
+        raise ValueError(f"a key is two uint32 words, got {len(words)}")
+    if any(not 0 <= w <= _MASK for w in words):
+        raise ValueError(f"key words must lie in [0, 2**32), got {words}")
+    return words[0], words[1]
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds, key injection every 4) on uint32 words
+    held in int64 tensors or in Python ints; returns (x0, x1) alike."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0, x1
+
+
+def split_words(key: Key, num: int = 2) -> List[Tuple[int, int]]:
+    """``jax.random.split`` on the host: ``num`` keys as pairs of ints.
+    Python ints run the same threefry code as tensors, without launching
+    a tensor operation per step."""
+    k0, k1 = key_words(key)
+    return [threefry2x32(k0, k1, 0, i) for i in range(num)]
+
+
+def split(key: Key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: an int64 tensor (num, 2) of new keys (CPU)."""
+    return torch.tensor(split_words(key, num), dtype=torch.int64)
+
+
+def random_bits(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """32 random bits per element (int64 in [0, 2**32)), the words
+    ``jax.random.bits(key, shape)`` gives."""
+    k0, k1 = key_words(key)
+    n = int(np.prod(shape, dtype=np.int64))
+    if n > 2 ** 32:
+        raise ValueError("counters beyond 2**32 need the hi word; not ported")
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return (x0 ^ x1).reshape(tuple(shape))
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0
+                      ) -> torch.Tensor:
+    """uint32 words -> float32 uniforms in [minval, 1), exactly as
+    ``jax.random.uniform`` does: mantissa float f in [0, 1), then
+    ``max(minval, f * (1 - minval) + minval)`` in float32."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0:
+        return f  # max(0, f * 1 + 0) == f for f in [0, 1)
+    mv = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    scale = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - mv
+    return torch.maximum(mv, f * scale + mv)
+
+
+def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
+            device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval)`` bit for bit."""
+    return uniform_from_bits(random_bits(key, shape, device), minval)

@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Where a serving request's time goes in the PyTorch port, on one GPU.
+
+    python3 scripts/torch_profile_serving.py [--out-dir profiles]
+
+Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``, seeded
+random weights) in float32 and in bfloat16 compute, warms each entry point
+up, then traces 5 batch-64 requests of each with ``torch.profiler``.
+For each (dtype, entry point) it prints one JSON line: the request's wall
+time (host clock, ends in a synchronise), the device's busy time (union of
+kernel intervals) and idle share, and device time by kernel class
+(attention kernel, sampler kernel, GEMM, convolution, norm, other).  The
+full per-kernel table goes to ``<out-dir>/profile_<dtype>_<entry>.txt``.
+Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BATCH = 64
+REQUESTS = 5  # traced per (dtype, entry point), after 3 warm-up calls
+CLASSES = (  # first match wins, on the lower-cased kernel name
+    ("attention_kernel", ("attention_fwd_kernel",)),
+    ("sampler_kernel", ("keyed_sample_embed",)),
+    ("conv", ("conv", "cudnn", "fprop", "dgrad", "implicit", "winograd",
+              "nchw", "nhwc")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "matmul", "cublas", "splitk")),
+    ("norm", ("norm", "welford", "moments")),
+)
+
+
+def classify(name: str) -> str:
+    low = name.lower()
+    for label, keys in CLASSES:
+        if any(k in low for k in keys):
+            return label
+    return "other"
+
+
+def kernel_events(prof):
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(events) -> float:
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out-dir", default="profiles",
+                    help="where the per-kernel tables go (relative paths "
+                         "are taken from the repository root)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from cliffordtpu_torch import serving
+    from cliffordtpu_torch.kernels import build
+    from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
+    build.build_all()
+    out_dir = os.path.join(ROOT, args.out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.rand(BATCH, 32, 32, 1, generator=gen, device="cuda") * 2 - 1
+    for dtype in (torch.float32, torch.bfloat16):
+        srv = serving.CliffordARServing(
+            CliffordARVAE(latent_dim=16, image_size=32, in_channels=1,
+                          compute_dtype=dtype, seed=0))
+        z = srv.encode_z((0, 1), x)
+        calls = {"encode_mu": lambda: srv.encode_mu(x),
+                 "encode_z": lambda: srv.encode_z((0, 1), x),
+                 "decode": lambda: srv.decode(z)}
+        for name, fn in calls.items():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            walls = []
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(REQUESTS):
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+            events = kernel_events(prof)
+            by_class = {}
+            for e in events:
+                c = classify(e.name)
+                by_class[c] = by_class.get(c, 0.0) + (
+                    e.time_range.end - e.time_range.start) / 1e3
+            n = REQUESTS
+            wall = sum(walls) / n
+            busy = busy_us(events) / 1e3 / n
+            tag = f"{str(dtype).replace('torch.', '')}_{name}"
+            with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_cuda_time_total", row_limit=40))
+            print(json.dumps({
+                "dtype": str(dtype).replace("torch.", ""), "entry": name,
+                "batch": BATCH, "requests": n,
+                "wall_ms_per_request": wall,
+                "device_busy_ms_per_request": busy,
+                "idle_share": 1.0 - busy / wall if wall else None,
+                "kernels_per_request": len(events) / n,
+                "device_ms_per_request_by_class": {
+                    k: v / n for k, v in sorted(by_class.items())},
+            }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
