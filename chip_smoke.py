@@ -10,8 +10,9 @@ Phases, each printing one JSON line and each fatal when it fails:
 1. env      the card (``nvidia-smi`` name and power limit), torch, CUDA;
 2. build    every ``cliffordtpu_torch/csrc/*.cu`` compiled from the
             checkout, all at once, into ``build/cliffordtpu_torch``;
-3. kernels  each CUDA kernel against its plain PyTorch version on the card
-            at the serving path's shapes, with its device time (CUDA
+3. kernels  each CUDA kernel (attention forward and backward, keyed
+            sampler, torus backward) against its plain PyTorch version on
+            the card at the main paths' shapes, with its device time (CUDA
             events, median after warm-up; see ``cuda_ms``), the plain
             version's, a PyTorch library call's where one computes the same
             function, and its bound;
@@ -26,6 +27,17 @@ Phases, each printing one JSON line and each fatal when it fails:
             the float32 outputs must match the same requests with the
             plain versions swapped in explicitly (<= 5e-4), and the
             bfloat16 outputs the float32 ones within ``BF16_BARS``;
+5. train    the same model takes ``TRAIN_STEPS`` AdamW steps (lr 1e-4,
+            global-norm clip 1) on one fixed batch of 64 through
+            ``create_train_state`` / ``make_cnn_train_step``, in float32
+            and in bfloat16 compute, after one warm-up step.  Every step
+            must move the launch counts by exactly 12 (attention forward),
+            12 (attention backward), 1 (sampler), 1 (torus backward); every
+            loss must be finite and the last total loss below the first.
+            Then, in float32, the loss pieces and every parameter's gradient
+            of the first step are held against the same step with the plain
+            versions swapped in (``TRAIN_BARS``), and the bfloat16 first
+            loss and gradients against the float32 ones;
 
 then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -55,6 +67,21 @@ REQUESTS = 6  # per entry point and dtype; the first is the warm-up
 # times the largest difference bfloat16 rounding gave on an H100 (0.053
 # rad, 0.0098, 0.052), far below what a wrong cast or dtype would give
 BF16_BARS = {"encode_mu": 0.25, "encode_z": 0.05, "decode": 0.25}
+TRAIN_STEPS = 10  # timed, after one warm-up step
+PER_STEP = {"attention_fwd": 12, "attention_bwd": 12, "sampler_keyed": 1,
+            "torus_bwd": 1}
+# float32 train step with the kernels against the same step with the plain
+# versions: each loss piece relative to its value; the gradients' global
+# l2 error relative to the global gradient norm, and every parameter's
+# largest gradient error relative to that norm.  Both sides run the same
+# float32 library GEMMs and convolutions, so only the kernels' summation
+# order differs (about 1e-6 relative).  The bfloat16 first-step total loss
+# lies within 2% of the float32 one (bfloat16 keeps 8 bits of mantissa),
+# and the bfloat16 gradients' global l2 error within 15% of the float32
+# gradient norm (rounding noise through 12 blocks; 4% on the tiny model of
+# the CPU tests), far below what a wrong backward gives (100% or more).
+TRAIN_BARS = {"loss_rel": 1e-4, "grad_l2_rel": 1e-3, "grad_max_rel": 5e-4,
+              "bf16_loss_rel": 2e-2, "bf16_grad_l2_rel": 0.15}
 
 
 def emit(phase: str, **fields):
@@ -143,6 +170,115 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
         library_ms=library, bound_ms=b_ms, bound_by=b_by)
 
 
+def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
+    dev = DEVICE
+    q, k, v, d_out = (torch.randn(B, S, H, hd, generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+    cos = sin = None
+    if use_rope:
+        c, s = rope.rope_2d_cos_sin(32, math.isqrt(S - 4), hd,
+                                    cls_token_num=4)
+        cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(s).to(dev)
+    got = attention.fused_attention_bwd(q, k, v, cos, sin, d_out)
+    want = attention.attention_bwd_plain(q, k, v, cos, sin, d_out)
+    torch.cuda.synchronize()
+    errs, scales = {}, {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = (a.float() - b.float()).abs().max().item()
+        scales[name] = b.float().abs().max().item()
+        bar = (1e-5 if dtype == torch.float32 else 2e-2) * max(
+            1.0, scales[name])
+        check(bool(torch.isfinite(a).all()) and errs[name] <= bar,
+              f"attention_bwd {dtype} S={S} {name}: err {errs[name]} > {bar}")
+    # through autograd, as the model reaches the kernel
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = attention.bwd_launches
+    auto = torch.autograd.grad(
+        attention.fused_attention(qg, kg, vg, cos, sin), (qg, kg, vg), d_out)
+    check(attention.bwd_launches == before + 1,
+          "autograd of fused_attention did not launch the backward kernel")
+    check(all(torch.equal(a, b) for a, b in zip(auto, got)),
+          "autograd of fused_attention differs from fused_attention_bwd")
+    # the library yardstick: autograd through SDPA on the already-rotated
+    # heads (B, H, S, hd), graph retained
+    qr, kr = q, k
+    if use_rope:
+        qr = rope.apply_rotary_half(q.float(), cos, sin).to(dtype)
+        kr = rope.apply_rotary_half(k.float(), cos, sin).to(dtype)
+    qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (qr, kr, v))
+    doh = d_out.transpose(1, 2).contiguous()
+    out = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
+    # q, k, v, dO read; dq, dk, dv written; five S x S x hd products
+    nbytes = 7 * q.numel() * q.element_size() + (
+        0 if cos is None else 2 * cos.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 10.0 * B * H * S * S * hd, dtype)
+    kernel = cuda_ms(
+        lambda: attention.fused_attention_bwd(q, k, v, cos, sin, d_out))
+    plain = cuda_ms(
+        lambda: attention.attention_bwd_plain(q, k, v, cos, sin, d_out))
+    library = cuda_ms(lambda: torch.autograd.grad(
+        out, (qh, kh, vh), doh, retain_graph=True))
+    return dict(
+        B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
+        rope=use_rope, max_abs_err=max(errs.values()), errors=errs,
+        scales=scales, ms=kernel, plain_ms=plain, library_ms=library,
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def torus_bwd_case(torus, sampler, R, d, epilogue, gen):
+    """The torus backward kernel alone (``torus_bwd``), or with the keyed
+    sampler's concentration epilogue (``sampler_bwd``) on the residuals of
+    a forward draw with one kappa per row."""
+    dev = DEVICE
+    g = torch.randn(R, 2 * d, generator=gen, device=dev)
+    if epilogue:
+        loc = (torch.rand(R, d, generator=gen, device=dev) * 2 - 1) * math.pi
+        kappa = torch.rand((R, 1), generator=gen, device=dev) * 10 + 0.03
+        _, theta, u, v = sampler.sample_embed_keyed((0, 77 + R + d), loc,
+                                                    kappa)
+        run = lambda: torus.sampler_bwd(theta, u, v, kappa, g)
+        run_plain = lambda: torus.sampler_bwd_plain(theta, u, v, kappa, g)
+        names = ("dloc", "dkappa")
+        # theta, u, v, g, kappa read; dloc, dkappa (R, d) written
+        nbytes = 4 * (3 * theta.numel() + g.numel() + kappa.numel()
+                      + 2 * R * d)
+    else:
+        theta = (torch.rand(R, d - 1, generator=gen, device=dev) * 2 - 1) \
+            * math.pi
+        run = lambda: (torus.torus_bwd(theta, g),)
+        run_plain = lambda: (torus.torus_bwd_plain(theta, g),)
+        names = ("dtheta",)
+        nbytes = 4 * (2 * theta.numel() + g.numel())
+    got, want = run(), run_plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b in zip(names, got, want):
+        errs[name] = (a - b).abs().max().item()
+        bar = 1e-5 * max(1.0, b.abs().max().item())
+        check(a.shape == b.shape and bool(torch.isfinite(a).all())
+              and errs[name] <= bar,
+              f"torus_bwd R={R} d={d} {name}: err {errs[name]} > {bar}")
+    if epilogue:
+        check(bool((got[0][:, 0] == 0).all() and (got[1][:, 0] == 0).all()),
+              "sampler_bwd: column 0 (the pinned angle) is not zero")
+        # through autograd, as the model reaches the kernel
+        lg, kg = loc.clone().requires_grad_(), kappa.clone().requires_grad_()
+        before = torus.launches
+        x, _, _, _ = sampler.sample_embed_keyed((0, 77 + R + d), lg, kg)
+        a_loc, a_kap = torch.autograd.grad(x, (lg, kg), g)
+        check(torus.launches == before + 1,
+              "autograd of sample_embed_keyed did not launch torus_bwd")
+        check(torch.equal(a_loc, got[0]) and bool(torch.allclose(
+            a_kap, got[1].sum(1, keepdim=True), rtol=1e-5, atol=1e-6)),
+            "autograd of sample_embed_keyed differs from sampler_bwd")
+    # two float32 multiply-adds per (row, angle, column)
+    b_ms, b_by = bound_ms(nbytes, 8.0 * R * (d - 1) * d, torch.float32)
+    return dict(R=R, d=d, epilogue=epilogue, max_abs_err=max(errs.values()),
+                errors=errs, ms=cuda_ms(run), plain_ms=cuda_ms(run_plain),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
 def sampler_case(sampler, R, d, per_row_kappa, gen):
     dev = DEVICE
     loc = (torch.rand(R, d, generator=gen, device=dev) * 2 - 1) * math.pi
@@ -174,7 +310,9 @@ def sampler_case(sampler, R, d, per_row_kappa, gen):
 @contextlib.contextmanager
 def plain_versions(attention, sampler):
     """Swap the plain PyTorch versions in for the kernels, so the same
-    requests can be answered without them on the card."""
+    requests can be answered, and the same step taken, without them on the
+    card: autograd then differentiates the plain forward versions, and no
+    backward kernel is reached either."""
     saved = attention.fused_attention, sampler.sample_embed_keyed
     attention.fused_attention = attention.attention_plain
     sampler.sample_embed_keyed = sampler.sample_embed_keyed_plain
@@ -184,12 +322,15 @@ def plain_versions(attention, sampler):
         attention.fused_attention, sampler.sample_embed_keyed = saved
 
 
+def flagship(vit_vae, dtype):
+    return vit_vae.CliffordARVAE(latent_dim=16, image_size=32, in_channels=1,
+                                 compute_dtype=dtype, seed=0)
+
+
 def serve(serving, vit_vae, attention, sampler, dtype, images):
     """Answer REQUESTS batch-64 requests per entry point; returns the
     outputs of the last request, latencies and the launch counts."""
-    model = vit_vae.CliffordARVAE(latent_dim=16, image_size=32,
-                                  in_channels=1, compute_dtype=dtype, seed=0)
-    srv = serving.CliffordARServing(model, device=DEVICE)
+    srv = serving.CliffordARServing(flagship(vit_vae, dtype), device=DEVICE)
     per_request = {"encode_mu": (4, 0), "encode_z": (4, 1), "decode": (8, 0)}
     lat = {name: [] for name in per_request}
     attention.launches = sampler.launches = 0
@@ -224,6 +365,109 @@ def serve(serving, vit_vae, attention, sampler, dtype, images):
     return srv, outs, lat, counts
 
 
+def launch_counts(attention, sampler, torus):
+    return {"attention_fwd": attention.launches,
+            "attention_bwd": attention.bwd_launches,
+            "sampler_keyed": sampler.launches, "torus_bwd": torus.launches}
+
+
+def train(mods, dtype, images):
+    """One warm-up and TRAIN_STEPS timed AdamW steps on one batch; returns
+    the per-step losses, the step times and the launch counts."""
+    vit_vae, state, loop, attention, sampler, torus = mods
+    st = state.create_train_state(flagship(vit_vae, dtype), optimizer="adamw",
+                                  lr=1e-4, device=DEVICE)
+    step = loop.make_cnn_train_step(st.model, st.optimizer)
+    beta = torch.ones((), device=DEVICE)
+    attention.launches = attention.bwd_launches = 0
+    sampler.launches = torus.launches = 0
+    history, ms = [], []
+    for i in range(TRAIN_STEPS + 1):
+        before = launch_counts(attention, sampler, torus)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step(images, (0, i), beta)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        after = launch_counts(attention, sampler, torus)
+        moved = {k: after[k] - before[k] for k in after}
+        check(moved == PER_STEP,
+              f"train step {i} {dtype}: launches moved {moved}, expected "
+              f"{PER_STEP}")
+        history.append({k: v.item() for k, v in losses.items()})
+        check(all(math.isfinite(v) for v in history[-1].values()),
+              f"train step {i} {dtype}: losses not finite: {history[-1]}")
+    counts = launch_counts(attention, sampler, torus)
+    check(history[-1]["total_loss"] < history[0]["total_loss"],
+          f"train {dtype}: total loss did not fall: "
+          f"{history[0]['total_loss']} -> {history[-1]['total_loss']}")
+    for p in st.model.parameters():
+        check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
+              f"train {dtype}: a parameter or gradient is not float32")
+    for moments in st.optimizer.inner.state.values():
+        check(moments["exp_avg"].dtype == torch.float32
+              and moments["exp_avg_sq"].dtype == torch.float32,
+              f"train {dtype}: an Adam moment is not float32")
+    return history, ms, counts
+
+
+def first_step(vit_vae, conv_vae, dtype, images):
+    """Loss pieces and gradients of the first train step (seeded weights,
+    key (0, 0), beta 1), without the update."""
+    model = flagship(vit_vae, dtype).to(DEVICE).train()
+    x_recon, q_z, p_z, _ = model(images, (0, 0))
+    losses = conv_vae.cnn_vae_loss(
+        images, x_recon, q_z, p_z, model.distribution, beta=1.0,
+        recon_loss_type=model.recon_loss_type, l1_weight=model.l1_weight)
+    losses["total_loss"].backward()
+    return ({k: v.item() for k, v in losses.items()},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+def train_check(mods, conv_vae, images):
+    vit_vae, _, _, attention, sampler, torus = mods
+    losses, grads = first_step(vit_vae, conv_vae, torch.float32, images)
+    bf16_losses, bf16_grads = first_step(vit_vae, conv_vae, torch.bfloat16,
+                                         images)
+    before = launch_counts(attention, sampler, torus)
+    with plain_versions(attention, sampler):
+        p_losses, p_grads = first_step(vit_vae, conv_vae, torch.float32,
+                                       images)
+    check(launch_counts(attention, sampler, torus) == before,
+          "the plain step launched a kernel")
+    loss_rel = {k: abs(losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-12)
+                for k in losses}
+    norm = math.sqrt(sum(g.double().pow(2).sum().item()
+                         for g in p_grads.values()))
+    err = math.sqrt(sum((grads[n] - p_grads[n]).double().pow(2).sum().item()
+                        for n in grads))
+    worst_name, worst = max(
+        ((n, (grads[n] - p_grads[n]).abs().max().item()) for n in grads),
+        key=lambda t: t[1])
+    bf16_rel = abs(bf16_losses["total_loss"] - losses["total_loss"]) / abs(
+        losses["total_loss"])
+    bf16_err = math.sqrt(sum(
+        (bf16_grads[n] - grads[n]).double().pow(2).sum().item()
+        for n in grads))
+    emit("train_check", loss_rel=loss_rel, grad_norm=norm,
+         grad_l2_rel=err / norm, grad_max_rel=worst / norm,
+         grad_max_param=worst_name, bf16_loss_rel=bf16_rel,
+         bf16_grad_l2_rel=bf16_err / norm, bars=TRAIN_BARS)
+    check(max(loss_rel.values()) <= TRAIN_BARS["loss_rel"],
+          f"float32 step, kernels vs plain: losses differ {loss_rel}")
+    check(err / norm <= TRAIN_BARS["grad_l2_rel"],
+          f"float32 step, kernels vs plain: gradient l2 error {err / norm}")
+    check(worst / norm <= TRAIN_BARS["grad_max_rel"],
+          f"float32 step, kernels vs plain: {worst_name} gradient error "
+          f"{worst / norm} of the global norm")
+    check(bf16_rel <= TRAIN_BARS["bf16_loss_rel"],
+          f"bfloat16 first loss {bf16_losses['total_loss']} vs float32 "
+          f"{losses['total_loss']}: {bf16_rel}")
+    check(bf16_err / norm <= TRAIN_BARS["bf16_grad_l2_rel"],
+          f"bfloat16 gradients vs float32: l2 error {bf16_err / norm} of "
+          f"the gradient norm")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -231,8 +475,9 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from cliffordtpu_torch import serving
-    from cliffordtpu_torch.kernels import attention, build, sampler
-    from cliffordtpu_torch.nn import rope, vit_vae
+    from cliffordtpu_torch.kernels import attention, build, sampler, torus
+    from cliffordtpu_torch.nn import conv_vae, rope, vit_vae
+    from cliffordtpu_torch.train import loop, state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -263,6 +508,19 @@ def main() -> int:
         att[label] = attention_case(attention, rope, BATCH, S, 8, 64, dtype,
                                     use_rope, gen)
         emit("kernel", kernel="attention_fwd", **att[label])
+    att_b = {}
+    for label, S, dtype, use_rope in (("f32", 68, torch.float32, True),
+                                      ("bf16", 68, torch.bfloat16, True),
+                                      ("f32_s17_norope", 17, torch.float32,
+                                       False)):
+        att_b[label] = attention_bwd_case(attention, rope, BATCH, S, 8, 64,
+                                          dtype, use_rope, gen)
+        emit("kernel", kernel="attention_bwd", **att_b[label])
+    tor = {}
+    for label, R, d, epilogue in (("flagship", BATCH * 64, 16, True),
+                                  ("d513", 64, 513, False)):
+        tor[label] = torus_bwd_case(torus, sampler, R, d, epilogue, gen)
+        emit("kernel", kernel="torus_bwd", **tor[label])
     smp = {}
     for label, R, d, per_row in (("flagship", BATCH * 64, 16, True),
                                  ("d513", 64, 513, False)):
@@ -301,6 +559,25 @@ def main() -> int:
         check(bf16_vs_f32[k] <= bar,
               f"{k}: bfloat16 vs float32 compute {bf16_vs_f32[k]} > {bar}")
 
+    mods = (vit_vae, state, loop, attention, sampler, torus)
+    trained = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        history, ms, counts = train(mods, dtype, images)
+        trained[label] = (history, counts)
+        emit("train", compute_dtype=label, batch=BATCH, steps=TRAIN_STEPS,
+             optimizer="adamw", lr=1e-4, launches=counts,
+             per_step_launches=PER_STEP,
+             median_ms_per_step=statistics.median(ms[1:]),
+             min_ms_per_step=min(ms[1:]), first_ms=ms[0],
+             first_losses=history[0], last_losses=history[-1])
+    train_check(mods, conv_vae, images)
+
+    def launched(name, *labels):
+        """Launches on the main paths: serving plus training."""
+        return sum(runs[d][2].get(name, 0) + trained[d][1][name]
+                   for d in labels)
+
     def entry(name, source, replaces, case, launches):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
@@ -310,15 +587,23 @@ def main() -> int:
 
     att_src = "cliffordtpu_torch/csrc/attention_fwd.cu"
     att_tpu = "cliffordtpu/kernels/attention_pallas.py:139"
+    att_b_src = "cliffordtpu_torch/csrc/attention_bwd.cu"
+    att_b_tpu = "cliffordtpu/kernels/attention_pallas.py:157"
     kernels = [
         entry("attention_fwd[float32]", att_src, att_tpu, att["f32"],
-              runs["float32"][2]["attention_fwd"]),
+              launched("attention_fwd", "float32")),
         entry("attention_fwd[bfloat16]", att_src, att_tpu, att["bf16"],
-              runs["bfloat16"][2]["attention_fwd"]),
+              launched("attention_fwd", "bfloat16")),
+        entry("attention_bwd[float32]", att_b_src, att_b_tpu, att_b["f32"],
+              launched("attention_bwd", "float32")),
+        entry("attention_bwd[bfloat16]", att_b_src, att_b_tpu, att_b["bf16"],
+              launched("attention_bwd", "bfloat16")),
+        entry("torus_bwd", "cliffordtpu_torch/csrc/torus_bwd.cu",
+              "cliffordtpu/kernels/torus_pallas.py:154", tor["flagship"],
+              launched("torus_bwd", "float32", "bfloat16")),
         entry("sampler_keyed", "cliffordtpu_torch/csrc/sampler_keyed.cu",
               "cliffordtpu/kernels/sampler_pallas.py:356", smp["flagship"],
-              runs["float32"][2]["sampler_keyed"]
-              + runs["bfloat16"][2]["sampler_keyed"]),
+              launched("sampler_keyed", "float32", "bfloat16")),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")

@@ -1,15 +1,14 @@
-"""Clifford-torus PowerSpherical distribution, sampling only (port of
-``cliffordtpu/distributions/clifford_torus.py:108-178``).
-
-log_prob, entropy and the KL belong to training and come with it.
+"""Clifford-torus PowerSpherical distribution (port of
+``cliffordtpu/distributions/clifford_torus.py:108-194``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from cliffordtpu_torch.distributions.power_spherical import PowerSpherical
 from cliffordtpu_torch.kernels import sampler
-from cliffordtpu_torch.ops.torus import angles_to_torus
+from cliffordtpu_torch.ops.torus import angles_to_torus, torus_to_angles
 
 
 class CliffordPowerSphericalDistribution:
@@ -28,10 +27,17 @@ class CliffordPowerSphericalDistribution:
     def _params(self):
         return torch.broadcast_tensors(self.loc, self.concentration)
 
+    @staticmethod
+    def _circle_ps(loc_angles, kappa) -> PowerSpherical:
+        mean_dirs = torch.stack([torch.cos(loc_angles),
+                                 torch.sin(loc_angles)], -1)
+        return PowerSpherical(mean_dirs, kappa)
+
     def sample(self, key) -> torch.Tensor:
-        """One draw (..., 2d) on the keyed threefry stream: the same u and v
-        that ``jax.random`` gives this key, through the fused kernel on the
-        card (``kernels/sampler.py``)."""
+        """One reparameterised draw (..., 2d) on the keyed threefry stream:
+        the same u and v that ``jax.random`` gives this key, through the
+        fused kernel on the card (``kernels/sampler.py``), whose backward
+        kernel carries the gradient to ``loc`` and ``concentration``."""
         loc, kappa = self._params()
         d = loc.shape[-1]
         x, _, _, _ = sampler.sample_embed_keyed(
@@ -45,3 +51,15 @@ class CliffordPowerSphericalDistribution:
         """The same draw from explicit uniforms u, v of loc's shape."""
         loc, kappa = self._params()
         return angles_to_torus(sampler.circle_angles(loc, kappa, u, v))
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        """Sums ALL d circles, as the reference does."""
+        loc, kappa = self._params()
+        angles = torus_to_angles(value)
+        vecs = torch.stack([torch.cos(angles), torch.sin(angles)], -1)
+        return self._circle_ps(loc, kappa).log_prob(vecs).sum(-1)
+
+    def entropy(self) -> torch.Tensor:
+        """Sums circles 1..d-1 (angle 0 is pinned)."""
+        loc, kappa = self._params()
+        return self._circle_ps(loc, kappa).entropy()[..., 1:].sum(-1)

@@ -1,9 +1,13 @@
-"""Fused RoPE + attention, forward: the port of
-``cliffordtpu/kernels/attention_pallas.py::fused_attention``.
+"""Fused RoPE + attention, forward and backward: the port of
+``cliffordtpu/kernels/attention_pallas.py::fused_attention`` and of its
+custom VJP (``_attn_bwd``).
 
 ``fused_attention`` launches ``csrc/attention_fwd.cu`` for CUDA tensors and
-runs ``attention_plain`` for CPU tensors; any other device raises.  There
-is no fallback from the kernel to the plain version on the card.
+runs ``attention_plain`` for CPU tensors; any other device raises.  When an
+input needs a gradient, the CUDA path is a ``torch.autograd.Function``
+whose backward launches ``csrc/attention_bwd.cu``; on the CPU autograd
+differentiates ``attention_plain``.  There is no fallback from a kernel to
+its plain version on the card.
 """
 
 from __future__ import annotations
@@ -18,12 +22,15 @@ import torch
 from cliffordtpu_torch.kernels import build
 from cliffordtpu_torch.nn.rope import apply_rotary_half
 
-# kernel launches since the count was last set to 0
-launches = 0
+# kernel launches since the counts were last set to 0
+launches = 0  # forward kernel
+bwd_launches = 0  # backward kernel
 
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SYMBOLS = {torch.float32: "attention_fwd_f32",
             torch.bfloat16: "attention_fwd_bf16"}
+_BWD_SYMBOLS = {torch.float32: "attention_bwd_f32",
+                torch.bfloat16: "attention_bwd_bf16"}
 
 
 def attention_plain(q, k, v, cos: Optional[torch.Tensor] = None,
@@ -40,9 +47,50 @@ def attention_plain(q, k, v, cos: Optional[torch.Tensor] = None,
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
 
+def attention_bwd_plain(q, k, v, cos: Optional[torch.Tensor],
+                        sin: Optional[torch.Tensor], d_out):
+    """The plain PyTorch version of the backward kernel, written out step
+    by step in float32 as ``attention_pallas.py::_bwd_kernel`` does:
+    recompute P, dV = P^T dO, dP = dO V^T, dS = P (dP - rowsum(dP P)) scale,
+    dQr = dS Kr, dKr = dS^T Qr, then the inverse rotation of dQr and dKr.
+    Returns (dq, dk, dv) in q's dtype."""
+    hd = q.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+    qr, kr, vf, do = q.float(), k.float(), v.float(), d_out.float()
+    if cos is not None:
+        qr = apply_rotary_half(qr, cos.float(), sin.float())
+        kr = apply_rotary_half(kr, cos.float(), sin.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vf)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qr)
+    if cos is not None:  # rot^T = rot(-angle)
+        dq = apply_rotary_half(dq, cos.float(), -sin.float())
+        dk = apply_rotary_half(dk, cos.float(), -sin.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
 def smem_bytes(S: int, hd: int) -> int:
     """Shared memory of one block: q, k (rows padded by one), v, scores."""
     return 4 * (2 * S * hd + S * (hd + 1) + S * S)
+
+
+def bwd_smem_bytes(S: int, hd: int) -> int:
+    """Shared memory of one backward block: q, dO, k and v (rows of k and
+    v padded by one), the probabilities and dS."""
+    return 4 * (2 * S * hd + 2 * S * (hd + 1) + 2 * S * S)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel(dtype):
+    fn = getattr(build.library("attention_bwd"), _BWD_SYMBOLS[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,7 +102,7 @@ def _kernel(dtype):
     return fn
 
 
-def _check(q, k, v, cos, sin):
+def _check(q, k, v, cos, sin, bwd: bool = False):
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(
             f"q, k, v must share one (B, S, H, hd) shape, got "
@@ -69,9 +117,11 @@ def _check(q, k, v, cos, sin):
     B, S, H, hd = q.shape
     if hd % 2 or hd < 2:
         raise ValueError(f"head_dim must be even, got {hd}")
-    if smem_bytes(S, hd) > _SMEM_MAX:
-        raise ValueError(f"S={S}, hd={hd} needs {smem_bytes(S, hd)} bytes of "
-                         f"shared memory, above {_SMEM_MAX}")
+    need = bwd_smem_bytes(S, hd) if bwd else smem_bytes(S, hd)
+    if need > _SMEM_MAX:
+        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
+                         f"memory{' for the backward' if bwd else ''}, "
+                         f"above {_SMEM_MAX}")
     if (cos is None) != (sin is None):
         raise ValueError("pass both cos and sin, or neither")
     if cos is not None:
@@ -83,30 +133,95 @@ def _check(q, k, v, cos, sin):
                     f"{q.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
+def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
+    global launches
+    B, S, H, hd = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _kernel(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if cos is None else cos.data_ptr(),
+            None if sin is None else sin.data_ptr(),
+            out.data_ptr(), B, S, H, hd,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_fwd kernel failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def _launch_bwd(q, k, v, cos, sin, d_out):
+    global bwd_launches
+    B, S, H, hd = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    with torch.cuda.device(q.device):
+        rc = _bwd_kernel(q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if cos is None else cos.data_ptr(),
+            None if sin is None else sin.data_ptr(),
+            d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, H, hd, torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"attention_bwd kernel failed: CUDA error {rc}")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward kernel, saving the unrotated q, k, v and the tables;
+    backward kernel.  cos and sin get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin):
+        ctx.save_for_backward(q, k, v, cos, sin)
+        return _launch_fwd(q, k, v, cos, sin)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, cos, sin = ctx.saved_tensors
+        if d_out.dtype != q.dtype:
+            raise ValueError(f"gradient is {d_out.dtype}, q is {q.dtype}")
+        dq, dk, dv = _launch_bwd(q, k, v, cos, sin, d_out.contiguous())
+        return dq, dk, dv, None, None
+
+
+def fused_attention_bwd(q, k, v, cos: Optional[torch.Tensor],
+                        sin: Optional[torch.Tensor], d_out):
+    """(dq, dk, dv) of ``fused_attention`` for the output gradient
+    ``d_out`` (B, S, H, hd): the backward kernel for CUDA tensors, its
+    plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, cos, sin, d_out)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, k, v, cos, sin, bwd=True)
+    if d_out.shape != q.shape or d_out.dtype != q.dtype \
+            or d_out.device != q.device:
+        raise ValueError("d_out must match q in shape, dtype and device")
+    S = q.shape[1]
+    if cos is not None:
+        cos, sin = cos[:S].contiguous(), sin[:S].contiguous()
+    return _launch_bwd(q, k, v, cos, sin, d_out.contiguous())
+
+
 def fused_attention(q, k, v, cos: Optional[torch.Tensor] = None,
                     sin: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(rot(q) rot(k)^T / sqrt(hd)) v for q, k, v (B, S, H, hd) in
     float32 or bfloat16 and cos, sin (S' >= S, hd/2) float32, or None for
-    no rotation.  Returns (B, S, H, hd) in q's dtype."""
-    global launches
+    no rotation.  Returns (B, S, H, hd) in q's dtype.  Differentiable in
+    q, k and v."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, cos, sin)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    _check(q, k, v, cos, sin)
-    B, S, H, hd = q.shape
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    _check(q, k, v, cos, sin, bwd=needs_grad)
+    S = q.shape[1]
     if cos is not None:
         cos, sin = cos[:S].contiguous(), sin[:S].contiguous()
-    out = torch.empty_like(q)
-    fn = _kernel(q.dtype)
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                None if cos is None else cos.data_ptr(),
-                None if sin is None else sin.data_ptr(),
-                out.data_ptr(), B, S, H, hd,
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_fwd kernel failed: CUDA error {rc}")
-    launches += 1
-    return out
+    if needs_grad:
+        return _FusedAttention.apply(q, k, v, cos, sin)
+    return _launch_fwd(q, k, v, cos, sin)

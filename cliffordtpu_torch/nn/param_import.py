@@ -1,4 +1,5 @@
-"""Carry JAX ``CliffordARVAE`` parameters into the port's modules.
+"""Carry JAX ``CliffordARVAE`` parameters, or a gradient tree of the same
+layout, into the port's modules.
 
 Input is the flat dict that ``cliffordtpu/serving.py::_flatten_params``
 writes to ``params.npz`` (keys like
@@ -12,6 +13,10 @@ writes to ``params.npz`` (keys like
   does not)
 * RMSNorm / GroupNorm ``scale``      -> ``weight``; ``bias`` as it is
 * ``register_token``                 as it is
+
+Every rule is a transpose, a flip or the identity, so it is linear and
+maps ``jax.grad``'s tree onto the gradients of the port's parameters as it
+maps the parameters themselves (``cliffordar_from_jax`` serves both).
 
 q and k weights need no permutation: the port keeps JAX's half-split RoPE
 basis.  Every key of the input must be used, so a tree of another layout
@@ -157,5 +162,6 @@ def convert(flat: Dict[str, np.ndarray], rules: List[Rule]
 def cliffordar_from_jax(flat: Dict[str, np.ndarray]
                         ) -> Dict[str, torch.Tensor]:
     """JAX ``CliffordARVAE`` params (flat ``params.npz`` keys) -> a state
-    dict for ``cliffordtpu_torch.nn.vit_vae.CliffordARVAE``."""
+    dict for ``cliffordtpu_torch.nn.vit_vae.CliffordARVAE``; a flat JAX
+    gradient tree -> the gradients of the port's parameters, by name."""
     return convert(flat, cliffordar_rules(flat))

@@ -1,8 +1,5 @@
-"""Posterior construction and sampling (port of ``cliffordtpu/nn/reparam.py``,
-clifford branch only).
-
-The prior ``CliffordTorusUniform`` and the KL come with training; until
-then ``reparameterize`` returns the posterior alone.
+"""Posterior and prior construction and sampling (port of
+``cliffordtpu/nn/reparam.py``, clifford branch only).
 """
 
 from __future__ import annotations
@@ -10,15 +7,17 @@ from __future__ import annotations
 from cliffordtpu_torch.distributions.clifford_torus import (
     CliffordPowerSphericalDistribution,
 )
+from cliffordtpu_torch.distributions.uniforms import CliffordTorusUniform
 
 
 def reparameterize(distribution: str, z_mean, z_param2, z_dim: int):
-    """The posterior q_z from the encoder heads; ``z_param2`` is the
+    """(q_z, p_z) from the encoder heads; ``z_param2`` is the
     concentration."""
     if distribution != "clifford":
         raise NotImplementedError(
             f"only the clifford latent is ported, not {distribution!r}")
-    return CliffordPowerSphericalDistribution(z_mean, z_param2)
+    return (CliffordPowerSphericalDistribution(z_mean, z_param2),
+            CliffordTorusUniform(z_dim))
 
 
 def sample_latent(key, distribution: str, q_z):

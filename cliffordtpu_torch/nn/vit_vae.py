@@ -1,20 +1,22 @@
-"""Hybrid CNN+ViT S-VAE with per-token Clifford latents: the forward
-(serving) path of ``cliffordtpu/nn/vit_vae.py`` in PyTorch.
+"""Hybrid CNN+ViT S-VAE with per-token Clifford latents: the port of
+``cliffordtpu/nn/vit_vae.py`` (serving and training paths) in PyTorch.
 
 Layouts at the public functions follow the JAX package: images
 (B, H, W, C), tokens (B, S, D), attention heads (B, S, H, hd).  Convolutions
 run in PyTorch's NCHW inside the modules.
 
-``compute_dtype`` plays the role of JAX's ``dtype``: the convolutions of
-the CNN stacks and the transformer projections hold their weights and run
-in it (float32 or bfloat16), as flax casts them at use; norms, their
-parameters, the register tokens, the encoder head, ``quant_proj``,
-``post_quant_proj``, the decoder's first and last convolutions and the
-distribution math stay float32.  The attention core of every block is the
-fused RoPE + attention kernel (``kernels/attention.py``).
+``compute_dtype`` plays the role of JAX's ``dtype``.  Every parameter is
+held in float32, as flax holds them, so gradients, Adam moments and weight
+decay are float32; the convolutions of the CNN stacks and the transformer
+projections cast their input and their weight to ``compute_dtype``
+(float32 or bfloat16) where they use them.  Norms, the register tokens,
+the encoder head, ``quant_proj``, ``post_quant_proj``, the decoder's first
+and last convolutions and the distribution math run in float32.  The
+attention core of every block is the fused RoPE + attention kernel
+(``kernels/attention.py``), forward and backward.
 
-Not ported in this slice: ``fused_proj``, ``scan_layers``, the Gaussian
-and PowerSpherical heads and the training-only methods.
+Not ported yet: ``fused_proj``, ``scan_layers``, the Gaussian and
+PowerSpherical heads and the learnable-beta sigmas.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cliffordtpu_torch.distributions.kl import kl_divergence
 from cliffordtpu_torch.kernels import attention as attention_kernel
 from cliffordtpu_torch.nn.mlp_vae import l2_normalize
 from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
@@ -65,8 +68,49 @@ class GroupNorm(nn.GroupNorm):
                             self.bias, self.eps).to(x.dtype)
 
 
-def _linear(d_in, d_out, dtype, bias=False):
-    return nn.Linear(d_in, d_out, bias=bias, dtype=dtype)
+class _Linear(nn.Linear):
+    """Float32 parameters; input and weight are cast to ``compute_dtype``
+    at use (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, d_in, d_out, dtype, bias=False):
+        super().__init__(d_in, d_out, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+class _Conv(nn.Conv2d):
+    """Bias-free convolution with float32 parameters, run in
+    ``compute_dtype`` (flax ``nn.Conv(dtype=...)``)."""
+
+    def __init__(self, c_in, c_out, k, stride=1, padding=0,
+                 dtype=torch.float32):
+        super().__init__(c_in, c_out, k, stride=stride, padding=padding,
+                         bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+
+
+class _ConvT(nn.ConvTranspose2d):
+    """flax ConvTranspose stride 2: 4x4 "SAME" == torch padding 1,
+    2x2 "VALID" == padding 0 (with the kernel flipped, param_import.py).
+    Float32 parameters, run in ``compute_dtype``."""
+
+    def __init__(self, c_in, c_out, k, padding, dtype):
+        super().__init__(c_in, c_out, k, stride=2, padding=padding,
+                         bias=False)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                                  self.stride, self.padding)
 
 
 class SwiGLU(nn.Module):
@@ -75,12 +119,11 @@ class SwiGLU(nn.Module):
     def __init__(self, d_model: int, dtype=torch.float32):
         super().__init__()
         d_ff = ((int(d_model * 8 / 3) + 255) // 256) * 256
-        self.w1 = _linear(d_model, d_ff, dtype)
-        self.w3 = _linear(d_model, d_ff, dtype)
-        self.w2 = _linear(d_ff, d_model, dtype)
+        self.w1 = _Linear(d_model, d_ff, dtype)
+        self.w3 = _Linear(d_model, d_ff, dtype)
+        self.w2 = _Linear(d_ff, d_model, dtype)
 
     def forward(self, x):
-        x = x.to(self.w1.weight.dtype)
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
@@ -91,14 +134,13 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
         super().__init__()
         self.n_heads = n_heads
-        self.wq = _linear(d_model, d_model, dtype)
-        self.wk = _linear(d_model, d_model, dtype)
-        self.wv = _linear(d_model, d_model, dtype)
-        self.wo = _linear(d_model, d_model, dtype)
+        self.wq = _Linear(d_model, d_model, dtype)
+        self.wk = _Linear(d_model, d_model, dtype)
+        self.wv = _Linear(d_model, d_model, dtype)
+        self.wo = _Linear(d_model, d_model, dtype)
 
     def forward(self, x, cos, sin):
         B, S, D = x.shape
-        x = x.to(self.wq.weight.dtype)
         heads = (B, S, self.n_heads, D // self.n_heads)
         q = self.wq(x).view(heads)
         k = self.wk(x).view(heads)
@@ -122,18 +164,6 @@ class TransformerBlock(nn.Module):
         return x + self.ffn(self.norm2(x)).to(x.dtype)
 
 
-def _conv(c_in, c_out, k, stride=1, padding=0, dtype=torch.float32):
-    return nn.Conv2d(c_in, c_out, k, stride=stride, padding=padding,
-                     bias=False, dtype=dtype)
-
-
-def _conv_t(c_in, c_out, k, padding, dtype):
-    # flax ConvTranspose stride 2: 4x4 "SAME" == torch padding 1,
-    # 2x2 "VALID" == padding 0 (with the kernel flipped, param_import.py)
-    return nn.ConvTranspose2d(c_in, c_out, k, stride=2, padding=padding,
-                              bias=False, dtype=dtype)
-
-
 class ResDownBlock(nn.Module):
     """GN, SiLU, 3x3 s2 conv, GN, SiLU, 3x3 conv, plus a 2x2 s2 shortcut.
     NCHW in and out."""
@@ -141,10 +171,10 @@ class ResDownBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
         super().__init__()
         self.norm1 = GroupNorm(in_ch)
-        self.conv1 = _conv(in_ch, out_ch, 3, 2, 1, dtype)
+        self.conv1 = _Conv(in_ch, out_ch, 3, 2, 1, dtype)
         self.norm2 = GroupNorm(out_ch)
-        self.conv2 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
-        self.shortcut = _conv(in_ch, out_ch, 2, 2, 0, dtype)
+        self.conv2 = _Conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.shortcut = _Conv(in_ch, out_ch, 2, 2, 0, dtype)
 
     def forward(self, x):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -158,14 +188,14 @@ class ResUpBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
         super().__init__()
         self.norm1 = GroupNorm(in_ch)
-        self.conv1 = _conv_t(in_ch, out_ch, 4, 1, dtype)
+        self.conv1 = _ConvT(in_ch, out_ch, 4, 1, dtype)
         self.norm2 = GroupNorm(out_ch)
-        self.conv2 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
-        self.shortcut = _conv_t(in_ch, out_ch, 2, 0, dtype)
+        self.conv2 = _Conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.shortcut = _ConvT(in_ch, out_ch, 2, 0, dtype)
         self.norm3 = GroupNorm(out_ch)
-        self.conv3 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.conv3 = _Conv(out_ch, out_ch, 3, 1, 1, dtype)
         self.norm4 = GroupNorm(out_ch)
-        self.conv4 = _conv(out_ch, out_ch, 3, 1, 1, dtype)
+        self.conv4 = _Conv(out_ch, out_ch, 3, 1, 1, dtype)
 
     def forward(self, x):
         h = self.conv1(F.silu(self.norm1(x)))
@@ -215,15 +245,14 @@ class ViTEncoder(_RopeStack):
                  dtype=torch.float32):
         super().__init__(n_layers, n_heads, d_model, image_size, patch_size,
                          register_tokens, dtype)
-        self.conv_in = _conv(in_channels, cnn_chs[0], 3, 1, 1, dtype)
+        self.conv_in = _Conv(in_channels, cnn_chs[0], 3, 1, 1, dtype)
         self.down = nn.ModuleList(
             ResDownBlock(a, b, dtype) for a, b in zip(cnn_chs, cnn_chs[1:]))
         self.norm = RMSNorm(d_model)
-        self.output = _linear(d_model, d_model, torch.float32)
+        self.output = _Linear(d_model, d_model, torch.float32)
 
     def forward(self, image):
-        x = image.permute(0, 3, 1, 2).to(self.conv_in.weight.dtype)
-        x = self.conv_in(x)
+        x = self.conv_in(image.permute(0, 3, 1, 2))
         for block in self.down:
             x = block(x)
         x = x.flatten(2).transpose(1, 2)  # (B, H*W, C), row-major tokens
@@ -242,11 +271,11 @@ class ViTDecoder(_RopeStack):
         super().__init__(n_layers, n_heads, d_model, image_size, patch_size,
                          register_tokens, dtype)
         self.compute_dtype = dtype
-        self.conv_in = _conv(d_model, d_model, 3, 1, 1, torch.float32)
+        self.conv_in = _Conv(d_model, d_model, 3, 1, 1, torch.float32)
         self.up = nn.ModuleList(
             ResUpBlock(a, b, dtype) for a, b in zip(cnn_chs, cnn_chs[1:]))
         self.norm_out = GroupNorm(cnn_chs[-1])
-        self.conv_out = _conv(cnn_chs[-1], out_channels, 3, 1, 1,
+        self.conv_out = _Conv(cnn_chs[-1], out_channels, 3, 1, 1,
                               torch.float32)
 
     def forward(self, x):
@@ -285,8 +314,9 @@ def default_config(image_size: int) -> dict:
 
 
 class CliffordARVAE(nn.Module):
-    """Hybrid CNN+ViT S-VAE with per-token Clifford-torus latents, forward
-    path: ``encode_heads``, ``reparam``, ``decode``, ``get_flat_latent``.
+    """Hybrid CNN+ViT S-VAE with per-token Clifford-torus latents:
+    ``forward`` (the training path), ``encode``, ``encode_heads``,
+    ``reparam``, ``decode``, ``get_flat_latent``.
 
     ``seed`` makes the random initialisation (xavier-uniform weights,
     unit-normal register tokens, zero biases) reproducible; weights
@@ -294,6 +324,8 @@ class CliffordARVAE(nn.Module):
 
     def __init__(self, latent_dim: int = 16, image_size: int = 256,
                  in_channels: int = 3, distribution: str = "clifford",
+                 recon_loss_type: str = "l1", l1_weight: float = 1.0,
+                 use_learnable_beta: bool = False,
                  cnn_chs: Optional[Sequence[int]] = None,
                  z_channels: Optional[int] = None,
                  encoder_vit_layers: Optional[int] = None,
@@ -305,6 +337,9 @@ class CliffordARVAE(nn.Module):
         if distribution != "clifford":
             raise NotImplementedError(
                 f"only the clifford latent is ported, not {distribution!r}")
+        if use_learnable_beta:
+            raise NotImplementedError(
+                "the learnable-beta sigmas are not ported")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
@@ -317,6 +352,9 @@ class CliffordARVAE(nn.Module):
         self.image_size = image_size
         self.in_channels = in_channels
         self.distribution = distribution
+        self.recon_loss_type = recon_loss_type
+        self.l1_weight = l1_weight
+        self.use_learnable_beta = use_learnable_beta
         self.concentration_floor = concentration_floor
         self.compute_dtype = compute_dtype
         grid = image_size // (2 ** (len(cnn_chs) - 1))
@@ -325,9 +363,9 @@ class CliffordARVAE(nn.Module):
             encoder_vit_layers or cfg["encoder_vit_layers"], n_heads, zc,
             cnn_chs, image_size, patch_size, in_channels, register_tokens,
             compute_dtype)
-        self.quant_proj = _linear(zc, latent_dim + 1, torch.float32,
+        self.quant_proj = _Linear(zc, latent_dim + 1, torch.float32,
                                   bias=True)
-        self.post_quant_proj = _linear(2 * latent_dim, zc, torch.float32)
+        self.post_quant_proj = _Linear(2 * latent_dim, zc, torch.float32)
         self.decoder_vit = ViTDecoder(
             decoder_vit_layers or cfg["decoder_vit_layers"], n_heads, zc,
             cnn_chs[::-1], in_channels, image_size, patch_size,
@@ -336,9 +374,8 @@ class CliffordARVAE(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed: int):
-        """JAX's initialisers, drawn in float32 from ``seed`` and rounded
-        into each parameter's dtype (so both compute dtypes start from the
-        same weights)."""
+        """JAX's initialisers, drawn in float32 from ``seed`` (so both
+        compute dtypes start from the same weights)."""
         gen = torch.Generator().manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("register_token"):
@@ -363,12 +400,13 @@ class CliffordARVAE(nn.Module):
         return mu, kappa
 
     def reparam(self, mu, kappa, key):
-        """Per-token torus latents (B, T, 2d) drawn with the sampling
-        ``key`` (two uint32 words)."""
-        q_z = reparameterize(self.distribution, mu,
-                             kappa[..., None].expand(mu.shape),
-                             self.latent_dim)
-        return sample_latent(key, self.distribution, q_z)
+        """(z, q_z, p_z): per-token torus latents z (B, T, 2d) drawn with
+        the sampling ``key`` (two uint32 words), the posterior and the
+        prior."""
+        q_z, p_z = reparameterize(self.distribution, mu,
+                                  kappa[..., None].expand(mu.shape),
+                                  self.latent_dim)
+        return sample_latent(key, self.distribution, q_z), q_z, p_z
 
     def decode(self, z):
         """(B, T, 2d) or flat (B, T*2d) latents -> image (B, H, W, C)."""
@@ -376,10 +414,23 @@ class CliffordARVAE(nn.Module):
             z = z.reshape(z.shape[0], self.num_tokens, 2 * self.latent_dim)
         return self.decoder_vit(self.post_quant_proj(z))
 
+    def forward(self, x, key):
+        """Image (B, H, W, C) and the sampling ``key`` ->
+        (x_recon, q_z, p_z, mu)."""
+        mu, kappa = self.encode_heads(x)
+        z, q_z, p_z = self.reparam(mu, kappa, key)
+        return self.decode(z), q_z, p_z, mu
+
+    def encode(self, x, key):
+        """(z, kl_loss): sampled latents and the mean KL(q_z || p_z)."""
+        mu, kappa = self.encode_heads(x)
+        z, q_z, p_z = self.reparam(mu, kappa, key)
+        return z, kl_divergence(q_z, p_z).mean()
+
     def get_flat_latent(self, x, key):
         """(B, num_tokens * 2d) sampled latents."""
         mu, kappa = self.encode_heads(x)
-        z = self.reparam(mu, kappa, key)
+        z, _, _ = self.reparam(mu, kappa, key)
         return z.reshape(z.shape[0], -1)
 
     def normalize(self, x):
