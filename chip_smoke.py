@@ -10,18 +10,24 @@ Phases, each printing one JSON line and each fatal when it fails:
 1. env      the card (``nvidia-smi`` name and power limit), torch, CUDA;
 2. build    every ``cliffordtpu_torch/csrc/*.cu`` compiled from the
             checkout, all at once, into ``build/cliffordtpu_torch``;
-3. kernels  each CUDA kernel (attention forward and backward, keyed
-            sampler, torus backward) against its plain PyTorch version on
-            the card at the main paths' shapes, with its device time (CUDA
-            events, median after warm-up; see ``cuda_ms``), the plain
-            version's, a PyTorch library call's where one computes the same
-            function, and its bound;
+3. kernels  each of the six CUDA kernels (attention forward and backward,
+            torus embedding forward and backward, keyed and Philox sampler)
+            against its plain PyTorch version on the card at the main
+            paths' shapes (flagship32: attention B 64, S 68, 8 heads of 64,
+            sampler and torus R 4096, d 16; cnn4096: R 64, d 4096) and at
+            odd ones, with its device time (CUDA events, median after
+            warm-up; see ``cuda_ms``), the plain version's, the library's
+            where it computes the same function (attention:
+            ``scaled_dot_product_attention``; torus forward and backward:
+            ``torch.fft.irfft`` / ``rfft``, see ``torus_fwd_fft``), and its
+            bound; for the torus forward and backward also the two
+            ``torch.matmul`` calls alone on a prebuilt basis;
 4. serve    the flagship32 ``CliffordARVAE`` (``default_config(32)``: 32 px,
             latent 16, 8 heads of 64, 4 + 8 blocks) at full width with
             seeded random weights answers batch-64 requests through
-            ``CliffordARServing.encode_mu`` / ``encode_z`` / ``decode`` in
-            float32 and in bfloat16 compute.  The launch counts are set to 0
-            before each dtype's requests and read after; every request must
+            ``Serving.encode_mu`` / ``encode_z`` / ``decode`` in float32 and
+            in bfloat16 compute.  The launch counts are set to 0 before
+            each dtype's requests and read after; every request must
             launch the attention kernel 4 / 4 / 8 times and the sampler
             0 / 1 / 0 times.  Outputs must be finite, of the right shapes,
             the float32 outputs must match the same requests with the
@@ -38,8 +44,22 @@ Phases, each printing one JSON line and each fatal when it fails:
             of the first step are held against the same step with the plain
             versions swapped in (``TRAIN_BARS``), and the bfloat16 first
             loss and gradients against the float32 ones;
+6. cnn_serve  the cnn4096 ``CNNVAE`` (latent 4096, 32 px, 1 channel) serves
+            batch-64 requests the same way, ``encode_z`` through each of
+            the three sampler routes: one launch of the keyed sampler, of
+            the torus forward ("unfused") or of the Philox sampler ("rng")
+            per request, none for ``encode_mu`` and ``decode``; latents of
+            unit norm; the keyed and the unfused latents equal; float32
+            against the plain versions;
+7. cnn_train  the same model takes ``CNN_TRAIN_STEPS`` AdamW steps per dtype
+            and route: one forward launch of the route's kernel and one of
+            the torus backward per step, a falling loss; the float32 first
+            step of every route against the plain versions
+            (``TRAIN_BARS``); the "rng" route gives one loss for one key
+            and another for another;
 
-then the kernel table as one JSON line, the ``nvidia-smi`` line, and last
+then the table of all six kernels as one JSON line, the ``nvidia-smi`` line,
+and last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
 """
@@ -68,8 +88,14 @@ REQUESTS = 6  # per entry point and dtype; the first is the warm-up
 # rad, 0.0098, 0.052), far below what a wrong cast or dtype would give
 BF16_BARS = {"encode_mu": 0.25, "encode_z": 0.05, "decode": 0.25}
 TRAIN_STEPS = 10  # timed, after one warm-up step
-PER_STEP = {"attention_fwd": 12, "attention_bwd": 12, "sampler_keyed": 1,
-            "torus_bwd": 1}
+PER_STEP = {"attention_fwd": 12, "attention_bwd": 12, "torus_fwd": 0,
+            "torus_bwd": 1, "sampler_keyed": 1, "sampler_rng": 0}
+CNN_LATENT = 4096
+CNN_TRAIN_STEPS = 6  # timed, after one warm-up step
+ROUTES = ("keyed", "unfused", "rng")
+# the forward kernel each sampler route launches once per draw
+ROUTE_KERNEL = {"keyed": "sampler_keyed", "unfused": "torus_fwd",
+                "rng": "sampler_rng"}
 # float32 train step with the kernels against the same step with the plain
 # versions: each loss piece relative to its value; the gradients' global
 # l2 error relative to the global gradient norm, and every parameter's
@@ -226,9 +252,104 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
         bound_ms=b_ms, bound_by=b_by)
 
 
-def torus_bwd_case(torus, sampler, R, d, epilogue, gen):
-    """The torus backward kernel alone (``torus_bwd``), or with the keyed
-    sampler's concentration epilogue (``sampler_bwd``) on the residuals of
+def matmul_yardstick_ms(ops_torus, theta, g):
+    """Device time of the two ``torch.matmul`` calls alone that the torus
+    forward (on cos and sin theta, ``g`` None) or backward (on ``g``) would
+    make against a basis already in memory."""
+    d = theta.shape[1] + 1
+    cos_b, sin_b, _ = ops_torus.torus_bases(d, theta.device)
+    if g is None:
+        ct, st = torch.cos(theta), torch.sin(theta)
+        return cuda_ms(lambda: (ct @ cos_b, st @ sin_b))
+    cos_t, sin_t = cos_b.T.contiguous(), sin_b.T.contiguous()
+    return cuda_ms(lambda: (g @ cos_t, g @ sin_t))
+
+
+def torus_fwd_fft(theta):
+    """The embedding as the library computes it: the inverse real FFT of
+    the Hermitian spectrum (1, exp(i theta_1), ..., exp(i theta_{d-1}), 1)
+    of length n = 2d.  A yardstick only: the port never calls it."""
+    phase = torch.nn.functional.pad(theta, (1, 1))
+    return torch.fft.irfft(torch.polar(torch.ones_like(phase), phase),
+                           n=2 * (theta.shape[1] + 1), dim=1)
+
+
+def torus_bwd_fft(theta, g):
+    """d theta as the library computes it: with G = rfft(g), g C^T = (2/n)
+    Re G and g S^T = (2/n) Im G, so d theta_k = (2/n) Im(G_k exp(-i
+    theta_k)).  A yardstick only."""
+    d = theta.shape[1] + 1
+    spectrum = torch.fft.rfft(g, dim=1)[:, 1:d]
+    return (spectrum * torch.polar(torch.ones_like(theta), -theta)).imag / d
+
+
+def sampler_bwd_fft(torus, theta, u, v, kappa, g):
+    """``sampler_bwd_plain`` with ``torus_bwd_fft`` for its products."""
+    dth = torus_bwd_fft(theta, g)
+    kap = torch.broadcast_to(kappa, (theta.shape[0], theta.shape[1] + 1))
+    zero = torch.zeros_like(dth[:, :1])
+    return (torch.cat([zero, dth], 1), torch.cat(
+        [zero, dth * torus.dtheta_dkappa(u, v, kap[:, 1:])], 1))
+
+
+def torus_bound_ms(nbytes, R, d):
+    """(bound ms, what binds, the dense form's bound ms) of a kernel that
+    embeds R rows of d angles or differentiates that embedding.  The
+    function is a real FFT of length n = 2d per row (about 2.5 n log2 n
+    operations), so it is bound by its bytes; the kernels here compute it
+    as a dense product, two float32 multiply-adds per (row, angle, column),
+    whose operation bound is reported beside it."""
+    b_ms, b_by = bound_ms(nbytes, 2.5 * R * 2 * d * math.log2(2 * d),
+                          torch.float32)
+    dense = 8.0 * R * (d - 1) * d / PEAK_OPS_PER_S[torch.float32] * 1e3
+    return b_ms, b_by, dense
+
+
+def torus_fwd_case(torus, ops_torus, R, d, gen):
+    """The torus forward kernel against its plain version, alone and through
+    ``angles_to_torus`` where that routes to it."""
+    theta = (torch.rand(R, d - 1, generator=gen, device=DEVICE) * 2 - 1) \
+        * math.pi
+    got, want = torus.torus_fwd(theta), torus.torus_fwd_plain(theta)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(got.shape == (R, 2 * d) and bool(torch.isfinite(got).all())
+          and err <= 1e-5, f"torus_fwd R={R} d={d}: err {err} > 1e-5")
+    if ops_torus.uses_kernel("cuda", d):
+        # through autograd, as the "unfused" sampler route reaches it
+        angles = torch.cat([torch.zeros(R, 1, device=DEVICE), theta], 1)
+        angles.requires_grad_()
+        g = torch.randn(R, 2 * d, generator=gen, device=DEVICE)
+        before = (torus.fwd_launches, torus.launches)
+        x = ops_torus.angles_to_torus(angles)
+        (d_angles,) = torch.autograd.grad(x, angles, g)
+        check((torus.fwd_launches, torus.launches)
+              == (before[0] + 1, before[1] + 1),
+              "angles_to_torus did not launch the forward and backward "
+              "kernels once each")
+        check(torch.equal(x, got) and bool((d_angles[:, 0] == 0).all()),
+              "angles_to_torus differs from torus_fwd")
+        # the backward without the epilogue, at this route's own shape
+        bwd_err = (d_angles[:, 1:] - torus.torus_bwd_plain(theta, g)) \
+            .abs().max().item()
+        check(bwd_err <= 1e-5, f"angles_to_torus backward R={R} d={d}: err "
+                               f"{bwd_err} > 1e-5")
+    fft_err = (torus_fwd_fft(theta) - want).abs().max().item()
+    check(fft_err <= 1e-5, f"torus_fwd_fft R={R} d={d}: err {fft_err}")
+    # theta read, x written
+    b_ms, b_by, dense = torus_bound_ms(4 * (theta.numel() + R * 2 * d), R, d)
+    return dict(R=R, d=d, max_abs_err=err,
+                ms=cuda_ms(lambda: torus.torus_fwd(theta)),
+                plain_ms=cuda_ms(lambda: torus.torus_fwd_plain(theta),
+                                 reps=5),
+                matmul_ms=matmul_yardstick_ms(ops_torus, theta, None),
+                library_ms=cuda_ms(lambda: torus_fwd_fft(theta)),
+                bound_ms=b_ms, bound_by=b_by, dense_bound_ms=dense)
+
+
+def torus_bwd_case(torus, sampler, ops_torus, R, d, epilogue, gen):
+    """The torus backward kernel alone (``torus_bwd``), or with the fused
+    samplers' concentration epilogue (``sampler_bwd``) on the residuals of
     a forward draw with one kappa per row."""
     dev = DEVICE
     g = torch.randn(R, 2 * d, generator=gen, device=dev)
@@ -239,6 +360,7 @@ def torus_bwd_case(torus, sampler, R, d, epilogue, gen):
                                                     kappa)
         run = lambda: torus.sampler_bwd(theta, u, v, kappa, g)
         run_plain = lambda: torus.sampler_bwd_plain(theta, u, v, kappa, g)
+        run_fft = lambda: sampler_bwd_fft(torus, theta, u, v, kappa, g)
         names = ("dloc", "dkappa")
         # theta, u, v, g, kappa read; dloc, dkappa (R, d) written
         nbytes = 4 * (3 * theta.numel() + g.numel() + kappa.numel()
@@ -248,78 +370,101 @@ def torus_bwd_case(torus, sampler, R, d, epilogue, gen):
             * math.pi
         run = lambda: (torus.torus_bwd(theta, g),)
         run_plain = lambda: (torus.torus_bwd_plain(theta, g),)
+        run_fft = lambda: (torus_bwd_fft(theta, g),)
         names = ("dtheta",)
         nbytes = 4 * (2 * theta.numel() + g.numel())
-    got, want = run(), run_plain()
+    got, want, by_fft = run(), run_plain(), run_fft()
     torch.cuda.synchronize()
     errs = {}
-    for name, a, b in zip(names, got, want):
+    for name, a, b, c in zip(names, got, want, by_fft):
         errs[name] = (a - b).abs().max().item()
         bar = 1e-5 * max(1.0, b.abs().max().item())
         check(a.shape == b.shape and bool(torch.isfinite(a).all())
               and errs[name] <= bar,
               f"torus_bwd R={R} d={d} {name}: err {errs[name]} > {bar}")
+        fft_err = (c - b).abs().max().item()
+        check(fft_err <= bar, f"torus_bwd_fft R={R} d={d} {name}: err "
+                              f"{fft_err} > {bar}")
     if epilogue:
         check(bool((got[0][:, 0] == 0).all() and (got[1][:, 0] == 0).all()),
               "sampler_bwd: column 0 (the pinned angle) is not zero")
-        # through autograd, as the model reaches the kernel
-        lg, kg = loc.clone().requires_grad_(), kappa.clone().requires_grad_()
-        before = torus.launches
-        x, _, _, _ = sampler.sample_embed_keyed((0, 77 + R + d), lg, kg)
-        a_loc, a_kap = torch.autograd.grad(x, (lg, kg), g)
-        check(torus.launches == before + 1,
-              "autograd of sample_embed_keyed did not launch torus_bwd")
-        check(torch.equal(a_loc, got[0]) and bool(torch.allclose(
-            a_kap, got[1].sum(1, keepdim=True), rtol=1e-5, atol=1e-6)),
-            "autograd of sample_embed_keyed differs from sampler_bwd")
-    # two float32 multiply-adds per (row, angle, column)
-    b_ms, b_by = bound_ms(nbytes, 8.0 * R * (d - 1) * d, torch.float32)
+        # through autograd, as the model reaches the kernel, from either
+        # fused sampler
+        for fused in (sampler.sample_embed_keyed, sampler.sample_embed_rng):
+            lg = loc.clone().requires_grad_()
+            kg = kappa.clone().requires_grad_()
+            before = torus.launches
+            x, th2, u2, v2 = fused((0, 77 + R + d), lg, kg)
+            a_loc, a_kap = torch.autograd.grad(x, (lg, kg), g)
+            check(torus.launches == before + 1,
+                  f"autograd of {fused.__name__} did not launch torus_bwd")
+            ref = torus.sampler_bwd(th2, u2, v2, kappa, g)
+            check(torch.equal(a_loc, ref[0]) and bool(torch.allclose(
+                a_kap, ref[1].sum(1, keepdim=True), rtol=1e-5, atol=1e-6)),
+                f"autograd of {fused.__name__} differs from sampler_bwd")
+    del got, want, by_fft
+    b_ms, b_by, dense = torus_bound_ms(nbytes, R, d)
     return dict(R=R, d=d, epilogue=epilogue, max_abs_err=max(errs.values()),
-                errors=errs, ms=cuda_ms(run), plain_ms=cuda_ms(run_plain),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                errors=errs, ms=cuda_ms(run),
+                plain_ms=cuda_ms(run_plain, reps=5),
+                matmul_ms=matmul_yardstick_ms(ops_torus, theta, g),
+                library_ms=cuda_ms(run_fft), bound_ms=b_ms, bound_by=b_by,
+                dense_bound_ms=dense)
 
 
-def sampler_case(sampler, R, d, per_row_kappa, gen):
+def sampler_case(sampler, route, R, d, per_row_kappa, gen):
+    """A fused sampler + embedding kernel ("keyed" or "rng") against its
+    plain version: u and v bit for bit, theta and x to 1e-5."""
     dev = DEVICE
+    fused = getattr(sampler, f"sample_embed_{route}")
+    plain = getattr(sampler, f"sample_embed_{route}_plain")
     loc = (torch.rand(R, d, generator=gen, device=dev) * 2 - 1) * math.pi
     kshape = (R, 1) if per_row_kappa else (R, d)
     kappa = torch.rand(kshape, generator=gen, device=dev) * 10 + 0.03
     key = (0, 1234 + R + d)
-    got = sampler.sample_embed_keyed(key, loc, kappa)
-    want = sampler.sample_embed_keyed_plain(key, loc, kappa)
+    got = fused(key, loc, kappa)
+    want = plain(key, loc, kappa)
     torch.cuda.synchronize()
     names = ("x", "theta", "u", "v")
     errs = {n: (a - b).abs().max().item() for n, a, b in zip(names, got, want)}
     for i, name in ((2, "u"), (3, "v")):
         check(torch.equal(got[i], want[i]),
-              f"sampler R={R} d={d}: {name} not bit-exact")
+              f"sampler {route} R={R} d={d}: {name} not bit-exact")
     check(errs["theta"] <= 1e-5 and errs["x"] <= 1e-5,
-          f"sampler R={R} d={d}: theta/x errors {errs} > 1e-5")
+          f"sampler {route} R={R} d={d}: theta/x errors {errs} > 1e-5")
+    check(bool((got[2] >= 1e-12).all() and (got[2] < 1).all()
+               and (got[3] >= 0).all() and (got[3] < 1).all()),
+          f"sampler {route} R={R} d={d}: uniforms out of range")
+    del got, want
     # loc + kappa read; x, theta, u, v written (float32)
     nbytes = 4 * (loc.numel() + kappa.numel() + R * 2 * d + 3 * R * (d - 1))
-    # the embedding's float32 multiply-adds, 2 terms per (row, angle, col)
-    b_ms, b_by = bound_ms(nbytes, 8.0 * R * (d - 1) * d, torch.float32)
-    kernel = cuda_ms(lambda: sampler.sample_embed_keyed(key, loc, kappa))
-    plain = cuda_ms(lambda: sampler.sample_embed_keyed_plain(key, loc, kappa))
+    # the draws are a few hundred operations per angle, below the bytes too
+    b_ms, b_by, dense = torus_bound_ms(nbytes, R, d)
     return dict(
-        R=R, d=d, per_row_kappa=per_row_kappa, max_abs_err=errs["x"],
-        errors=errs, ms=kernel, plain_ms=plain, library_ms=None,
-        bound_ms=b_ms, bound_by=b_by)
+        route=route, R=R, d=d, per_row_kappa=per_row_kappa,
+        max_abs_err=errs["x"], errors=errs,
+        ms=cuda_ms(lambda: fused(key, loc, kappa)),
+        plain_ms=cuda_ms(lambda: plain(key, loc, kappa), reps=5),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, dense_bound_ms=dense)
 
 
 @contextlib.contextmanager
-def plain_versions(attention, sampler):
+def plain_versions(attention, sampler, ops_torus):
     """Swap the plain PyTorch versions in for the kernels, so the same
     requests can be answered, and the same step taken, without them on the
     card: autograd then differentiates the plain forward versions, and no
     backward kernel is reached either."""
-    saved = attention.fused_attention, sampler.sample_embed_keyed
+    saved = (attention.fused_attention, sampler.sample_embed_keyed,
+             sampler.sample_embed_rng, ops_torus.uses_kernel)
     attention.fused_attention = attention.attention_plain
     sampler.sample_embed_keyed = sampler.sample_embed_keyed_plain
+    sampler.sample_embed_rng = sampler.sample_embed_rng_plain
+    ops_torus.uses_kernel = lambda device_type, d: False
     try:
         yield
     finally:
-        attention.fused_attention, sampler.sample_embed_keyed = saved
+        (attention.fused_attention, sampler.sample_embed_keyed,
+         sampler.sample_embed_rng, ops_torus.uses_kernel) = saved
 
 
 def flagship(vit_vae, dtype):
@@ -327,95 +472,175 @@ def flagship(vit_vae, dtype):
                                  compute_dtype=dtype, seed=0)
 
 
-def serve(serving, vit_vae, attention, sampler, dtype, images):
-    """Answer REQUESTS batch-64 requests per entry point; returns the
-    outputs of the last request, latencies and the launch counts."""
-    srv = serving.CliffordARServing(flagship(vit_vae, dtype), device=DEVICE)
-    per_request = {"encode_mu": (4, 0), "encode_z": (4, 1), "decode": (8, 0)}
-    lat = {name: [] for name in per_request}
-    attention.launches = sampler.launches = 0
+def cnn4096(conv_vae, dtype, route="keyed"):
+    return conv_vae.CNNVAE(latent_dim=CNN_LATENT, in_channels=1, img_size=32,
+                           sampler=route, compute_dtype=dtype, seed=0)
+
+
+def launch_counts(attention, sampler, torus):
+    return {"attention_fwd": attention.launches,
+            "attention_bwd": attention.bwd_launches,
+            "torus_fwd": torus.fwd_launches, "torus_bwd": torus.launches,
+            "sampler_keyed": sampler.launches,
+            "sampler_rng": sampler.rng_launches}
+
+
+def zero_counts(attention, sampler, torus):
+    attention.launches = attention.bwd_launches = 0
+    torus.fwd_launches = torus.launches = 0
+    sampler.launches = sampler.rng_launches = 0
+
+
+def moved_counts(before, after):
+    """The kernels whose count moved, with by how much."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def serve(kmods, srv, images, requests, label):
+    """Answer REQUESTS batch-64 requests per entry point.  ``requests`` maps
+    a name to (call(srv, images, key, outs), launches it must make);
+    returns the outputs of the last round, the latencies and the launch
+    counts."""
+    lat = {name: [] for name in requests}
+    zero_counts(*kmods)
     for i in range(REQUESTS):
-        key = (0, i)
-        calls = {"encode_mu": lambda: srv.encode_mu(images),
-                 "encode_z": lambda: srv.encode_z(key, images)}
         outs = {}
-        for name in ("encode_mu", "encode_z", "decode"):
-            fn = calls.get(name) or (lambda: srv.decode(outs["encode_z"]))
-            before = (attention.launches, sampler.launches)
+        for name, (call, expected) in requests.items():
+            before = launch_counts(*kmods)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs[name] = fn()
+            outs[name] = call(srv, images, (0, i), outs)
             torch.cuda.synchronize()
             lat[name].append((time.perf_counter() - t0) * 1e3)
-            moved = (attention.launches - before[0],
-                     sampler.launches - before[1])
-            check(moved == per_request[name],
-                  f"{name} {dtype}: launches moved {moved}, "
-                  f"expected {per_request[name]}")
-    counts = {"attention_fwd": attention.launches,
-              "sampler_keyed": sampler.launches}
+            moved = moved_counts(before, launch_counts(*kmods))
+            check(moved == expected, f"{label} {name}: launches moved "
+                                     f"{moved}, expected {expected}")
+    for name, out in outs.items():
+        check(bool(torch.isfinite(out).all()), f"{label} {name}: not finite")
+    return outs, lat, launch_counts(*kmods)
+
+
+FLAGSHIP_REQUESTS = {
+    "encode_mu": (lambda srv, x, key, outs: srv.encode_mu(x),
+                  {"attention_fwd": 4}),
+    "encode_z": (lambda srv, x, key, outs: srv.encode_z(key, x),
+                 {"attention_fwd": 4, "sampler_keyed": 1}),
+    "decode": (lambda srv, x, key, outs: srv.decode(outs["encode_z"]),
+               {"attention_fwd": 8}),
+}
+CNN_REQUESTS = {
+    "encode_mu": (lambda srv, x, key, outs: srv.encode_mu(x), {}),
+    **{f"encode_z[{route}]": (
+        lambda srv, x, key, outs, route=route: srv.encode_z(key, x,
+                                                            sampler=route),
+        {ROUTE_KERNEL[route]: 1}) for route in ROUTES},
+    "decode": (lambda srv, x, key, outs: srv.decode(outs["encode_z[keyed]"]),
+               {}),
+}
+
+
+def serve_flagship(kmods, serving, vit_vae, dtype, images):
+    srv = serving.Serving(flagship(vit_vae, dtype), device=DEVICE)
+    outs, lat, counts = serve(kmods, srv, images, FLAGSHIP_REQUESTS,
+                              f"flagship32 {dtype}")
     check(outs["encode_mu"].shape == (BATCH, 1024), "encode_mu shape")
     check(outs["encode_z"].shape == (BATCH, 2048), "encode_z shape")
     check(outs["decode"].shape == (BATCH, 32, 32, 1), "decode shape")
-    for name, out in outs.items():
-        check(bool(torch.isfinite(out).all()), f"{name} {dtype}: not finite")
     norms = outs["encode_z"].reshape(BATCH, 64, 32).norm(dim=-1)
     check((norms - 1).abs().max().item() < 1e-4,
           "encode_z: torus points are not of unit norm")
     return srv, outs, lat, counts
 
 
-def launch_counts(attention, sampler, torus):
-    return {"attention_fwd": attention.launches,
-            "attention_bwd": attention.bwd_launches,
-            "sampler_keyed": sampler.launches, "torus_bwd": torus.launches}
+def serve_cnn(kmods, serving, conv_vae, dtype, images):
+    srv = serving.Serving(cnn4096(conv_vae, dtype), device=DEVICE)
+    outs, lat, counts = serve(kmods, srv, images, CNN_REQUESTS,
+                              f"cnn4096 {dtype}")
+    check(outs["encode_mu"].shape == (BATCH, CNN_LATENT), "cnn encode_mu "
+                                                          "shape")
+    check(outs["decode"].shape == (BATCH, 32, 32, 1), "cnn decode shape")
+    for route in ROUTES:
+        z = outs[f"encode_z[{route}]"]
+        check(z.shape == (BATCH, 2 * CNN_LATENT), f"cnn encode_z[{route}] "
+                                                  f"shape")
+        check((z.norm(dim=-1) - 1).abs().max().item() < 1e-4,
+              f"cnn encode_z[{route}]: torus points are not of unit norm")
+    same = (outs["encode_z[keyed]"] - outs["encode_z[unfused]"]).abs().max()
+    check(same.item() <= 1e-5, f"cnn encode_z: the keyed and the unfused "
+                               f"route differ by {same.item()}")
+    return srv, outs, lat, counts
 
 
-def train(mods, dtype, images):
-    """One warm-up and TRAIN_STEPS timed AdamW steps on one batch; returns
-    the per-step losses, the step times and the launch counts."""
-    vit_vae, state, loop, attention, sampler, torus = mods
-    st = state.create_train_state(flagship(vit_vae, dtype), optimizer="adamw",
-                                  lr=1e-4, device=DEVICE)
-    step = loop.make_cnn_train_step(st.model, st.optimizer)
+def serve_check(kmods, ops_torus, label, srv, outs, bf16_outs, requests,
+                images):
+    """float32 serving with the kernels against the same requests with the
+    plain versions, and bfloat16 against float32 compute."""
+    attention, sampler, _ = kmods
+    before = launch_counts(*kmods)
+    with plain_versions(attention, sampler, ops_torus), \
+            torch.inference_mode():
+        plain = {}
+        for name, (call, _) in requests.items():
+            # the decoders are fed the kernels' latents
+            plain[name] = call(srv, images, (0, REQUESTS - 1), outs)
+    check(launch_counts(*kmods) == before,
+          f"{label}: the plain requests launched a kernel")
+    diffs = {k: (outs[k] - plain[k]).abs().max().item() for k in plain}
+    bf16_vs_f32 = {}
+    for k in outs:
+        diff = bf16_outs[k].float() - outs[k]
+        if k == "encode_mu":  # angles: compare them modulo 2 pi
+            diff = torch.remainder(diff + math.pi, 2 * math.pi) - math.pi
+        bf16_vs_f32[k] = diff.abs().max().item()
+    emit(f"{label}_check", kernels_vs_plain_f32=diffs,
+         bf16_vs_f32=bf16_vs_f32, bf16_bars=BF16_BARS)
+    check(max(diffs.values()) <= 5e-4,
+          f"{label}: float32 serving with kernels vs plain: {diffs} > 5e-4")
+    for k, v in bf16_vs_f32.items():
+        bar = BF16_BARS[k.split("[")[0]]
+        check(v <= bar, f"{label} {k}: bfloat16 vs float32 compute {v} > "
+                        f"{bar}")
+
+
+def train(kmods, st, step, per_step, steps, images, label):
+    """One warm-up and ``steps`` timed AdamW steps on one batch; returns the
+    per-step losses, the step times and the launch counts."""
     beta = torch.ones((), device=DEVICE)
-    attention.launches = attention.bwd_launches = 0
-    sampler.launches = torus.launches = 0
+    zero_counts(*kmods)
     history, ms = [], []
-    for i in range(TRAIN_STEPS + 1):
-        before = launch_counts(attention, sampler, torus)
+    for i in range(steps + 1):
+        before = launch_counts(*kmods)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         losses = step(images, (0, i), beta)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        after = launch_counts(attention, sampler, torus)
-        moved = {k: after[k] - before[k] for k in after}
-        check(moved == PER_STEP,
-              f"train step {i} {dtype}: launches moved {moved}, expected "
-              f"{PER_STEP}")
+        moved = moved_counts(before, launch_counts(*kmods))
+        check(moved == per_step,
+              f"{label} train step {i}: launches moved {moved}, expected "
+              f"{per_step}")
         history.append({k: v.item() for k, v in losses.items()})
         check(all(math.isfinite(v) for v in history[-1].values()),
-              f"train step {i} {dtype}: losses not finite: {history[-1]}")
-    counts = launch_counts(attention, sampler, torus)
+              f"{label} train step {i}: losses not finite: {history[-1]}")
+    counts = launch_counts(*kmods)
     check(history[-1]["total_loss"] < history[0]["total_loss"],
-          f"train {dtype}: total loss did not fall: "
+          f"{label} train: total loss did not fall: "
           f"{history[0]['total_loss']} -> {history[-1]['total_loss']}")
     for p in st.model.parameters():
         check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
-              f"train {dtype}: a parameter or gradient is not float32")
+              f"{label} train: a parameter or gradient is not float32")
     for moments in st.optimizer.inner.state.values():
         check(moments["exp_avg"].dtype == torch.float32
               and moments["exp_avg_sq"].dtype == torch.float32,
-              f"train {dtype}: an Adam moment is not float32")
+              f"{label} train: an Adam moment is not float32")
     return history, ms, counts
 
 
-def first_step(vit_vae, conv_vae, dtype, images):
+def first_step(conv_vae, model, images, key=(0, 0)):
     """Loss pieces and gradients of the first train step (seeded weights,
-    key (0, 0), beta 1), without the update."""
-    model = flagship(vit_vae, dtype).to(DEVICE).train()
-    x_recon, q_z, p_z, _ = model(images, (0, 0))
+    beta 1), without the update."""
+    model = model.to(DEVICE).train()
+    x_recon, q_z, p_z, _ = model(images, key)
     losses = conv_vae.cnn_vae_loss(
         images, x_recon, q_z, p_z, model.distribution, beta=1.0,
         recon_loss_type=model.recon_loss_type, l1_weight=model.l1_weight)
@@ -424,17 +649,18 @@ def first_step(vit_vae, conv_vae, dtype, images):
             {n: p.grad for n, p in model.named_parameters()})
 
 
-def train_check(mods, conv_vae, images):
-    vit_vae, _, _, attention, sampler, torus = mods
-    losses, grads = first_step(vit_vae, conv_vae, torch.float32, images)
-    bf16_losses, bf16_grads = first_step(vit_vae, conv_vae, torch.bfloat16,
-                                         images)
-    before = launch_counts(attention, sampler, torus)
-    with plain_versions(attention, sampler):
-        p_losses, p_grads = first_step(vit_vae, conv_vae, torch.float32,
+def train_check(kmods, ops_torus, conv_vae, make_model, images, label,
+                bf16=True):
+    """The float32 first step with the kernels against the same step with
+    the plain versions, and (``bf16``) the bfloat16 one against float32."""
+    attention, sampler, _ = kmods
+    losses, grads = first_step(conv_vae, make_model(torch.float32), images)
+    before = launch_counts(*kmods)
+    with plain_versions(attention, sampler, ops_torus):
+        p_losses, p_grads = first_step(conv_vae, make_model(torch.float32),
                                        images)
-    check(launch_counts(attention, sampler, torus) == before,
-          "the plain step launched a kernel")
+    check(launch_counts(*kmods) == before,
+          f"{label}: the plain step launched a kernel")
     loss_rel = {k: abs(losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-12)
                 for k in losses}
     norm = math.sqrt(sum(g.double().pow(2).sum().item()
@@ -444,28 +670,35 @@ def train_check(mods, conv_vae, images):
     worst_name, worst = max(
         ((n, (grads[n] - p_grads[n]).abs().max().item()) for n in grads),
         key=lambda t: t[1])
-    bf16_rel = abs(bf16_losses["total_loss"] - losses["total_loss"]) / abs(
-        losses["total_loss"])
-    bf16_err = math.sqrt(sum(
-        (bf16_grads[n] - grads[n]).double().pow(2).sum().item()
-        for n in grads))
-    emit("train_check", loss_rel=loss_rel, grad_norm=norm,
-         grad_l2_rel=err / norm, grad_max_rel=worst / norm,
-         grad_max_param=worst_name, bf16_loss_rel=bf16_rel,
-         bf16_grad_l2_rel=bf16_err / norm, bars=TRAIN_BARS)
+    report = dict(loss_rel=loss_rel, grad_norm=norm, grad_l2_rel=err / norm,
+                  grad_max_rel=worst / norm, grad_max_param=worst_name)
     check(max(loss_rel.values()) <= TRAIN_BARS["loss_rel"],
-          f"float32 step, kernels vs plain: losses differ {loss_rel}")
+          f"{label} float32 step, kernels vs plain: losses differ "
+          f"{loss_rel}")
     check(err / norm <= TRAIN_BARS["grad_l2_rel"],
-          f"float32 step, kernels vs plain: gradient l2 error {err / norm}")
+          f"{label} float32 step, kernels vs plain: gradient l2 error "
+          f"{err / norm}")
     check(worst / norm <= TRAIN_BARS["grad_max_rel"],
-          f"float32 step, kernels vs plain: {worst_name} gradient error "
-          f"{worst / norm} of the global norm")
-    check(bf16_rel <= TRAIN_BARS["bf16_loss_rel"],
-          f"bfloat16 first loss {bf16_losses['total_loss']} vs float32 "
-          f"{losses['total_loss']}: {bf16_rel}")
-    check(bf16_err / norm <= TRAIN_BARS["bf16_grad_l2_rel"],
-          f"bfloat16 gradients vs float32: l2 error {bf16_err / norm} of "
-          f"the gradient norm")
+          f"{label} float32 step, kernels vs plain: {worst_name} gradient "
+          f"error {worst / norm} of the global norm")
+    if bf16:
+        bf16_losses, bf16_grads = first_step(
+            conv_vae, make_model(torch.bfloat16), images)
+        bf16_rel = abs(bf16_losses["total_loss"] - losses["total_loss"]) \
+            / abs(losses["total_loss"])
+        bf16_err = math.sqrt(sum(
+            (bf16_grads[n] - grads[n]).double().pow(2).sum().item()
+            for n in grads))
+        report.update(bf16_loss_rel=bf16_rel,
+                      bf16_grad_l2_rel=bf16_err / norm)
+        check(bf16_rel <= TRAIN_BARS["bf16_loss_rel"],
+              f"{label} bfloat16 first loss {bf16_losses['total_loss']} vs "
+              f"float32 {losses['total_loss']}: {bf16_rel}")
+        check(bf16_err / norm <= TRAIN_BARS["bf16_grad_l2_rel"],
+              f"{label} bfloat16 gradients vs float32: l2 error "
+              f"{bf16_err / norm} of the gradient norm")
+    emit(f"{label}_check", **report, bars=TRAIN_BARS)
+    return losses
 
 
 def main() -> int:
@@ -477,6 +710,7 @@ def main() -> int:
     from cliffordtpu_torch import serving
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
     from cliffordtpu_torch.nn import conv_vae, rope, vit_vae
+    from cliffordtpu_torch.ops import torus as ops_torus
     from cliffordtpu_torch.train import loop, state
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -516,97 +750,168 @@ def main() -> int:
         att_b[label] = attention_bwd_case(attention, rope, BATCH, S, 8, 64,
                                           dtype, use_rope, gen)
         emit("kernel", kernel="attention_bwd", **att_b[label])
+    tor_f = {}
+    for label, R, d in (("cnn4096", BATCH, CNN_LATENT), ("d2048", BATCH, 2048),
+                        ("d513", BATCH, 513)):
+        tor_f[label] = torus_fwd_case(torus, ops_torus, R, d, gen)
+        emit("kernel", kernel="torus_fwd", **tor_f[label])
     tor = {}
-    for label, R, d, epilogue in (("flagship", BATCH * 64, 16, True),
-                                  ("d513", 64, 513, False)):
-        tor[label] = torus_bwd_case(torus, sampler, R, d, epilogue, gen)
+    for label, R, d, epilogue in (("flagship32", BATCH * 64, 16, True),
+                                  ("d513", BATCH, 513, False),
+                                  ("cnn4096", BATCH, CNN_LATENT, True)):
+        tor[label] = torus_bwd_case(torus, sampler, ops_torus, R, d, epilogue,
+                                    gen)
         emit("kernel", kernel="torus_bwd", **tor[label])
     smp = {}
-    for label, R, d, per_row in (("flagship", BATCH * 64, 16, True),
-                                 ("d513", 64, 513, False)):
-        smp[label] = sampler_case(sampler, R, d, per_row, gen)
-        emit("kernel", kernel="sampler_keyed", **smp[label])
+    for route, label, R, d, per_row in (
+            ("keyed", "flagship32", BATCH * 64, 16, True),
+            ("keyed", "d513", BATCH, 513, False),
+            ("keyed", "cnn4096", BATCH, CNN_LATENT, True),
+            ("rng", "flagship32", BATCH * 64, 16, True),
+            ("rng", "d513", BATCH, 513, False),
+            ("rng", "cnn4096", BATCH, CNN_LATENT, True)):
+        smp[route, label] = sampler_case(sampler, route, R, d, per_row, gen)
+        emit("kernel", kernel=f"sampler_{route}", **smp[route, label])
 
+    kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
     runs = {}
     for label, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        srv, outs, lat, counts = serve(serving, vit_vae, attention, sampler,
-                                       dtype, images)
+        srv, outs, lat, counts = serve_flagship(kmods, serving, vit_vae,
+                                                dtype, images)
         runs[label] = (srv, outs, counts)
         emit("serve", compute_dtype=label, batch=BATCH, requests=REQUESTS,
              launches=counts,
              median_ms={k: statistics.median(v[1:]) for k, v in lat.items()},
              first_ms={k: v[0] for k, v in lat.items()})
+    serve_check(kmods, ops_torus, "serve", *runs["float32"][:2],
+                runs["bfloat16"][1], FLAGSHIP_REQUESTS, images)
 
-    srv, outs, _ = runs["float32"]
-    with plain_versions(attention, sampler), torch.inference_mode():
-        plain = {"encode_mu": srv.encode_mu(images),
-                 "encode_z": srv.encode_z((0, REQUESTS - 1), images),
-                 "decode": srv.decode(outs["encode_z"])}
-    diffs = {k: (outs[k] - plain[k]).abs().max().item() for k in plain}
-    bf16_vs_f32 = {}
-    for k in outs:
-        diff = runs["bfloat16"][1][k].float() - outs[k]
-        if k == "encode_mu":  # angles: compare them modulo 2 pi
-            diff = torch.remainder(diff + math.pi, 2 * math.pi) - math.pi
-        bf16_vs_f32[k] = diff.abs().max().item()
-    emit("serve_check", kernels_vs_plain_f32=diffs, bf16_vs_f32=bf16_vs_f32,
-         bf16_bars=BF16_BARS)
-    check(max(diffs.values()) <= 5e-4,
-          f"float32 serving with kernels vs plain: {diffs} > 5e-4")
-    for k, bar in BF16_BARS.items():
-        check(bf16_vs_f32[k] <= bar,
-              f"{k}: bfloat16 vs float32 compute {bf16_vs_f32[k]} > {bar}")
-
-    mods = (vit_vae, state, loop, attention, sampler, torus)
     trained = {}
     for label, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        history, ms, counts = train(mods, dtype, images)
-        trained[label] = (history, counts)
+        st = state.create_train_state(flagship(vit_vae, dtype),
+                                      optimizer="adamw", lr=1e-4,
+                                      device=DEVICE)
+        per_step = {k: v for k, v in PER_STEP.items() if v}
+        history, ms, counts = train(
+            kmods, st, loop.make_cnn_train_step(st.model, st.optimizer),
+            per_step, TRAIN_STEPS, images, f"flagship32 {label}")
+        trained[label] = counts
         emit("train", compute_dtype=label, batch=BATCH, steps=TRAIN_STEPS,
              optimizer="adamw", lr=1e-4, launches=counts,
-             per_step_launches=PER_STEP,
+             per_step_launches=per_step,
              median_ms_per_step=statistics.median(ms[1:]),
              min_ms_per_step=min(ms[1:]), first_ms=ms[0],
              first_losses=history[0], last_losses=history[-1])
-    train_check(mods, conv_vae, images)
+        del st
+    train_check(kmods, ops_torus, conv_vae,
+                lambda dtype: flagship(vit_vae, dtype), images, "train")
+    runs = {k: v[2] for k, v in runs.items()}  # keep the counts only
+    torch.cuda.empty_cache()
 
-    def launched(name, *labels):
-        """Launches on the main paths: serving plus training."""
-        return sum(runs[d][2].get(name, 0) + trained[d][1][name]
-                   for d in labels)
+    cnn_runs = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        srv, outs, lat, counts = serve_cnn(kmods, serving, conv_vae, dtype,
+                                           images)
+        cnn_runs[label] = (srv, outs, counts)
+        emit("cnn_serve", compute_dtype=label, batch=BATCH,
+             requests=REQUESTS, launches=counts,
+             median_ms={k: statistics.median(v[1:]) for k, v in lat.items()},
+             first_ms={k: v[0] for k, v in lat.items()})
+    serve_check(kmods, ops_torus, "cnn_serve", *cnn_runs["float32"][:2],
+                cnn_runs["bfloat16"][1], CNN_REQUESTS, images)
+    cnn_runs = {k: v[2] for k, v in cnn_runs.items()}
 
-    def entry(name, source, replaces, case, launches):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+    cnn_trained = {}
+    for label, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for route in ROUTES:
+            st = state.create_train_state(cnn4096(conv_vae, dtype, route),
+                                          optimizer="adamw", lr=1e-4,
+                                          device=DEVICE)
+            per_step = {ROUTE_KERNEL[route]: 1, "torus_bwd": 1}
+            history, ms, counts = train(
+                kmods, st, loop.make_cnn_train_step(st.model, st.optimizer),
+                per_step, CNN_TRAIN_STEPS, images,
+                f"cnn4096 {label} {route}")
+            cnn_trained[label, route] = counts
+            emit("cnn_train", compute_dtype=label, sampler=route, batch=BATCH,
+                 steps=CNN_TRAIN_STEPS, optimizer="adamw", lr=1e-4,
+                 launches=counts, per_step_launches=per_step,
+                 params_m=sum(p.numel() for p in st.model.parameters()) / 1e6,
+                 median_ms_per_step=statistics.median(ms[1:]),
+                 min_ms_per_step=min(ms[1:]), first_ms=ms[0],
+                 first_losses=history[0], last_losses=history[-1])
+            del st
+    first = {}
+    for route in ROUTES:
+        first[route] = train_check(
+            kmods, ops_torus, conv_vae,
+            lambda dtype, route=route: cnn4096(conv_vae, dtype, route),
+            images, f"cnn_train[{route}]", bf16=route == "keyed")
+    rel = abs(first["keyed"]["total_loss"] - first["unfused"]["total_loss"]) \
+        / abs(first["keyed"]["total_loss"])
+    rng_model = cnn4096(conv_vae, torch.float32, "rng")
+    again, _ = first_step(conv_vae, rng_model, images)
+    other, _ = first_step(conv_vae, rng_model, images, key=(0, 1))
+    emit("cnn_train_routes", keyed_vs_unfused_loss_rel=rel,
+         rng_loss=first["rng"]["total_loss"], rng_loss_again=again[
+             "total_loss"], rng_loss_other_key=other["total_loss"])
+    check(rel <= 1e-5, f"cnn4096: the keyed and the unfused first loss "
+                       f"differ by {rel}")
+    check(again["total_loss"] == first["rng"]["total_loss"],
+          "cnn4096 rng: one key gave two losses")
+    check(other["total_loss"] != first["rng"]["total_loss"],
+          "cnn4096 rng: another key gave the same loss")
+
+    def launched(name, path, dtype=None):
+        """Launches on a main path, serving plus training, in one compute
+        dtype or in both."""
+        served, stepped = ((runs, trained) if path == "flagship32"
+                           else (cnn_runs, cnn_trained))
+        return sum(c[name] for group in (served, stepped)
+                   for label, c in group.items()
+                   if dtype in (None, label, label[0]))
+
+    def entry(name, path, source, replaces, case, dtype=None):
+        tag = f"{dtype},{path}" if dtype else path
+        return {"name": f"{name}[{tag}]", "route": "cuda",
+                "source": f"cliffordtpu_torch/csrc/{source}",
+                "replaces": f"cliffordtpu/kernels/{replaces}",
+                "launches": launched(name, path, dtype),
                 **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")}}
 
-    att_src = "cliffordtpu_torch/csrc/attention_fwd.cu"
-    att_tpu = "cliffordtpu/kernels/attention_pallas.py:139"
-    att_b_src = "cliffordtpu_torch/csrc/attention_bwd.cu"
-    att_b_tpu = "cliffordtpu/kernels/attention_pallas.py:157"
+    att_src, att_tpu = "attention_fwd.cu", "attention_pallas.py:139"
+    att_b_src, att_b_tpu = "attention_bwd.cu", "attention_pallas.py:157"
     kernels = [
-        entry("attention_fwd[float32]", att_src, att_tpu, att["f32"],
-              launched("attention_fwd", "float32")),
-        entry("attention_fwd[bfloat16]", att_src, att_tpu, att["bf16"],
-              launched("attention_fwd", "bfloat16")),
-        entry("attention_bwd[float32]", att_b_src, att_b_tpu, att_b["f32"],
-              launched("attention_bwd", "float32")),
-        entry("attention_bwd[bfloat16]", att_b_src, att_b_tpu, att_b["bf16"],
-              launched("attention_bwd", "bfloat16")),
-        entry("torus_bwd", "cliffordtpu_torch/csrc/torus_bwd.cu",
-              "cliffordtpu/kernels/torus_pallas.py:154", tor["flagship"],
-              launched("torus_bwd", "float32", "bfloat16")),
-        entry("sampler_keyed", "cliffordtpu_torch/csrc/sampler_keyed.cu",
-              "cliffordtpu/kernels/sampler_pallas.py:356", smp["flagship"],
-              launched("sampler_keyed", "float32", "bfloat16")),
+        entry("attention_fwd", "flagship32", att_src, att_tpu, att["f32"],
+              "float32"),
+        entry("attention_fwd", "flagship32", att_src, att_tpu, att["bf16"],
+              "bfloat16"),
+        entry("attention_bwd", "flagship32", att_b_src, att_b_tpu,
+              att_b["f32"], "float32"),
+        entry("attention_bwd", "flagship32", att_b_src, att_b_tpu,
+              att_b["bf16"], "bfloat16"),
+        entry("torus_fwd", "cnn4096", "torus_fwd.cu", "torus_pallas.py:126",
+              tor_f["cnn4096"]),
+        entry("torus_bwd", "flagship32", "torus_bwd.cu",
+              "torus_pallas.py:154", tor["flagship32"]),
+        entry("torus_bwd", "cnn4096", "torus_bwd.cu", "torus_pallas.py:154",
+              tor["cnn4096"]),
+        entry("sampler_rng", "cnn4096", "sampler_rng.cu",
+              "sampler_pallas.py:212", smp["rng", "cnn4096"]),
+        entry("sampler_keyed", "flagship32", "sampler_keyed.cu",
+              "sampler_pallas.py:356", smp["keyed", "flagship32"]),
+        entry("sampler_keyed", "cnn4096", "sampler_keyed.cu",
+              "sampler_pallas.py:356", smp["keyed", "cnn4096"]),
     ]
     for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} never launched on the path")
+        check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

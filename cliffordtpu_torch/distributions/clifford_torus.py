@@ -6,9 +6,12 @@ from __future__ import annotations
 
 import torch
 
+from cliffordtpu_torch import random
 from cliffordtpu_torch.distributions.power_spherical import PowerSpherical
-from cliffordtpu_torch.kernels import sampler
+from cliffordtpu_torch.kernels import sampler as sampler_kernel
 from cliffordtpu_torch.ops.torus import angles_to_torus, torus_to_angles
+
+SAMPLERS = ("keyed", "unfused", "rng")
 
 
 class CliffordPowerSphericalDistribution:
@@ -33,15 +36,36 @@ class CliffordPowerSphericalDistribution:
                                  torch.sin(loc_angles)], -1)
         return PowerSpherical(mean_dirs, kappa)
 
-    def sample(self, key) -> torch.Tensor:
-        """One reparameterised draw (..., 2d) on the keyed threefry stream:
-        the same u and v that ``jax.random`` gives this key, through the
-        fused kernel on the card (``kernels/sampler.py``), whose backward
-        kernel carries the gradient to ``loc`` and ``concentration``."""
+    def sample(self, key, sampler: str = "keyed") -> torch.Tensor:
+        """One reparameterised draw (..., 2d), differentiable in ``loc`` and
+        ``concentration``.  ``sampler`` names the route (``SAMPLERS``), the
+        port's form of the JAX package's ``CLIFFORDTPU_SAMPLER``:
+
+        * ``"keyed"`` (``pallas_keyed``): the fused keyed kernel
+          (``kernels/sampler.py::sample_embed_keyed``), one launch, on the
+          same u and v that ``jax.random`` gives this key;
+        * ``"unfused"`` (JAX's default): the same u and v from
+          ``random.uniform``, the circle formula in tensor operations, then
+          ``ops.torus.angles_to_torus`` (the embedding kernel for large
+          latents on the card);
+        * ``"rng"`` (``pallas_rng``): the fused Philox kernel
+          (``sample_embed_rng``), a different stream by design."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"sampler must be one of {SAMPLERS}, got "
+                             f"{sampler!r}")
         loc, kappa = self._params()
         d = loc.shape[-1]
-        x, _, _, _ = sampler.sample_embed_keyed(
-            key, loc.reshape(-1, d).float(), kappa.reshape(-1, d).float())
+        if sampler == "unfused":
+            k_u, k_v = random.split_words(key)
+            u = random.uniform(k_u, loc.shape, minval=sampler_kernel.U_MIN,
+                               device=loc.device)
+            v = random.uniform(k_v, loc.shape, device=loc.device)
+            return angles_to_torus(
+                sampler_kernel.circle_angles(loc, kappa, u, v))
+        fused = (sampler_kernel.sample_embed_keyed if sampler == "keyed"
+                 else sampler_kernel.sample_embed_rng)
+        x, _, _, _ = fused(key, loc.reshape(-1, d).float(),
+                           kappa.reshape(-1, d).float())
         return x.reshape(*loc.shape[:-1], 2 * d).to(loc.dtype)
 
     rsample = sample
@@ -50,7 +74,8 @@ class CliffordPowerSphericalDistribution:
                              ) -> torch.Tensor:
         """The same draw from explicit uniforms u, v of loc's shape."""
         loc, kappa = self._params()
-        return angles_to_torus(sampler.circle_angles(loc, kappa, u, v))
+        return angles_to_torus(
+            sampler_kernel.circle_angles(loc, kappa, u, v))
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         """Sums ALL d circles, as the reference does."""

@@ -1,13 +1,18 @@
-"""Clifford-torus embedding, backward: the port of
-``cliffordtpu/kernels/torus_pallas.py::_torus_fused_bwd``, which is also
-the d theta of the keyed sampler's custom VJP
-(``cliffordtpu/kernels/sampler_pallas.py::_sample_embed_bwd``).
+"""Clifford-torus embedding, forward and backward: the port of
+``cliffordtpu/kernels/torus_pallas.py`` (``angles_to_torus_fused`` with its
+custom VJP ``_torus_fused_bwd``, which is also the d theta of the fused
+samplers' custom VJP, ``cliffordtpu/kernels/sampler_pallas.py::
+_sample_embed_bwd``).
 
-``torus_bwd`` launches ``csrc/torus_bwd.cu`` for CUDA tensors and runs
-``torus_bwd_plain`` for CPU tensors; any other device raises.
-``sampler_bwd`` is the same launch with the sampler's concentration
-gradient as its epilogue (plain version: ``sampler_bwd_plain``).  Both
-launches count in ``launches``.
+``torus_fwd`` launches ``csrc/torus_fwd.cu`` for CUDA tensors and runs
+``torus_fwd_plain`` for CPU tensors; ``torus_bwd`` does the same with
+``csrc/torus_bwd.cu`` and ``torus_bwd_plain``; any other device raises.
+``sampler_bwd`` is the backward launch with the samplers' concentration
+gradient as its epilogue (plain version: ``sampler_bwd_plain``).
+``torus_embed`` is the differentiable embedding (forward kernel, backward
+kernel) that ``ops/torus.py::angles_to_torus`` routes large latents to.
+Forward launches count in ``fwd_launches``, backward launches (with or
+without the epilogue) in ``launches``.
 """
 
 from __future__ import annotations
@@ -21,11 +26,20 @@ import torch
 from cliffordtpu_torch.kernels import build
 from cliffordtpu_torch.ops.torus import MATMUL_MAX_DIM, torus_bases
 
-# kernel launches since the count was last set to 0
-launches = 0
+# kernel launches since the counts were last set to 0
+fwd_launches = 0  # csrc/torus_fwd.cu
+launches = 0  # csrc/torus_bwd.cu
 
 PS_EPS = 1e-7  # power_spherical.py _EPS
-_SMEM_FLOATS = 12288  # 48 KB: the output gradient of one block's rows
+
+
+def torus_fwd_plain(theta: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version: x = cos(theta) C + sin(theta) S + c for
+    the free angles theta (R, d-1); x (R, 2d)."""
+    d = theta.shape[-1] + 1
+    cos_b, sin_b, const = (b.to(theta.dtype)
+                           for b in torus_bases(d, theta.device))
+    return torch.cos(theta) @ cos_b + torch.sin(theta) @ sin_b + const
 
 
 def torus_bwd_plain(theta: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -65,21 +79,23 @@ def sampler_bwd_plain(theta, u, v, kappa, g):
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = build.library("torus_bwd").torus_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 3
+def _fwd_kernel():
+    fn = build.library("torus_fwd").torus_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def rows_per_block(d: int) -> int:
-    """Rows one block differentiates: about 1024 (row, angle) outputs and at
-    most 32 rows, so that large d still spreads over many blocks; the rows'
-    output gradient (2d floats each) stays within 48 KB of shared memory."""
-    return max(1, min(32, 1024 // d, _SMEM_FLOATS // (2 * d)))
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = build.library("torus_bwd").torus_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _check(theta, g):
@@ -110,11 +126,38 @@ def _launch(theta, g, d_theta, ld, off, u, v, kap, d_kappa):
     with torch.cuda.device(theta.device):
         rc = _kernel()(theta.data_ptr(), g.data_ptr(), d_theta.data_ptr(),
                        ld, off, ptr(u), ptr(v), ptr(kap), *ks, ptr(d_kappa),
-                       R, d, rows_per_block(d),
+                       R, d,
                        torch.cuda.current_stream(theta.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"torus_bwd kernel failed: CUDA error {rc}")
     launches += 1
+
+
+def torus_fwd(theta: torch.Tensor) -> torch.Tensor:
+    """The torus embedding x (R, 2d) of the free angles ``theta`` (R, d-1),
+    float32 (angle 0 is pinned to phase 0 and is not passed)."""
+    global fwd_launches
+    if theta.device.type == "cpu":
+        return torus_fwd_plain(theta)
+    if theta.device.type != "cuda":
+        raise ValueError(f"torus_fwd runs on cuda or cpu, not "
+                         f"{theta.device}")
+    if theta.dim() != 2 or theta.dtype != torch.float32:
+        raise ValueError(f"theta must be float32 (R, d-1), got "
+                         f"{tuple(theta.shape)} {theta.dtype}")
+    R, d = theta.shape[0], theta.shape[1] + 1
+    if not 2 <= d <= MATMUL_MAX_DIM:
+        raise ValueError(f"d={d} outside [2, {MATMUL_MAX_DIM}]")
+    theta = theta.contiguous()
+    x = torch.empty((R, 2 * d), dtype=torch.float32, device=theta.device)
+    with torch.cuda.device(theta.device):
+        rc = _fwd_kernel()(
+            theta.data_ptr(), x.data_ptr(), R, d,
+            torch.cuda.current_stream(theta.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"torus_fwd kernel failed: CUDA error {rc}")
+    fwd_launches += 1
+    return x
 
 
 def torus_bwd(theta: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -126,7 +169,8 @@ def torus_bwd(theta: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"torus_bwd runs on cuda or cpu, not "
                          f"{theta.device}")
     R, d = _check(theta, g)
-    d_theta = torch.empty_like(theta)
+    d_theta = torch.empty(theta.shape, dtype=torch.float32,
+                          device=theta.device)
     _launch(theta.contiguous(), g.contiguous(), d_theta, d - 1, 0,
             None, None, None, None)
     return d_theta
@@ -156,3 +200,25 @@ def sampler_bwd(theta, u, v, kappa, g):
     _launch(theta.contiguous(), g.contiguous(), d_loc, d, 1, u.contiguous(),
             v.contiguous(), kap, d_kappa)
     return d_loc, d_kappa
+
+
+class _TorusEmbed(torch.autograd.Function):
+    """Forward kernel on the free angles; the backward is the torus
+    backward kernel without the epilogue."""
+
+    @staticmethod
+    def forward(ctx, theta):
+        ctx.save_for_backward(theta)
+        return torus_fwd(theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        (theta,) = ctx.saved_tensors
+        return torus_bwd(theta, g)
+
+
+def torus_embed(theta: torch.Tensor) -> torch.Tensor:
+    """``torus_fwd``, differentiable in ``theta`` through ``torus_bwd``."""
+    if torch.is_grad_enabled() and theta.requires_grad:
+        return _TorusEmbed.apply(theta)
+    return torus_fwd(theta)

@@ -1,5 +1,5 @@
-"""Carry JAX ``CliffordARVAE`` parameters, or a gradient tree of the same
-layout, into the port's modules.
+"""Carry JAX ``CliffordARVAE`` or ``CNNVAE`` parameters, or a gradient tree
+of the same layout, into the port's modules.
 
 Input is the flat dict that ``cliffordtpu/serving.py::_flatten_params``
 writes to ``params.npz`` (keys like
@@ -12,7 +12,12 @@ writes to ``params.npz`` (keys like
   correlates with the flipped kernel; flax's ``transpose_kernel=False``
   does not)
 * RMSNorm / GroupNorm ``scale``      -> ``weight``; ``bias`` as it is
-* ``register_token``                 as it is
+* ``register_token``, ``log_sigma_0`` / ``log_sigma_1`` as they are
+
+The ``CNNVAE`` modules flatten and unflatten their 2 x 2 x 512 feature map
+in JAX's NHWC order (``nn/conv_vae.py``), so the encoder's heads and the
+decoder's first Dense are plain Dense kernels here, with no permutation of
+their rows or columns.
 
 Every rule is a transpose, a flip or the identity, so it is linear and
 maps ``jax.grad``'s tree onto the gradients of the port's parameters as it
@@ -144,6 +149,47 @@ def cliffordar_rules(flat) -> List[Rule]:
         ("post_quant_proj.weight", "post_quant_proj/kernel", _dense),
         *[(f"decoder_vit.{p}", j, f)
           for p, j, f in vit_decoder_rules(flat, "decoder_vit/")],
+        *_sigma_rules(flat),
+    ]
+
+
+def _bias(port: str, jax: str, transform: Callable) -> List[Rule]:
+    return [(f"{port}.weight", f"{jax}/kernel", transform),
+            (f"{port}.bias", f"{jax}/bias", _same)]
+
+
+def _sigma_rules(flat) -> List[Rule]:
+    return [(k, k, _same) for k in ("log_sigma_0", "log_sigma_1")
+            if k in flat]
+
+
+def res_block_rules(flat, jax_prefix: str, up: bool) -> List[Rule]:
+    """``ResBlock`` (``up=False``) or ``ResUpBlock``: the strided
+    (transposed) convolution, and the 1x1 skip convolution when the block
+    changes the channel count."""
+    rules = (_bias("conv", "ConvTranspose_0", _conv_t) if up
+             else _bias("conv", "Conv_0", _conv))
+    skip = "Conv_0" if up else "Conv_1"
+    if f"{jax_prefix}/{skip}/kernel" in flat:
+        rules += _bias("skip", skip, _conv)
+    return rules
+
+
+def cnnvae_rules(flat) -> List[Rule]:
+    n_down = _count(flat, "encoder/ResBlock")
+    n_up = _count(flat, "decoder/ResUpBlock")
+    return [
+        *[r for i in range(n_down) for r in _nest(
+            res_block_rules(flat, f"encoder/ResBlock_{i}", up=False),
+            f"encoder.blocks.{i}", f"encoder/ResBlock_{i}")],
+        *_bias("encoder.mu", "encoder/Dense_0", _dense),
+        *_bias("encoder.kappa", "encoder/Dense_1", _dense),
+        *_bias("decoder.fc", "decoder/Dense_0", _dense),
+        *[r for i in range(n_up) for r in _nest(
+            res_block_rules(flat, f"decoder/ResUpBlock_{i}", up=True),
+            f"decoder.blocks.{i}", f"decoder/ResUpBlock_{i}")],
+        *_bias("decoder.conv_out", "decoder/ConvTranspose_0", _conv_t),
+        *_sigma_rules(flat),
     ]
 
 
@@ -165,3 +211,18 @@ def cliffordar_from_jax(flat: Dict[str, np.ndarray]
     dict for ``cliffordtpu_torch.nn.vit_vae.CliffordARVAE``; a flat JAX
     gradient tree -> the gradients of the port's parameters, by name."""
     return convert(flat, cliffordar_rules(flat))
+
+
+def cnnvae_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """JAX ``CNNVAE`` params (flat ``params.npz`` keys, clifford latent) ->
+    a state dict for ``cliffordtpu_torch.nn.conv_vae.CNNVAE``; a flat JAX
+    gradient tree -> the gradients of the port's parameters, by name."""
+    return convert(flat, cnnvae_rules(flat))
+
+
+def from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """``cnnvae_from_jax`` or ``cliffordar_from_jax``, by the tree's own
+    keys."""
+    if any(k.startswith("encoder/") for k in flat):
+        return cnnvae_from_jax(flat)
+    return cliffordar_from_jax(flat)

@@ -20,6 +20,7 @@ def reparameterize(distribution: str, z_mean, z_param2, z_dim: int):
             CliffordTorusUniform(z_dim))
 
 
-def sample_latent(key, distribution: str, q_z):
-    """One reparameterised draw of q_z on the keyed stream."""
-    return q_z.sample(key)
+def sample_latent(key, distribution: str, q_z, sampler: str = "keyed"):
+    """One reparameterised draw of q_z with the sampling ``key``, through
+    the ``sampler`` route (``distributions/clifford_torus.py::SAMPLERS``)."""
+    return q_z.sample(key, sampler=sampler)

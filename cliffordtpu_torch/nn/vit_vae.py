@@ -15,8 +15,8 @@ and last convolutions and the distribution math run in float32.  The
 attention core of every block is the fused RoPE + attention kernel
 (``kernels/attention.py``), forward and backward.
 
-Not ported yet: ``fused_proj``, ``scan_layers``, the Gaussian and
-PowerSpherical heads and the learnable-beta sigmas.
+Not ported yet: ``fused_proj``, ``scan_layers`` and the Gaussian and
+PowerSpherical heads.
 """
 
 from __future__ import annotations
@@ -30,6 +30,10 @@ from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
 from cliffordtpu_torch.kernels import attention as attention_kernel
+from cliffordtpu_torch.nn.conv_vae import reset_parameters
+from cliffordtpu_torch.nn.layers import Conv as _Conv
+from cliffordtpu_torch.nn.layers import ConvT as _ConvT
+from cliffordtpu_torch.nn.layers import Linear as _Linear
 from cliffordtpu_torch.nn.mlp_vae import l2_normalize
 from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
 from cliffordtpu_torch.nn.rope import apply_rotary_half, rope_2d_cos_sin
@@ -66,51 +70,6 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x):
         return F.group_norm(x.float(), self.num_groups, self.weight,
                             self.bias, self.eps).to(x.dtype)
-
-
-class _Linear(nn.Linear):
-    """Float32 parameters; input and weight are cast to ``compute_dtype``
-    at use (flax ``nn.Dense(dtype=...)``)."""
-
-    def __init__(self, d_in, d_out, dtype, bias=False):
-        super().__init__(d_in, d_out, bias=bias)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
-
-
-class _Conv(nn.Conv2d):
-    """Bias-free convolution with float32 parameters, run in
-    ``compute_dtype`` (flax ``nn.Conv(dtype=...)``)."""
-
-    def __init__(self, c_in, c_out, k, stride=1, padding=0,
-                 dtype=torch.float32):
-        super().__init__(c_in, c_out, k, stride=stride, padding=padding,
-                         bias=False)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
-
-
-class _ConvT(nn.ConvTranspose2d):
-    """flax ConvTranspose stride 2: 4x4 "SAME" == torch padding 1,
-    2x2 "VALID" == padding 0 (with the kernel flipped, param_import.py).
-    Float32 parameters, run in ``compute_dtype``."""
-
-    def __init__(self, c_in, c_out, k, padding, dtype):
-        super().__init__(c_in, c_out, k, stride=2, padding=padding,
-                         bias=False)
-        self.compute_dtype = dtype
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
-                                  self.stride, self.padding)
 
 
 class SwiGLU(nn.Module):
@@ -316,11 +275,13 @@ def default_config(image_size: int) -> dict:
 class CliffordARVAE(nn.Module):
     """Hybrid CNN+ViT S-VAE with per-token Clifford-torus latents:
     ``forward`` (the training path), ``encode``, ``encode_heads``,
-    ``reparam``, ``decode``, ``get_flat_latent``.
+    ``reparam``, ``decode``, ``get_flat_latent``, ``loss_sigmas``.
 
-    ``seed`` makes the random initialisation (xavier-uniform weights,
-    unit-normal register tokens, zero biases) reproducible; weights
-    carried from JAX replace it (``nn/param_import.py``)."""
+    ``sampler`` is the route of the reparameterised draw
+    (``distributions/clifford_torus.py::SAMPLERS``).  ``seed`` makes the
+    random initialisation (xavier-uniform weights, unit-normal register
+    tokens, zero biases) reproducible; weights carried from JAX replace it
+    (``nn/param_import.py``)."""
 
     def __init__(self, latent_dim: int = 16, image_size: int = 256,
                  in_channels: int = 3, distribution: str = "clifford",
@@ -331,15 +292,12 @@ class CliffordARVAE(nn.Module):
                  encoder_vit_layers: Optional[int] = None,
                  decoder_vit_layers: Optional[int] = None,
                  patch_size: Optional[int] = None, register_tokens: int = 4,
-                 concentration_floor: float = 0.03,
+                 concentration_floor: float = 0.03, sampler: str = "keyed",
                  compute_dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
         if distribution != "clifford":
             raise NotImplementedError(
                 f"only the clifford latent is ported, not {distribution!r}")
-        if use_learnable_beta:
-            raise NotImplementedError(
-                "the learnable-beta sigmas are not ported")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
@@ -356,6 +314,7 @@ class CliffordARVAE(nn.Module):
         self.l1_weight = l1_weight
         self.use_learnable_beta = use_learnable_beta
         self.concentration_floor = concentration_floor
+        self.sampler = sampler
         self.compute_dtype = compute_dtype
         grid = image_size // (2 ** (len(cnn_chs) - 1))
         self.num_tokens = grid * grid
@@ -370,25 +329,10 @@ class CliffordARVAE(nn.Module):
             decoder_vit_layers or cfg["decoder_vit_layers"], n_heads, zc,
             cnn_chs[::-1], in_channels, image_size, patch_size,
             register_tokens, compute_dtype)
-        self.reset_parameters(seed)
-
-    @torch.no_grad()
-    def reset_parameters(self, seed: int):
-        """JAX's initialisers, drawn in float32 from ``seed`` (so both
-        compute dtypes start from the same weights)."""
-        gen = torch.Generator().manual_seed(seed)
-        for name, p in self.named_parameters():
-            if name.endswith("register_token"):
-                val = torch.randn(p.shape, generator=gen)
-            elif name.endswith(".bias"):
-                val = torch.zeros(p.shape)
-            elif p.dim() == 1:  # norm scales
-                val = torch.ones(p.shape)
-            else:
-                rf = p[0, 0].numel()  # receptive field (1 for Linear)
-                limit = math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * rf))
-                val = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
-            p.copy_(val)
+        if use_learnable_beta:
+            self.log_sigma_0 = nn.Parameter(torch.zeros(1))
+            self.log_sigma_1 = nn.Parameter(torch.zeros(1))
+        reset_parameters(self, seed)
 
     def encode_heads(self, x):
         """Image (B, H, W, C) -> per-token (mu (B, T, d), kappa (B, T)),
@@ -399,14 +343,15 @@ class CliffordARVAE(nn.Module):
                             max=10.0)
         return mu, kappa
 
-    def reparam(self, mu, kappa, key):
+    def reparam(self, mu, kappa, key, sampler=None):
         """(z, q_z, p_z): per-token torus latents z (B, T, 2d) drawn with
         the sampling ``key`` (two uint32 words), the posterior and the
         prior."""
         q_z, p_z = reparameterize(self.distribution, mu,
                                   kappa[..., None].expand(mu.shape),
                                   self.latent_dim)
-        return sample_latent(key, self.distribution, q_z), q_z, p_z
+        return (sample_latent(key, self.distribution, q_z,
+                              sampler or self.sampler), q_z, p_z)
 
     def decode(self, z):
         """(B, T, 2d) or flat (B, T*2d) latents -> image (B, H, W, C)."""
@@ -427,11 +372,18 @@ class CliffordARVAE(nn.Module):
         z, q_z, p_z = self.reparam(mu, kappa, key)
         return z, kl_divergence(q_z, p_z).mean()
 
-    def get_flat_latent(self, x, key):
+    def get_flat_latent(self, x, key, sampler=None):
         """(B, num_tokens * 2d) sampled latents."""
         mu, kappa = self.encode_heads(x)
-        z, _, _ = self.reparam(mu, kappa, key)
+        z, _, _ = self.reparam(mu, kappa, key, sampler)
         return z.reshape(z.shape[0], -1)
+
+    def loss_sigmas(self):
+        """(sigma_0, sigma_1), each (1,), of the learnable-beta loss, or
+        (None, None)."""
+        if self.use_learnable_beta:
+            return torch.exp(self.log_sigma_0), torch.exp(self.log_sigma_1)
+        return None, None
 
     def normalize(self, x):
         """L2 normalise * sqrt(d)."""

@@ -7,9 +7,15 @@ d phase angles embed in R^{2d} as
 
 with n = 2d, C[k, j] = (2/n) cos(2 pi k j / n), S[k, j] = -(2/n)
 sin(2 pi k j / n) and c_j = (1 + (-1)^j) / n.  Angle index 0 is pinned to
-phase 0: only the d-1 angles 1..d-1 enter.  This module is the plain
-embedding; the fused sampler kernel (``kernels/sampler.py``) builds the
-same basis in its own body.
+phase 0: only the d-1 angles 1..d-1 enter.
+
+``angles_to_torus`` is two matrix products against the materialised bases
+(``angles_to_torus_matmul``), except for CUDA tensors with
+``KERNEL_MIN_DIM <= d <= MATMUL_MAX_DIM``, where the bases would be 2 x
+134 MB at d = 4096: those go through the hand-written embedding kernel and
+its backward kernel (``kernels/torus.py::torus_embed``), as the JAX
+package routes the same range to its fused TPU kernel.  The fused sampler
+kernels (``kernels/sampler.py``) build the same basis in their own bodies.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ import torch
 
 # above this latent dim the reference switches to an FFT; not ported
 MATMUL_MAX_DIM = 4096
+# from this latent dim up to MATMUL_MAX_DIM a CUDA tensor is embedded by
+# the hand-written kernel (the JAX package's PALLAS_MIN_DIM)
+KERNEL_MIN_DIM = 2048
 # up to this dim the bases are host float64 -> float32 constants; above
 # it they are made on the device from int32 (k*j) mod n phases
 HOST_CONST_MAX_DIM = 512
@@ -88,14 +97,35 @@ def _check_dim(d: int):
             "for larger dims is not ported")
 
 
-def angles_to_torus(angles: torch.Tensor) -> torch.Tensor:
-    """Embed d angles (..., d) onto the Clifford torus in R^{2d}."""
+def angles_to_torus_matmul(angles: torch.Tensor) -> torch.Tensor:
+    """Embed d angles (..., d) onto the Clifford torus in R^{2d} as two
+    matrix products against the bases, on any device."""
     d = angles.shape[-1]
     _check_dim(d)
     cos_b, sin_b, const = (b.to(angles.dtype)
                            for b in torus_bases(d, angles.device))
     th = angles[..., 1:]
     return torch.cos(th) @ cos_b + torch.sin(th) @ sin_b + const
+
+
+def uses_kernel(device_type: str, d: int) -> bool:
+    """Whether ``angles_to_torus`` embeds d angles on this device through
+    the hand-written kernel."""
+    return device_type == "cuda" and KERNEL_MIN_DIM <= d <= MATMUL_MAX_DIM
+
+
+def angles_to_torus(angles: torch.Tensor) -> torch.Tensor:
+    """Embed d angles (..., d) onto the Clifford torus in R^{2d}: through
+    the embedding kernel for a CUDA tensor of a large latent, else as
+    matrix products (see the module docstring)."""
+    d = angles.shape[-1]
+    if not uses_kernel(angles.device.type, d):
+        return angles_to_torus_matmul(angles)
+    from cliffordtpu_torch.kernels import torus as torus_kernel
+
+    theta = angles.reshape(-1, d)[:, 1:].float()
+    x = torus_kernel.torus_embed(theta)
+    return x.reshape(*angles.shape[:-1], 2 * d).to(angles.dtype)
 
 
 def torus_to_angles(x: torch.Tensor) -> torch.Tensor:

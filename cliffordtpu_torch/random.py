@@ -14,9 +14,17 @@ jax 0.9):
   ``max(minval, f * (maxval - minval) + minval)`` in float32
   (``jax._src.random._uniform``).
 
+* ``fold_in(key, data) = threefry2x32(key, hi=0, lo=data)``
+  (``_threefry_fold_in`` on ``threefry_seed(data)``).
+
+Beside threefry stands Philox-4x32-10 (Salmon et al., SC'11), the
+generator of the Philox sampler kernel (``csrc/sampler_rng.cu``), which
+has no counterpart in ``jax.random``.
+
 Words are held in int64 tensors masked to 32 bits, so every operation is
-exact on any device.  The CUDA sampler kernel (``csrc/sampler_keyed.cu``)
-computes the same words and is held to these functions bit for bit.
+exact on any device.  The CUDA sampler kernels (``csrc/sampler_keyed.cu``,
+``csrc/sampler_rng.cu``) compute the same words and are held to these
+functions bit for bit.
 """
 
 from __future__ import annotations
@@ -73,6 +81,15 @@ def split_words(key: Key, num: int = 2) -> List[Tuple[int, int]]:
     return [threefry2x32(k0, k1, 0, i) for i in range(num)]
 
 
+def fold_in_words(key: Key, data: int) -> Tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` on the host, for a ``data`` that
+    fits one uint32 word: the new key as a pair of ints."""
+    if not 0 <= data <= _MASK:
+        raise ValueError(f"data must lie in [0, 2**32), got {data}")
+    k0, k1 = key_words(key)
+    return threefry2x32(k0, k1, 0, data)
+
+
 def split(key: Key, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: an int64 tensor (num, 2) of new keys (CPU)."""
     return torch.tensor(split_words(key, num), dtype=torch.int64)
@@ -107,3 +124,32 @@ def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
             device=None) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval)`` bit for bit."""
     return uniform_from_bits(random_bits(key, shape, device), minval)
+
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)  # key increments (Weyl sequence)
+
+
+def _mulhilo(m: int, x):
+    """(high, low) words of the 64-bit product of the constant ``m`` and the
+    word ``x``, from two products that stay below 2**48 (an int64 tensor
+    cannot hold the full product)."""
+    lo_part = x * (m & 0xFFFF)
+    hi_part = x * (m >> 16)
+    return ((hi_part + (lo_part >> 16)) >> 16,
+            (lo_part + ((hi_part & 0xFFFF) << 16)) & _MASK)
+
+
+def philox4x32(key: Key, counter, rounds: int = 10):
+    """Philox-4x32 on uint32 words held in int64 tensors or in Python ints:
+    ``key`` two words, ``counter`` four (each a tensor or an int; they
+    broadcast).  Returns the four output words."""
+    k0, k1 = key_words(key)
+    c0, c1, c2, c3 = counter
+    for i in range(rounds):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK
+        k1 = (k1 + _PHILOX_W[1]) & _MASK
+    return c0, c1, c2, c3

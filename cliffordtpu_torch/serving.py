@@ -1,11 +1,14 @@
-"""The three inference entry points of a ``CliffordARVAE`` (port of
+"""The three inference entry points of a model (port of
 ``cliffordtpu/serving.py:125-153``), on the card by default.
 
-``CliffordARServing`` holds one model on one device and answers:
+``Serving`` holds one ``CliffordARVAE`` (T tokens per image) or ``CNNVAE``
+(T = 1) on one device and answers:
 
 * ``encode_mu(x)``      images (B, H, W, C) -> mean angles (B, T*d)
 * ``encode_z(key, x)``  images -> sampled torus latents (B, T*2d)
 * ``decode(z)``         latents (B, T*2d) -> images (B, H, W, C)
+
+``CliffordARServing`` is the same class under its first name.
 
 ``load_params_npz`` reads a float32 ``params.npz`` in the JAX package's
 flat format (``serving._flatten_params``); its bfloat16 and int8 storage
@@ -20,8 +23,7 @@ import numpy as np
 import torch
 
 from cliffordtpu_torch.device import resolve_device
-from cliffordtpu_torch.nn.param_import import cliffordar_from_jax
-from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
+from cliffordtpu_torch.nn.param_import import from_jax
 
 
 def load_params_npz(path) -> Dict[str, np.ndarray]:
@@ -35,20 +37,19 @@ def load_params_npz(path) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v, dtype=np.float32) for k, v in flat.items()}
 
 
-class CliffordARServing:
-    """One ``CliffordARVAE`` in eval mode on one device.
+class Serving:
+    """One model in eval mode on one device.
 
     ``device`` defaults to CUDA and raises when there is none; pass
     ``device="cpu"`` to run the plain versions of the kernels.  ``params``,
     when given, is a flat JAX param dict (``load_params_npz``) that replaces
     the model's own initialisation."""
 
-    def __init__(self, model: CliffordARVAE,
-                 params: Optional[Dict[str, np.ndarray]] = None,
+    def __init__(self, model, params: Optional[Dict[str, np.ndarray]] = None,
                  device=None):
         self.device = resolve_device(device)
         if params is not None:
-            model.load_state_dict(cliffordar_from_jax(params))
+            model.load_state_dict(from_jax(params))
         self.model = model.to(self.device).eval()
 
     def _input(self, a) -> torch.Tensor:
@@ -60,16 +61,22 @@ class CliffordARServing:
         return mu.reshape(mu.shape[0], -1)
 
     @torch.inference_mode()
-    def encode_z(self, key, x) -> torch.Tensor:
+    def encode_z(self, key, x,
+                 sampler: Optional[str] = None) -> torch.Tensor:
         """Sampled latents.  ``key`` is the SAMPLING key: two uint32 words,
         used as ``CliffordPowerSphericalDistribution.sample`` uses its key.
         The JAX entry point takes the rng it passes to ``model.apply`` and
         derives this key inside with ``make_rng("sample")``; a caller
         holding only that rng gets the sampling key from JAX with
         ``model.apply(variables, rngs={"sample": rng},
-        method=lambda m: m.make_rng("sample"))``."""
-        return self.model.get_flat_latent(self._input(x), key)
+        method=lambda m: m.make_rng("sample"))``.  ``sampler`` names the
+        route of the draw (``distributions/clifford_torus.py::SAMPLERS``)
+        for this request; the default is the model's own."""
+        return self.model.get_flat_latent(self._input(x), key, sampler)
 
     @torch.inference_mode()
     def decode(self, z) -> torch.Tensor:
         return self.model.decode(self._input(z))
+
+
+CliffordARServing = Serving

@@ -20,11 +20,14 @@ def _losses(model, x, key, beta) -> Dict[str, torch.Tensor]:
     x_recon, q_z, p_z, _ = model(x, key)
     return cnn_vae_loss(x, x_recon, q_z, p_z, model.distribution, beta=beta,
                         recon_loss_type=model.recon_loss_type,
-                        l1_weight=model.l1_weight)
+                        l1_weight=model.l1_weight,
+                        sigmas=model.loss_sigmas())
 
 
 def make_cnn_train_step(model, optimizer: ClippedOptimizer) -> Callable:
-    """``train_step(x, key, beta) -> losses`` for ``CliffordARVAE``: loss,
+    """``train_step(x, key, beta) -> losses`` for ``CNNVAE`` and
+    ``CliffordARVAE`` (with the learnable-beta sigmas when the model has
+    them, and then ``beta`` is not used): loss,
     backward, clip at the optimizer's ``clip_norm``, update.  ``x`` is a
     batch of images (B, H, W, C) on the model's device, ``key`` the
     sampling key (two uint32 words), ``beta`` a float or a scalar tensor on

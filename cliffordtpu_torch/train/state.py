@@ -13,14 +13,18 @@ the same update:
   parameter, norms and biases included, as optax applies it without a mask;
   betas (0.9, 0.999), eps 1e-8.
 
-Not ported yet: the learnable-beta parameter group (``sigma_lr_scale``)
-and gradient accumulation (``accum_steps``).
+With ``sigma_lr_scale`` the learnable-beta parameters (those whose name
+holds ``log_sigma``) form a second parameter group that trains at
+``lr * sigma_lr_scale``, as the reference's ``optax.multi_transform``
+does; the clip's norm is taken over both groups.
+
+Not ported yet: gradient accumulation (``accum_steps``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -65,24 +69,36 @@ class ClippedOptimizer:
         return norm
 
 
-def make_optimizer(params: Iterable[nn.Parameter], optimizer: str = "adam",
-                   lr: float = 1e-3, clip_norm: float = 1.0,
+def _is_sigma(name: str) -> bool:
+    return "log_sigma" in name
+
+
+def make_optimizer(params, optimizer: str = "adam", lr: float = 1e-3,
+                   clip_norm: float = 1.0,
                    sigma_lr_scale: Optional[float] = None
                    ) -> ClippedOptimizer:
-    """Adam or AdamW at ``lr`` behind a global-norm clip.  The parameters
-    must already lie on the device they train on: on CUDA the update is
+    """Adam or AdamW at ``lr`` behind a global-norm clip.  ``params`` is an
+    iterable of parameters or, as ``sigma_lr_scale`` needs it, of (name,
+    parameter) pairs (``model.named_parameters()``).  The parameters must
+    already lie on the device they train on: on CUDA the update is
     PyTorch's fused multi-tensor kernel."""
-    if sigma_lr_scale is not None:
-        raise NotImplementedError(
-            "sigma_lr_scale (the learnable-beta parameter group) is not "
-            "ported")
     params = list(params)
-    fused = all(p.device.type == "cuda" for p in params)
+    if sigma_lr_scale is None:
+        groups = [{"params": [p[1] if isinstance(p, tuple) else p
+                              for p in params]}]
+    else:
+        if not all(isinstance(p, tuple) for p in params):
+            raise ValueError("sigma_lr_scale needs (name, parameter) pairs")
+        groups = [
+            {"params": [p for n, p in params if not _is_sigma(n)]},
+            {"params": [p for n, p in params if _is_sigma(n)],
+             "lr": lr * sigma_lr_scale}]
+    fused = all(p.device.type == "cuda" for g in groups for p in g["params"])
     if optimizer == "adam":
-        inner = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        inner = torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                  fused=fused)
     elif optimizer == "adamw":
-        inner = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+        inner = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=ADAMW_WEIGHT_DECAY,
                                   fused=fused)
     else:
@@ -111,6 +127,6 @@ def create_train_state(model: nn.Module, optimizer: str = "adam",
         raise NotImplementedError("gradient accumulation is not ported")
     device = resolve_device(device)
     model = model.to(device).train()
-    tx = make_optimizer(model.parameters(), optimizer, lr, clip_norm,
+    tx = make_optimizer(model.named_parameters(), optimizer, lr, clip_norm,
                         sigma_lr_scale)
     return TrainState(model=model, optimizer=tx, device=device)

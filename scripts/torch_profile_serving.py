@@ -2,15 +2,18 @@
 """Where a serving request's time goes in the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile_serving.py [--out-dir profiles]
+        [--config flagship32|cnn4096]
 
-Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``, seeded
-random weights) in float32 and in bfloat16 compute, warms each entry point
-up, then traces 5 batch-64 requests of each with ``torch.profiler``.
-For each (dtype, entry point) it prints one JSON line: the request's wall
+Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``) or, with
+``--config cnn4096``, the ``CNNVAE`` at latent 4096 (``encode_z`` then once
+per sampler route), seeded random weights, in float32 and in bfloat16
+compute, warms each entry point up, then traces 5 batch-64 requests of each
+with ``torch.profiler``.  For each (dtype, entry point) it prints one JSON line: the request's wall
 time (host clock, ends in a synchronise), the device's busy time (union of
 kernel intervals) and idle share, and device time by kernel class
-(attention kernel, sampler kernel, GEMM, convolution, norm, other).  The
-full per-kernel table goes to ``<out-dir>/profile_<dtype>_<entry>.txt``.
+(attention kernel, sampler and torus forward kernels, GEMM, convolution,
+norm, other).  The full per-kernel table goes to
+``<out-dir>/profile_<config>_<dtype>_<entry>.txt``.
 Imports nothing of JAX.
 """
 
@@ -31,7 +34,8 @@ BATCH = 64
 REQUESTS = 5  # traced per (dtype, entry point), after 3 warm-up calls
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("attention_kernel", ("attention_fwd_kernel",)),
-    ("sampler_kernel", ("keyed_sample_embed",)),
+    ("sampler_kernel", ("keyed_sample_embed", "rng_sample_embed")),
+    ("torus_fwd_kernel", ("torus_fwd_kernel",)),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "implicit", "winograd",
               "nchw", "nhwc")),
     ("gemm", ("gemm", "nvjet", "cutlass", "matmul", "cublas", "splitk")),
@@ -72,6 +76,8 @@ def main() -> int:
     ap.add_argument("--out-dir", default="profiles",
                     help="where the per-kernel tables go (relative paths "
                          "are taken from the repository root)")
+    ap.add_argument("--config", default="flagship32",
+                    choices=("flagship32", "cnn4096"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -79,6 +85,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cliffordtpu_torch import serving
     from cliffordtpu_torch.kernels import build
+    from cliffordtpu_torch.nn.conv_vae import CNNVAE
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -93,12 +100,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(BATCH, 32, 32, 1, generator=gen, device="cuda") * 2 - 1
     for dtype in (torch.float32, torch.bfloat16):
-        srv = serving.CliffordARServing(
-            CliffordARVAE(latent_dim=16, image_size=32, in_channels=1,
-                          compute_dtype=dtype, seed=0))
+        if args.config == "cnn4096":
+            srv = serving.Serving(CNNVAE(
+                latent_dim=4096, in_channels=1, img_size=32,
+                compute_dtype=dtype, seed=0))
+            routes = ("keyed", "unfused", "rng")
+        else:
+            srv = serving.Serving(CliffordARVAE(
+                latent_dim=16, image_size=32, in_channels=1,
+                compute_dtype=dtype, seed=0))
+            routes = ("keyed",)
         z = srv.encode_z((0, 1), x)
         calls = {"encode_mu": lambda: srv.encode_mu(x),
-                 "encode_z": lambda: srv.encode_z((0, 1), x),
+                 **{"encode_z" + (f"_{r}" if len(routes) > 1 else ""):
+                    (lambda r=r: srv.encode_z((0, 1), x, sampler=r))
+                    for r in routes},
                  "decode": lambda: srv.decode(z)}
         for name, fn in calls.items():
             for _ in range(3):
@@ -121,11 +137,13 @@ def main() -> int:
             n = REQUESTS
             wall = sum(walls) / n
             busy = busy_us(events) / 1e3 / n
-            tag = f"{str(dtype).replace('torch.', '')}_{name}"
+            tag = (f"{args.config}_{str(dtype).replace('torch.', '')}"
+                   f"_{name}")
             with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
                 f.write(prof.key_averages().table(
                     sort_by="self_cuda_time_total", row_limit=40))
             print(json.dumps({
+                "config": args.config,
                 "dtype": str(dtype).replace("torch.", ""), "entry": name,
                 "batch": BATCH, "requests": n,
                 "wall_ms_per_request": wall,

@@ -2,18 +2,22 @@
 """Where a train step's time goes in the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile_train.py [--out-dir profiles]
+        [--config flagship32|cnn4096]
 
-Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``, seeded
-random weights) in float32 and in bfloat16 compute, takes 3 warm-up AdamW
+Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``) or, with
+``--config cnn4096``, the ``CNNVAE`` at latent 4096 on each of its three
+sampler routes, seeded random weights, in float32 and in bfloat16 compute,
+takes 3 warm-up AdamW
 steps at batch 64 (lr 1e-4, clip 1), times 5 steps without the profiler,
 then traces 5 more with ``torch.profiler``.  For each dtype it prints one
 JSON line: the step's wall time without and with the profiler (host clock,
 ends in a synchronise), the device's busy time (union of kernel intervals)
 and idle share against the unprofiled wall time, kernel launches per step,
 and device time per step by kernel class (attention forward and backward
-kernels, sampler and torus backward kernels, GEMM, convolution, norm,
-optimizer, other).  The full per-kernel table goes to
-``<out-dir>/profile_train_<dtype>.txt``.  Imports nothing of JAX.
+kernels, sampler and torus forward / backward kernels, GEMM, convolution,
+norm, optimizer, other).  The full per-kernel table goes to
+``<out-dir>/profile_train_<config>_<dtype>[_<route>].txt``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -38,8 +42,9 @@ STEPS = 5  # timed, then traced, after 3 warm-up steps
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("attention_bwd_kernel", ("attention_bwd_kernel",)),
     ("attention_fwd_kernel", ("attention_fwd_kernel",)),
-    ("sampler_kernel", ("keyed_sample_embed",)),
+    ("sampler_kernel", ("keyed_sample_embed", "rng_sample_embed")),
     ("torus_bwd_kernel", ("torus_bwd_kernel",)),
+    ("torus_fwd_kernel", ("torus_fwd_kernel",)),
     ("optimizer", ("adam", "multi_tensor", "foreach", "lpnorm")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit",
               "winograd", "nchw", "nhwc")),
@@ -62,12 +67,15 @@ def main() -> int:
     ap.add_argument("--out-dir", default="profiles",
                     help="where the per-kernel tables go (relative paths "
                          "are taken from the repository root)")
+    ap.add_argument("--config", default="flagship32",
+                    choices=("flagship32", "cnn4096"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from cliffordtpu_torch.kernels import build
+    from cliffordtpu_torch.nn.conv_vae import CNNVAE
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
     from cliffordtpu_torch.train.loop import make_cnn_train_step
     from cliffordtpu_torch.train.state import create_train_state
@@ -84,11 +92,17 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     x = torch.rand(BATCH, 32, 32, 1, generator=gen, device="cuda") * 2 - 1
     beta = torch.ones((), device="cuda")
-    for dtype in (torch.float32, torch.bfloat16):
-        st = create_train_state(
-            CliffordARVAE(latent_dim=16, image_size=32, in_channels=1,
-                          compute_dtype=dtype, seed=0),
-            optimizer="adamw", lr=1e-4)
+    routes = ("keyed", "unfused", "rng") if args.config == "cnn4096" \
+        else ("keyed",)
+    for dtype, route in ((dt, r) for dt in (torch.float32, torch.bfloat16)
+                         for r in routes):
+        if args.config == "cnn4096":
+            model = CNNVAE(latent_dim=4096, in_channels=1, img_size=32,
+                           sampler=route, compute_dtype=dtype, seed=0)
+        else:
+            model = CliffordARVAE(latent_dim=16, image_size=32,
+                                  in_channels=1, compute_dtype=dtype, seed=0)
+        st = create_train_state(model, optimizer="adamw", lr=1e-4)
         step = make_cnn_train_step(st.model, st.optimizer)
 
         def timed_steps(first_key):
@@ -116,12 +130,14 @@ def main() -> int:
         wall = statistics.median(plain_walls)
         busy = busy_us(events) / 1e3 / STEPS
         tag = str(dtype).replace("torch.", "")
-        with open(os.path.join(out_dir, f"profile_train_{tag}.txt"),
-                  "w") as f:
+        name = f"profile_train_{args.config}_{tag}" + (
+            f"_{route}" if len(routes) > 1 else "")
+        with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=60))
         print(json.dumps({
-            "dtype": tag, "batch": BATCH, "steps": STEPS,
+            "config": args.config, "dtype": tag, "sampler": route,
+            "batch": BATCH, "steps": STEPS,
             "wall_ms_per_step": wall,
             "wall_ms_per_step_profiled": statistics.median(traced_walls),
             "device_busy_ms_per_step": busy,

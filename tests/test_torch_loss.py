@@ -79,14 +79,63 @@ def test_concentration_floor_schedule_matches_jax():
             jconv.clifford_concentration_floor(d)
 
 
+@pytest.mark.parametrize("recon", ["l1", "mse"])
+def test_sigma_form_of_the_loss_matches_jax(recon):
+    """The learnable-beta form recon / s0^2 + KL / s1^2 + s0^2 + s1^2 with
+    its seven outputs, each < 1e-4 of its magnitude; beta is not used; the
+    gradient reaches the log-sigmas."""
+    x, x_recon, mu, kappa = _arrays(4)
+    log_sigmas = np.array([[0.3], [-0.2]], np.float32)
+    jq, jp = jax_reparameterize(
+        "clifford", jnp.asarray(mu),
+        jnp.broadcast_to(jnp.asarray(kappa)[..., None], mu.shape), D)
+    want = jconv.cnn_vae_loss(
+        jnp.asarray(x), jnp.asarray(x_recon), jq, jp, "clifford", beta=0.5,
+        recon_loss_type=recon,
+        sigmas=tuple(jnp.exp(jnp.asarray(s)) for s in log_sigmas))
+    q, p = reparameterize("clifford", torch.from_numpy(mu),
+                          torch.from_numpy(kappa)[..., None].expand(B, T, D),
+                          D)
+    ls = [torch.from_numpy(s.copy()).requires_grad_() for s in log_sigmas]
+    got = conv_vae.cnn_vae_loss(
+        torch.from_numpy(x), torch.from_numpy(x_recon), q, p, "clifford",
+        beta=123.0, recon_loss_type=recon,
+        sigmas=tuple(torch.exp(s) for s in ls))
+    assert set(got) == set(want) == KEYS | {"sigma_0", "sigma_1"}
+    for k in got:
+        w = float(want[k])
+        assert got[k].shape == ()
+        assert abs(float(got[k].detach()) - w) < 1e-4 * max(1.0, abs(w)), k
+    assert float(got["effective_beta"].detach()) == pytest.approx(
+        np.exp(2 * (0.3 + 0.2)), rel=1e-6)
+    got["total_loss"].backward()
+    assert all(s.grad.abs().item() > 0 for s in ls)
+
+
+def test_models_give_their_loss_sigmas():
+    """``use_learnable_beta`` adds two zero-initialised (1,) parameters to
+    either family; ``loss_sigmas`` is their exponential, or (None, None)."""
+    ar = vit_vae.CliffordARVAE(latent_dim=4, image_size=32, in_channels=1,
+                               cnn_chs=[8, 16, 64], z_channels=64,
+                               encoder_vit_layers=1, decoder_vit_layers=1,
+                               use_learnable_beta=True)
+    cnn = conv_vae.CNNVAE(8, 1, use_learnable_beta=True)
+    for model in (ar, cnn):
+        names = [n for n, _ in model.named_parameters() if "log_sigma" in n]
+        assert names == ["log_sigma_0", "log_sigma_1"]
+        s0, s1 = model.loss_sigmas()
+        assert s0.shape == s1.shape == (1,) and s0.requires_grad
+        assert float(s0.detach()) == float(s1.detach()) == 1.0
+    assert conv_vae.CNNVAE(8, 1).loss_sigmas() == (None, None)
+    assert not any("log_sigma" in n for n, _ in conv_vae.CNNVAE(
+        8, 1).named_parameters())
+
+
 def test_paths_not_ported_yet_raise():
     x, x_recon, mu, kappa = _arrays(2)
     q, p = reparameterize("clifford", torch.from_numpy(mu),
                           torch.from_numpy(kappa)[..., None], D)
     args = (torch.from_numpy(x), torch.from_numpy(x_recon), q, p)
-    with pytest.raises(NotImplementedError, match="learnable-beta"):
-        conv_vae.cnn_vae_loss(*args, "clifford",
-                              sigmas=(torch.ones(1), torch.ones(1)))
     with pytest.raises(NotImplementedError):
         conv_vae.cnn_vae_loss(*args, "gaussian")
     with pytest.raises(ValueError):
@@ -94,6 +143,6 @@ def test_paths_not_ported_yet_raise():
     with pytest.raises(NotImplementedError):
         reparameterize("vmf", torch.from_numpy(mu), torch.from_numpy(kappa),
                        D)
-    with pytest.raises(NotImplementedError, match="learnable-beta"):
+    with pytest.raises(NotImplementedError):
         vit_vae.CliffordARVAE(latent_dim=4, image_size=32, in_channels=1,
-                              use_learnable_beta=True)
+                              distribution="gaussian")

@@ -14,9 +14,14 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
+from cliffordtpu.nn.conv_vae import CNNVAE as JaxCNNVAE
 from cliffordtpu.serving import _flatten_params, _unflatten_params
 from cliffordtpu.train.state import make_optimizer as jax_make_optimizer
-from cliffordtpu_torch.nn.param_import import cliffordar_from_jax
+from cliffordtpu_torch.nn.conv_vae import CNNVAE
+from cliffordtpu_torch.nn.param_import import (
+    cliffordar_from_jax,
+    cnnvae_from_jax,
+)
 from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
 from cliffordtpu_torch.train import state
 
@@ -144,12 +149,83 @@ def test_adamw_decays_every_parameter_at_1e_4():
     assert adam.inner.param_groups[0]["weight_decay"] == 0
 
 
+@pytest.mark.parametrize("name", ["adam", "adamw"])
+def test_sigma_group_matches_optax_multi_transform(name):
+    """``sigma_lr_scale``: the log-sigmas train at lr * scale in a second
+    parameter group, every other parameter at lr, behind one clip over
+    both, as ``optax.multi_transform`` in the JAX package; parameters agree
+    to 1e-6 after 3 steps on equal gradients above the clip."""
+    scale = 0.1
+    jmodel = JaxCNNVAE(latent_dim=16, in_channels=1, distribution="clifford",
+                       use_learnable_beta=True)
+    shapes = jax.eval_shape(jmodel.init, {"params": jax.random.PRNGKey(0),
+                                          "sample": jax.random.PRNGKey(1)},
+                            jnp.zeros((2, 32, 32, 1)))["params"]
+    rng = np.random.default_rng(1)
+    flat = _flatten_params(jax.tree_util.tree_map(
+        lambda s: (0.1 * rng.normal(size=s.shape)).astype(np.float32),
+        shapes))
+    grads = _gradients(flat, 40.0, seed=2)
+    params = _unflatten_params({k: jnp.asarray(v) for k, v in flat.items()})
+    tx = jax_make_optimizer(name, LR, sigma_lr_scale=scale, params=params)
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def step(params, opt_state, g):
+        updates, opt_state = tx.update(g, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    for g in grads:
+        params, opt_state = step(params, opt_state, _unflatten_params(
+            {k: jnp.asarray(v) for k, v in g.items()}))
+    want = cnnvae_from_jax(_flatten_params(jax.device_get(params)))
+
+    model = CNNVAE(16, 1, use_learnable_beta=True)
+    start = cnnvae_from_jax(flat)
+    model.load_state_dict(start)
+    opt = state.make_optimizer(model.named_parameters(), name, LR,
+                               sigma_lr_scale=scale)
+    main, sigma = opt.inner.param_groups
+    assert main["lr"] == LR and sigma["lr"] == pytest.approx(LR * scale)
+    assert len(sigma["params"]) == 2
+    assert len(main["params"]) == len(list(model.parameters())) - 2
+    named = dict(model.named_parameters())
+    for g in grads:
+        opt.zero_grad()
+        for k, t in cnnvae_from_jax(g).items():
+            named[k].grad = t
+        # float32 sum of squares over 6 M elements: 1e-4 relative
+        assert float(opt.step()) == pytest.approx(40.0, rel=1e-4)
+    for k, p in named.items():
+        assert (p.detach() - want[k]).abs().max().item() <= 1e-6, k
+    moved = {k: (p.detach() - start[k]).abs().max().item()
+             for k, p in named.items()}
+    # Adam moves a parameter by about lr per step: the sigmas a tenth of it
+    assert moved["log_sigma_0"] < 0.15 * moved["encoder.mu.bias"]
+    assert moved["log_sigma_0"] > 0.5 * STEPS * LR * scale
+
+
+def test_sigma_group_needs_names_and_a_train_state_gives_them():
+    model = CNNVAE(16, 1, use_learnable_beta=True)
+    with pytest.raises(ValueError, match="name"):
+        state.make_optimizer(model.parameters(), "adamw", LR,
+                             sigma_lr_scale=0.1)
+    st = state.create_train_state(model, "adamw", LR, sigma_lr_scale=0.1,
+                                  device="cpu")
+    main, sigma = st.optimizer.inner.param_groups
+    assert {id(p) for p in sigma["params"]} == {id(model.log_sigma_0),
+                                                id(model.log_sigma_1)}
+    assert sigma["weight_decay"] == main["weight_decay"] == 1e-4
+    # without the scale, named parameters form one group at lr
+    (one,) = state.make_optimizer(model.named_parameters(), "adamw",
+                                  LR).inner.param_groups
+    assert len(one["params"]) == len(list(model.parameters()))
+
+
 def test_paths_not_ported_yet_and_missing_devices_raise(monkeypatch):
     model = _tiny_port()
     with pytest.raises(NotImplementedError, match="accumulation"):
         state.create_train_state(model, accum_steps=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="sigma_lr_scale"):
-        state.create_train_state(model, sigma_lr_scale=0.1, device="cpu")
     with pytest.raises(ValueError):
         state.make_optimizer(model.parameters(), "sgd")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

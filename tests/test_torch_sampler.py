@@ -2,6 +2,9 @@
 sampler.py, plain version) against the JAX sampler and the interpret-mode
 Pallas keyed kernel (kernels/sampler_pallas.py)."""
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +21,8 @@ from cliffordtpu_torch import random as trandom
 from cliffordtpu_torch.distributions.clifford_torus import (
     CliffordPowerSphericalDistribution,
 )
-from cliffordtpu_torch.kernels import sampler
+from cliffordtpu_torch.kernels import sampler, torus
+from cliffordtpu_torch.ops.torus import MATMUL_MAX_DIM
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -112,8 +116,25 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
                                    torch.ones(4, 9, device="meta"))
 
 
+def _header_constants():
+    """The ``constexpr int`` tiling constants of csrc/torus_basis.cuh."""
+    text = (pathlib.Path(torus.__file__).parents[1] / "csrc"
+            / "torus_basis.cuh").read_text()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", text):
+        consts[name] = eval(expr, {}, consts)  # integers and earlier names
+    return consts
+
+
 @pytest.mark.parametrize("d", [2, 16, 513, 4096])
 def test_rows_per_block_fits_shared_memory(d):
-    rows = sampler.rows_per_block(d)
-    assert 1 <= rows <= 32
-    assert 2 * rows * (d - 1) * 4 <= 48 * 1024
+    """With the header's own tiling (64 rows per block whatever d is), the
+    basis table (8 bytes per phase, 2d phases) and one staged chunk of
+    cos and sin theta
+    fit what a block can opt in to, up to the largest d the wrappers pass
+    on, which is the header's."""
+    k = _header_constants()
+    assert k["kTorusRows"] == 64 and k["kTorusPitch"] == k["kTorusRows"] + 1
+    assert k["kTorusMaxDim"] == MATMUL_MAX_DIM >= d
+    staged = 2 * 4 * k["kTorusChunk"] * k["kTorusPitch"]
+    assert 16 * d + staged <= k["kTorusMaxSmem"] <= 227 * 1024

@@ -115,3 +115,24 @@ def test_quantized_npz_and_foreign_trees_are_refused(jax_model, tmp_path):
         serving.CliffordARServing(
             _tiny_port(), params={**flat, "extra/kernel": np.zeros(1)},
             device="cpu")
+
+
+def test_one_serving_class_and_the_sampler_routes(port, images):
+    """``CliffordARServing`` is ``Serving``, which serves either family;
+    ``sampler=`` reaches the draw: "unfused" gives the keyed draw's u and v
+    and so its latents, "rng" another stream on the same torus."""
+    assert serving.CliffordARServing is serving.Serving
+    key = (0, 9)
+    keyed = port.encode_z(key, images)
+    assert torch.equal(keyed, port.encode_z(key, images, sampler="keyed"))
+    np.testing.assert_allclose(
+        port.encode_z(key, images, sampler="unfused").numpy(), keyed.numpy(),
+        atol=1e-6)
+    z = port.encode_z(key, images, sampler="rng")
+    assert torch.equal(z, port.encode_z(key, images, sampler="rng"))
+    assert not torch.equal(z, port.encode_z((0, 10), images, sampler="rng"))
+    assert not torch.allclose(z, keyed, atol=1e-3)
+    np.testing.assert_allclose(z.reshape(3, 64, 16).norm(dim=-1).numpy(), 1.0,
+                               atol=1e-5)
+    with pytest.raises(ValueError, match="sampler"):
+        port.encode_z(key, images, sampler="pallas_rng")

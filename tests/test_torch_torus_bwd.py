@@ -4,6 +4,9 @@
 jax.grad of the XLA paths and the VJPs of the interpret-mode Pallas
 kernels (kernels/torus_pallas.py, kernels/sampler_pallas.py)."""
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +24,7 @@ from cliffordtpu_torch.distributions.clifford_torus import (
     CliffordPowerSphericalDistribution,
 )
 from cliffordtpu_torch.kernels import sampler, torus
+from cliffordtpu_torch.ops.torus import MATMUL_MAX_DIM
 
 torch.set_num_threads(1)
 
@@ -201,8 +205,25 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
         torus._check(torch.zeros(4, 8), torch.ones(4, 16))
 
 
+def _header_constants():
+    """The ``constexpr int`` tiling constants of csrc/torus_basis.cuh."""
+    text = (pathlib.Path(torus.__file__).parents[1] / "csrc"
+            / "torus_basis.cuh").read_text()
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", text):
+        consts[name] = eval(expr, {}, consts)  # integers and earlier names
+    return consts
+
+
 @pytest.mark.parametrize("d", [2, 16, 513, 4096])
 def test_rows_per_block_fits_shared_memory(d):
-    rows = torus.rows_per_block(d)
-    assert 1 <= rows <= 32
-    assert rows * 2 * d * 4 <= 48 * 1024
+    """With the header's own tiling (64 rows per block whatever d is), the
+    basis table (8 bytes per phase, 2d phases) and one staged chunk of
+    the output gradient
+    fit what a block can opt in to, up to the largest d the wrappers pass
+    on, which is the header's."""
+    k = _header_constants()
+    assert k["kTorusRows"] == 64 and k["kTorusPitch"] == k["kTorusRows"] + 1
+    assert k["kTorusMaxDim"] == MATMUL_MAX_DIM >= d
+    staged = 1 * 4 * k["kTorusChunk"] * k["kTorusPitch"]
+    assert 16 * d + staged <= k["kTorusMaxSmem"] <= 227 * 1024

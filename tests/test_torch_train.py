@@ -16,7 +16,7 @@ from cliffordtpu.nn.conv_vae import cnn_vae_loss as jax_cnn_vae_loss
 from cliffordtpu.serving import _flatten_params
 from cliffordtpu.train.state import make_optimizer as jax_make_optimizer
 from cliffordtpu_torch.kernels import attention, sampler, torus
-from cliffordtpu_torch.nn.conv_vae import cnn_vae_loss
+from cliffordtpu_torch.nn.conv_vae import CNNVAE, cnn_vae_loss
 from cliffordtpu_torch.nn.param_import import cliffordar_from_jax
 from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
 from cliffordtpu_torch.train.loop import (
@@ -227,3 +227,67 @@ def test_bf16_compute_keeps_f32_params_grads_and_moments(first_step, jax_side,
               for n, p in st.model.named_parameters()) ** 0.5
     ref_norm = sum((g.double() ** 2).sum() for g in ref.values()) ** 0.5
     assert float(err / ref_norm) <= 0.1  # measured 0.039
+
+
+def test_learnable_beta_step_matches_jax(jax_side, images):
+    """``use_learnable_beta`` on the tiny flagship: the sigma-form losses
+    within 1e-4 relative, the pre-clip gradient norm within 1e-4 relative
+    and the two log-sigma gradients within 5e-4 of it, against jax.grad of
+    what ``make_cnn_train_step`` differentiates; the sigmas train in their
+    own parameter group."""
+    model = graft._flagship(tiny=True).clone(use_learnable_beta=True)
+    params = {**jax_side[1], "log_sigma_0": jnp.asarray([0.3], jnp.float32),
+              "log_sigma_1": jnp.asarray([-0.2], jnp.float32)}
+    rng = jax.random.PRNGKey(42)
+    sample_key = np.asarray(model.apply(
+        {"params": params}, rngs={"sample": rng},
+        method=lambda m: m.make_rng("sample")))
+
+    def loss_fn(p, x):
+        x_recon, q_z, p_z, _ = model.apply({"params": p}, x,
+                                           rngs={"sample": rng})
+        losses = jax_cnn_vae_loss(
+            x, x_recon, q_z, p_z, model.distribution, beta=1.0,
+            sigmas=(jnp.exp(p["log_sigma_0"]), jnp.exp(p["log_sigma_1"])))
+        return losses["total_loss"], losses
+
+    grads, want = jax.jit(jax.grad(loss_fn, has_aux=True))(
+        params, jnp.asarray(images))
+    port = _tiny_port(use_learnable_beta=True)
+    port.load_state_dict(cliffordar_from_jax(
+        _flatten_params(jax.device_get(params))))
+    st = create_train_state(port, "adamw", LR, sigma_lr_scale=0.1,
+                            device="cpu")
+    assert [len(g["params"]) for g in st.optimizer.inner.param_groups] == [
+        len(list(port.parameters())) - 2, 2]
+    got = make_cnn_train_step(st.model, st.optimizer)(
+        torch.from_numpy(images), sample_key, 1.0)
+    assert set(got) == set(PIECES) | {"sigma_0", "sigma_1", "grad_norm"}
+    for k, w in want.items():
+        assert abs(float(got[k]) - float(w)) <= 1e-4 * abs(float(w)), k
+    norm = float(optax.global_norm(grads))
+    assert abs(float(got["grad_norm"]) - norm) <= 1e-4 * norm
+    for name in ("log_sigma_0", "log_sigma_1"):
+        # read after the clip scaled the gradients by 1 / ||g||
+        g = float(getattr(st.model, name).grad) * float(got["grad_norm"])
+        assert abs(g - float(grads[name][0])) <= 5e-4 * norm, name
+
+
+def test_sampler_routes_through_the_train_step():
+    """The model's ``sampler`` reaches the draw of a train step: "unfused"
+    takes the keyed route's u and v, so the first losses agree; "rng" gives
+    equal losses for one key and other losses for another."""
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (3, *IMG)).astype(np.float32))
+    first = {}
+    for route in ("keyed", "unfused", "rng"):
+        runs = []
+        for key in ((0, 3), (0, 3), (0, 4)):
+            st = create_train_state(CNNVAE(16, 1, sampler=route, seed=2),
+                                    "adamw", LR, device="cpu")
+            runs.append(float(make_cnn_train_step(st.model, st.optimizer)(
+                x, key, 1.0)["total_loss"]))
+        assert runs[0] == runs[1] and runs[0] != runs[2], route
+        first[route] = runs[0]
+    assert abs(first["keyed"] - first["unfused"]) <= 1e-5 * first["keyed"]
+    assert first["rng"] != first["keyed"]
