@@ -15,7 +15,9 @@ Phases, each printing one JSON line and each fatal when it fails:
             against its plain PyTorch version on the card at the main
             paths' shapes (flagship32: attention B 64, S 68, 8 heads of 64,
             sampler and torus R 4096, d 16; cnn4096: R 64, d 4096) and at
-            odd ones, with its device time (CUDA events, median after
+            odd ones (the torus forward's table form at d 513), with the
+            form that ran (attention: "mma" or "simt"; torus forward: "fft"
+            or "table"), its device time (CUDA events, median after
             warm-up; see ``cuda_ms``), the plain version's, the library's
             where it computes the same function (attention:
             ``scaled_dot_product_attention``; torus forward and backward:
@@ -190,9 +192,11 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
     kernel = cuda_ms(lambda: attention.fused_attention(q, k, v, cos, sin))
     plain = cuda_ms(lambda: attention.attention_plain(q, k, v, cos, sin))
     library = cuda_ms(lambda: sdpa(qh, kh, vh))
+    # a checkout from before the tensor-core form had the CUDA-core one only
+    form = getattr(attention, "fwd_form", lambda dt: "simt")(dtype)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
-        rope=use_rope, max_abs_err=err, ms=kernel, plain_ms=plain,
+        rope=use_rope, form=form, max_abs_err=err, ms=kernel, plain_ms=plain,
         library_ms=library, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -338,7 +342,9 @@ def torus_fwd_case(torus, ops_torus, R, d, gen):
     check(fft_err <= 1e-5, f"torus_fwd_fft R={R} d={d}: err {fft_err}")
     # theta read, x written
     b_ms, b_by, dense = torus_bound_ms(4 * (theta.numel() + R * 2 * d), R, d)
-    return dict(R=R, d=d, max_abs_err=err,
+    # a checkout from before the FFT form had the table form only
+    form = getattr(torus, "fwd_form", lambda d_: "table")(d)
+    return dict(R=R, d=d, form=form, max_abs_err=err,
                 ms=cuda_ms(lambda: torus.torus_fwd(theta)),
                 plain_ms=cuda_ms(lambda: torus.torus_fwd_plain(theta),
                                  reps=5),
@@ -752,7 +758,7 @@ def main() -> int:
         emit("kernel", kernel="attention_bwd", **att_b[label])
     tor_f = {}
     for label, R, d in (("cnn4096", BATCH, CNN_LATENT), ("d2048", BATCH, 2048),
-                        ("d513", BATCH, 513)):
+                        ("d513", BATCH, 513), ("flagship32", BATCH * 64, 16)):
         tor_f[label] = torus_fwd_case(torus, ops_torus, R, d, gen)
         emit("kernel", kernel="torus_fwd", **tor_f[label])
     tor = {}
@@ -884,7 +890,8 @@ def main() -> int:
                 "launches": launched(name, path, dtype),
                 **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "library_ms")}}
+                                        "library_ms")},
+                **({"form": case["form"]} if "form" in case else {})}
 
     att_src, att_tpu = "attention_fwd.cu", "attention_pallas.py:139"
     att_b_src, att_b_tpu = "attention_bwd.cu", "attention_pallas.py:157"

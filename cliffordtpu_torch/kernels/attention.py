@@ -8,6 +8,10 @@ input needs a gradient, the CUDA path is a ``torch.autograd.Function``
 whose backward launches ``csrc/attention_bwd.cu``; on the CPU autograd
 differentiates ``attention_plain``.  There is no fallback from a kernel to
 its plain version on the card.
+
+The forward kernel has one form per dtype (``fwd_form``): bfloat16 runs on
+the tensor cores (``mma.sync``, head_dim 16, 32, 64 or 128), float32 on the
+CUDA cores with register tiles (head_dim a multiple of 8).
 """
 
 from __future__ import annotations
@@ -73,9 +77,24 @@ def attention_bwd_plain(q, k, v, cos: Optional[torch.Tensor],
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def smem_bytes(S: int, hd: int) -> int:
-    """Shared memory of one block: q, k (rows padded by one), v, scores."""
-    return 4 * (2 * S * hd + S * (hd + 1) + S * S)
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def smem_bytes(S: int, hd: int, dtype=torch.float32) -> int:
+    """Shared memory of one forward block.  float32: q and k (rows of
+    hd + 4), v, and the probabilities (rows of Sp + 4), Sp = S rounded up
+    to 4; bfloat16: q, k and v in rows of hd + 8, S rounded up to 16."""
+    if dtype == torch.bfloat16:
+        return 2 * 3 * _round_up(S, 16) * (hd + 8)
+    Sp = _round_up(S, 4)
+    return 4 * Sp * (2 * (hd + 4) + hd + Sp + 4)
+
+
+def fwd_form(dtype) -> str:
+    """Which form of the forward kernel a dtype takes: ``"mma"`` (tensor
+    cores) for bfloat16, ``"simt"`` (CUDA cores) for float32."""
+    return "mma" if dtype == torch.bfloat16 else "simt"
 
 
 def bwd_smem_bytes(S: int, hd: int) -> int:
@@ -102,7 +121,7 @@ def _kernel(dtype):
     return fn
 
 
-def _check(q, k, v, cos, sin, bwd: bool = False):
+def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(
             f"q, k, v must share one (B, S, H, hd) shape, got "
@@ -117,11 +136,20 @@ def _check(q, k, v, cos, sin, bwd: bool = False):
     B, S, H, hd = q.shape
     if hd % 2 or hd < 2:
         raise ValueError(f"head_dim must be even, got {hd}")
-    need = bwd_smem_bytes(S, hd) if bwd else smem_bytes(S, hd)
-    if need > _SMEM_MAX:
-        raise ValueError(f"S={S}, hd={hd} needs {need} bytes of shared "
-                         f"memory{' for the backward' if bwd else ''}, "
-                         f"above {_SMEM_MAX}")
+    if fwd and q.dtype == torch.bfloat16 and hd not in (16, 32, 64, 128):
+        raise ValueError(f"the bfloat16 forward kernel takes head_dim 16, "
+                         f"32, 64 or 128, got {hd}")
+    if fwd and q.dtype == torch.float32 and hd % 8:
+        raise ValueError(f"the float32 forward kernel takes head_dim a "
+                         f"multiple of 8, got {hd}")
+    if fwd and smem_bytes(S, hd, q.dtype) > _SMEM_MAX:
+        raise ValueError(f"S={S}, hd={hd} needs "
+                         f"{smem_bytes(S, hd, q.dtype)} bytes of shared "
+                         f"memory, above {_SMEM_MAX}")
+    if bwd and bwd_smem_bytes(S, hd) > _SMEM_MAX:
+        raise ValueError(f"S={S}, hd={hd} needs {bwd_smem_bytes(S, hd)} "
+                         f"bytes of shared memory for the backward, above "
+                         f"{_SMEM_MAX}")
     if (cos is None) != (sin is None):
         raise ValueError("pass both cos and sin, or neither")
     if cos is not None:
@@ -136,6 +164,9 @@ def _check(q, k, v, cos, sin, bwd: bool = False):
 def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
     global launches
     B, S, H, hd = q.shape
+    if any(t is not None and t.data_ptr() % 16 for t in (q, k, v, cos, sin)):
+        raise ValueError("the forward kernel reads q, k, v, cos and sin 16 "
+                         "bytes at a time: they must be 16-byte aligned")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _kernel(q.dtype)(
@@ -195,7 +226,7 @@ def fused_attention_bwd(q, k, v, cos: Optional[torch.Tensor],
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")
-    _check(q, k, v, cos, sin, bwd=True)
+    _check(q, k, v, cos, sin, fwd=False, bwd=True)
     if d_out.shape != q.shape or d_out.dtype != q.dtype \
             or d_out.device != q.device:
         raise ValueError("d_out must match q in shape, dtype and device")

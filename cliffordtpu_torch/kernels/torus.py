@@ -11,6 +11,9 @@ _sample_embed_bwd``).
 gradient as its epilogue (plain version: ``sampler_bwd_plain``).
 ``torus_embed`` is the differentiable embedding (forward kernel, backward
 kernel) that ``ops/torus.py::angles_to_torus`` routes large latents to.
+The forward kernel computes a power-of-two d as an inverse real FFT in
+shared memory and any other d as the dense product on a shared-memory
+basis table (``fwd_form``).
 Forward launches count in ``fwd_launches``, backward launches (with or
 without the epilogue) in ``launches``.
 """
@@ -31,6 +34,12 @@ fwd_launches = 0  # csrc/torus_fwd.cu
 launches = 0  # csrc/torus_bwd.cu
 
 PS_EPS = 1e-7  # power_spherical.py _EPS
+
+
+def fwd_form(d: int) -> str:
+    """Which form ``csrc/torus_fwd.cu`` takes for latent dim d: ``"fft"``
+    for a power of two, else ``"table"`` (the kernel's own dispatch)."""
+    return "fft" if d >= 2 and d & (d - 1) == 0 else "table"
 
 
 def torus_fwd_plain(theta: torch.Tensor) -> torch.Tensor:

@@ -41,10 +41,10 @@ BATCH = 64
 STEPS = 5  # timed, then traced, after 3 warm-up steps
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("attention_bwd_kernel", ("attention_bwd_kernel",)),
-    ("attention_fwd_kernel", ("attention_fwd_kernel",)),
+    ("attention_fwd_kernel", ("attention_fwd_",)),
     ("sampler_kernel", ("keyed_sample_embed", "rng_sample_embed")),
     ("torus_bwd_kernel", ("torus_bwd_kernel",)),
-    ("torus_fwd_kernel", ("torus_fwd_kernel",)),
+    ("torus_fwd_kernel", ("torus_fwd_",)),
     ("optimizer", ("adam", "multi_tensor", "foreach", "lpnorm")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit",
               "winograd", "nchw", "nhwc")),

@@ -101,7 +101,63 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
 
 
 def test_flagship_shared_memory_needs_the_raised_limit():
-    """S = 68, hd = 64 takes 70,992 bytes: above the 48 KB default, within
-    the 227 KB a Hopper block may opt into."""
-    assert attention.smem_bytes(68, 64) == 70992
+    """S = 68, hd = 64 takes 73,984 bytes in float32 (q, k, v and the
+    probabilities): above the 48 KB default, within the 227 KB a Hopper
+    block may opt into.  bfloat16 keeps q, k, v only, in rows padded to 80,
+    and fits the default."""
+    assert attention.smem_bytes(68, 64) == 73984
     assert 48 * 1024 < attention.smem_bytes(68, 64) <= attention._SMEM_MAX
+    assert attention.smem_bytes(68, 64, torch.bfloat16) == 34560 < 48 * 1024
+    assert attention.fwd_form(torch.bfloat16) == "mma"
+    assert attention.fwd_form(torch.float32) == "simt"
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _mma_rounding_model(q, k, v, cos, sin):
+    """The bfloat16 forward kernel's rounding points, in torch on float32:
+    q and k rotated in float32 then rounded to bfloat16; scores, softmax and
+    the row sums in float32; P rounded to bfloat16 before P v; P v summed
+    in float32, divided by the float32 row sum, rounded to bfloat16."""
+    qr = _bf16(apply_rotary_half(q, cos, sin))
+    kr = _bf16(apply_rotary_half(k, cos, sin))
+    s = torch.einsum("bqhd,bkhd->bhqk", qr, kr) / q.shape[-1] ** 0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhqk,bkhd->bqhd", _bf16(p), v) \
+        / p.sum(-1).transpose(1, 2)[..., None]
+    return _bf16(out)
+
+
+def test_bf16_rounding_points_stay_within_the_bar_of_xla():
+    """chip_smoke holds the bfloat16 kernel to 2e-2 x max|out| of the
+    float32 plain version: the kernel's rounding points keep well inside
+    that bar against JAX's XLA attention on the same bfloat16 inputs, at
+    the flagship head layout (S 68, 8 heads of 64)."""
+    q, k, v, cos, sin = _inputs(2, 68, 8, 64, True, seed=5)
+    tq, tk, tv = (_bf16(torch.from_numpy(a)) for a in (q, k, v))
+    tc, ts = torch.from_numpy(cos), torch.from_numpy(sin)
+    got = _mma_rounding_model(tq, tk, tv, tc, ts).numpy()
+    qj, kj = (jax_rotary_half(jnp.asarray(t.numpy()), jnp.asarray(cos),
+                              jnp.asarray(sin)) for t in (tq, tk))
+    want = np.asarray(jax.nn.dot_product_attention(qj, kj,
+                                                   jnp.asarray(tv.numpy())))
+    err = np.abs(got - want).max()
+    assert err <= 2e-2 * np.abs(want).max()
+    assert err > 0  # the model does round
+
+
+def test_forward_kernel_head_dims_are_checked_before_launch():
+    """The tensor-core form takes head_dim 16 / 32 / 64 / 128, the float32
+    form a multiple of 8; the backward alone keeps any even head_dim."""
+    def qkv(hd, dtype):
+        return [torch.zeros(1, 5, 1, hd, dtype=dtype) for _ in range(3)]
+
+    attention._check(*qkv(64, torch.bfloat16), None, None)
+    attention._check(*qkv(24, torch.float32), None, None)
+    for hd, dtype in ((24, torch.bfloat16), (256, torch.bfloat16),
+                      (12, torch.float32)):
+        with pytest.raises(ValueError, match="forward kernel takes"):
+            attention._check(*qkv(hd, dtype), None, None)
+        attention._check(*qkv(hd, dtype), None, None, fwd=False, bwd=True)

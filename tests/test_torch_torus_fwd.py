@@ -108,3 +108,72 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
         torus.torus_fwd(torch.zeros(4, 8, device="meta"))
     with pytest.raises(ValueError):
         ops_torus.angles_to_torus(torch.zeros(2, 4097))
+
+
+def _fft_packing(theta: torch.Tensor) -> torch.Tensor:
+    """The FFT form of csrc/torus_fwd.cu written with torch.fft: the
+    n = 2d point inverse real DFT of X = (1, e^{i theta}, 1) as one d-point
+    complex inverse DFT of Z_k = A_k + i w_k B_k, A_k = X_k + conj X_{d-k},
+    B_k = X_k - conj X_{d-k}, w_k = e^{i pi k / d}; x_{2m} = Re z_m / n,
+    x_{2m+1} = Im z_m / n (z unnormalised)."""
+    R, d = theta.shape[0], theta.shape[1] + 1
+    zero = torch.zeros((R, 1), dtype=theta.dtype)
+    X = torch.polar(torch.ones(R, d + 1, dtype=theta.dtype),
+                    torch.cat([zero, theta, zero], 1))  # X_0 .. X_d
+    k = torch.arange(d)
+    Xr = X[:, d - k].conj()
+    w = torch.polar(torch.ones(d, dtype=theta.dtype),
+                    (torch.pi / d) * k.to(theta.dtype))
+    Z = (X[:, :d] + Xr) + 1j * w * (X[:, :d] - Xr)
+    z = torch.fft.ifft(Z, dim=1) * d / (2 * d)
+    return torch.stack([z.real, z.imag], dim=2).reshape(R, 2 * d)
+
+
+@pytest.mark.parametrize("d", [16, 256])
+def test_fft_packing_matches_plain_and_jax_fft(d):
+    """The index and scaling conventions of the kernel's FFT form: its
+    packing equals ``torus_fwd_plain`` to 1e-6, and ``torus_fwd_plain``
+    equals JAX's ``angles_to_torus(method="fft")`` to 1e-5."""
+    angles = _angles(d, 6, 400 + d)
+    theta = torch.from_numpy(angles[:, 1:])
+    plain = torus.torus_fwd_plain(theta).numpy()
+    np.testing.assert_allclose(_fft_packing(theta.double()).numpy(), plain,
+                               atol=1e-6, rtol=0)
+    want = np.asarray(jax_torus.angles_to_torus(jnp.asarray(angles),
+                                                method="fft"))
+    np.testing.assert_allclose(plain, want, atol=1e-5, rtol=0)
+
+
+def _stockham_inverse(Z: np.ndarray) -> np.ndarray:
+    """The pass schedule and index arithmetic of csrc/torus_fft.cuh in
+    numpy: radix-16 Stockham passes while 16 divides what is left, then one
+    of radix 8, 4 or 2; butterfly j reads src[j + r d/R], twiddles by
+    exp(2 pi i (j mod Ns) r / (Ns R)), writes dst[(j - j mod Ns) R +
+    j mod Ns + r Ns]."""
+    d = Z.shape[-1]
+    src, Ns, rem = Z, 1, d
+    while rem > 1:
+        R = 16 if rem >= 16 else rem
+        j = np.arange(d // R)
+        jm = j % Ns
+        r = np.arange(R)
+        v = src[:, j[:, None] + r[None, :] * (d // R)]
+        v = v * np.exp(2j * np.pi * np.outer(jm, r) / (Ns * R))
+        v = v @ np.exp(2j * np.pi * np.outer(r, r) / R)  # R-point inverse
+        dst = np.empty_like(src)
+        dst[:, ((j - jm) * R + jm)[:, None] + r[None, :] * Ns] = v
+        src, Ns, rem = dst, Ns * R, rem // R
+    return src
+
+
+@pytest.mark.parametrize("d", [2, 8, 16, 32, 2048, 4096])
+def test_fft_kernel_pass_schedule_is_the_inverse_dft(d):
+    """The kernel's Stockham passes (one, or 16 x 2, or three of 16 ...)
+    compute the unnormalised inverse DFT; and ``fwd_form`` routes exactly
+    the powers of two to the FFT form."""
+    Z = np.random.default_rng(d).normal(size=(2, d, 2)).view(
+        np.complex128)[..., 0]
+    np.testing.assert_allclose(_stockham_inverse(Z),
+                               np.fft.ifft(Z, axis=1) * d, atol=1e-9)
+    assert torus.fwd_form(d) == "fft"
+    assert [torus.fwd_form(n) for n in (3, 513, 2047, 4095)] == ["table"] * 4
