@@ -15,15 +15,17 @@ Phases, each printing one JSON line and each fatal when it fails:
             against its plain PyTorch version on the card at the main
             paths' shapes (flagship32: attention B 64, S 68, 8 heads of 64,
             sampler and torus R 4096, d 16; cnn4096: R 64, d 4096) and at
-            odd ones (the torus forward's table form at d 513), with the
-            form that ran (attention: "mma" or "simt"; torus forward: "fft"
-            or "table"), its device time (CUDA events, median after
-            warm-up; see ``cuda_ms``), the plain version's, the library's
-            where it computes the same function (attention:
-            ``scaled_dot_product_attention``; torus forward and backward:
-            ``torch.fft.irfft`` / ``rfft``, see ``torus_fwd_fft``), and its
-            bound; for the torus forward and backward also the two
-            ``torch.matmul`` calls alone on a prebuilt basis;
+            odd ones (attention at S 17 without RoPE, 16-row padding in
+            bfloat16; d 2048; the table forms at d 513), with the form that
+            ran (attention forward and backward: "mma" or "simt"; torus
+            forward and Philox sampler: "fft" or "table"), its device time
+            (CUDA events, median after warm-up; see ``cuda_ms``), the plain
+            version's, the library's where it computes the same function
+            (attention: ``scaled_dot_product_attention``; torus forward and
+            backward: ``torch.fft.irfft`` / ``rfft``, see
+            ``torus_fwd_fft``), and its bound; for the torus forward and
+            backward also the two ``torch.matmul`` calls alone on a
+            prebuilt basis;
 4. serve    the flagship32 ``CliffordARVAE`` (``default_config(32)``: 32 px,
             latent 16, 8 heads of 64, 4 + 8 blocks) at full width with
             seeded random weights answers batch-64 requests through
@@ -249,9 +251,11 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
         lambda: attention.attention_bwd_plain(q, k, v, cos, sin, d_out))
     library = cuda_ms(lambda: torch.autograd.grad(
         out, (qh, kh, vh), doh, retain_graph=True))
+    # a checkout from before the redesign had one scalar form
+    form = getattr(attention, "bwd_form", lambda dt: "scalar")(dtype)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
-        rope=use_rope, max_abs_err=max(errs.values()), errors=errs,
+        rope=use_rope, form=form, max_abs_err=max(errs.values()), errors=errs,
         scales=scales, ms=kernel, plain_ms=plain, library_ms=library,
         bound_ms=b_ms, bound_by=b_by)
 
@@ -446,8 +450,12 @@ def sampler_case(sampler, route, R, d, per_row_kappa, gen):
     nbytes = 4 * (loc.numel() + kappa.numel() + R * 2 * d + 3 * R * (d - 1))
     # the draws are a few hundred operations per angle, below the bytes too
     b_ms, b_by, dense = torus_bound_ms(nbytes, R, d)
+    # the keyed kernel, and a checkout from before the FFT form, have the
+    # table form only
+    form = getattr(sampler, "rng_form", lambda d_: "table")(d) \
+        if route == "rng" else "table"
     return dict(
-        route=route, R=R, d=d, per_row_kappa=per_row_kappa,
+        route=route, R=R, d=d, per_row_kappa=per_row_kappa, form=form,
         max_abs_err=errs["x"], errors=errs,
         ms=cuda_ms(lambda: fused(key, loc, kappa)),
         plain_ms=cuda_ms(lambda: plain(key, loc, kappa), reps=5),
@@ -752,6 +760,8 @@ def main() -> int:
     for label, S, dtype, use_rope in (("f32", 68, torch.float32, True),
                                       ("bf16", 68, torch.bfloat16, True),
                                       ("f32_s17_norope", 17, torch.float32,
+                                       False),
+                                      ("bf16_s17_norope", 17, torch.bfloat16,
                                        False)):
         att_b[label] = attention_bwd_case(attention, rope, BATCH, S, 8, 64,
                                           dtype, use_rope, gen)
@@ -775,6 +785,7 @@ def main() -> int:
             ("keyed", "cnn4096", BATCH, CNN_LATENT, True),
             ("rng", "flagship32", BATCH * 64, 16, True),
             ("rng", "d513", BATCH, 513, False),
+            ("rng", "d2048", BATCH, 2048, True),
             ("rng", "cnn4096", BATCH, CNN_LATENT, True)):
         smp[route, label] = sampler_case(sampler, route, R, d, per_row, gen)
         emit("kernel", kernel=f"sampler_{route}", **smp[route, label])

@@ -19,6 +19,12 @@
 // write theta, u and v.  At d = 4096 that is 128 column tiles per row
 // tile: the draws cost about as much as the embedding there.
 //
+// A kernel whose d is a power of two can instead draw in front of the
+// FFT form of the embedding (torus_fft.cuh): sample_pack_pair draws,
+// samples and writes the angle pair (k, d - k) of one row and packs it
+// into the row's complex spectrum, as torus_fwd.cu's FFT form packs given
+// angles, so that every angle is drawn once per launch.
+//
 // IEEE division and square root and the accurate logf / expm1f / atanf /
 // cosf / sincosf: built without fast math.
 #pragma once
@@ -27,6 +33,7 @@
 #include <stdint.h>
 
 #include "torus_basis.cuh"
+#include "torus_fft.cuh"
 
 // mantissa trick: a float in [1, 2) from the top 23 bits, minus 1
 __device__ __forceinline__ float unit_float(uint32_t bits) {
@@ -81,4 +88,56 @@ __device__ __forceinline__ void sample_embed_tile(
         }
       },
       x, R, d, smem);
+}
+
+// Angle k (1 <= k < d) of row r: draw element r*d + k, sample it, write
+// theta, u and v at column k - 1; returns theta.
+template <typename Draw>
+__device__ __forceinline__ float sample_angle(
+    Draw draw, const float* __restrict__ loc, const float* __restrict__ kappa,
+    int kap_row_stride, int kap_col_stride, float* __restrict__ theta,
+    float* __restrict__ u_out, float* __restrict__ v_out, int r, int k,
+    int d) {
+  float u, v;
+  draw((uint32_t)r * (uint32_t)d + (uint32_t)k, &u, &v);
+  const float kap =
+      kappa[(size_t)r * kap_row_stride + (size_t)k * kap_col_stride];
+  const float t = circle_theta(loc[(size_t)r * d + k], kap, u, v);
+  const size_t o = (size_t)r * (d - 1) + (k - 1);
+  theta[o] = t;
+  u_out[o] = u;
+  v_out[o] = v;
+  return t;
+}
+
+// The FFT form's packing of the angle pair (k, d - k), 1 <= k <= d/2, of
+// row r into z (the row's spectrum, padded layout of torus_fft.cuh), with
+// the angles drawn and sampled here (each once; once in all when
+// k = d - k).  With X_k = exp(i theta_k) and w_k = exp(i pi k / d):
+//   Z_k = A_k + i w_k B_k,  Z_{d-k} = conj(A_k - i w_k B_k),
+//   A_k = X_k + conj(X_{d-k}),  B_k = X_k - conj(X_{d-k}).
+template <typename Draw>
+__device__ __forceinline__ void sample_pack_pair(
+    Draw draw, const float* __restrict__ loc, const float* __restrict__ kappa,
+    int kap_row_stride, int kap_col_stride, float* __restrict__ theta,
+    float* __restrict__ u_out, float* __restrict__ v_out, int r, int k, int d,
+    float2* z) {
+  float s1, c1, s2, c2, sw, cw;
+  sincosf(sample_angle(draw, loc, kappa, kap_row_stride, kap_col_stride,
+                       theta, u_out, v_out, r, k, d),
+          &s1, &c1);
+  if (k != d - k) {
+    sincosf(sample_angle(draw, loc, kappa, kap_row_stride, kap_col_stride,
+                         theta, u_out, v_out, r, d - k, d),
+            &s2, &c2);
+  } else {
+    s2 = s1;
+    c2 = c1;
+  }
+  sincospif((float)k / (float)d, &sw, &cw);
+  const float ax = c1 + c2, ay = s1 - s2;  // A_k
+  const float bx = c1 - c2, by = s1 + s2;  // B_k
+  const float wbx = cw * bx - sw * by, wby = cw * by + sw * bx;
+  z[fft_pad(k)] = make_float2(ax - wby, ay + wbx);
+  if (k != d - k) z[fft_pad(d - k)] = make_float2(ax + wby, wbx - ay);
 }

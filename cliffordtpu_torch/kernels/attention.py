@@ -9,9 +9,9 @@ whose backward launches ``csrc/attention_bwd.cu``; on the CPU autograd
 differentiates ``attention_plain``.  There is no fallback from a kernel to
 its plain version on the card.
 
-The forward kernel has one form per dtype (``fwd_form``): bfloat16 runs on
-the tensor cores (``mma.sync``, head_dim 16, 32, 64 or 128), float32 on the
-CUDA cores with register tiles (head_dim a multiple of 8).
+Each kernel has one form per dtype (``fwd_form``, ``bwd_form``): bfloat16
+runs on the tensor cores (``mma.sync``, head_dim 16, 32, 64 or 128),
+float32 on the CUDA cores with register tiles (head_dim a multiple of 8).
 """
 
 from __future__ import annotations
@@ -97,10 +97,21 @@ def fwd_form(dtype) -> str:
     return "mma" if dtype == torch.bfloat16 else "simt"
 
 
-def bwd_smem_bytes(S: int, hd: int) -> int:
-    """Shared memory of one backward block: q, dO, k and v (rows of k and
-    v padded by one), the probabilities and dS."""
-    return 4 * (2 * S * hd + 2 * S * (hd + 1) + 2 * S * S)
+def bwd_form(dtype) -> str:
+    """Which form of the backward kernel a dtype takes, as ``fwd_form``."""
+    return fwd_form(dtype)
+
+
+def bwd_smem_bytes(S: int, hd: int, dtype=torch.float32) -> int:
+    """Shared memory of one backward block: rotated q and k, v, dO, the
+    probabilities P and dS.  float32: q, k, v, dO in rows of hd + 4, P and
+    dS in rows of Sp + 4, Sp = S rounded up to 4; bfloat16: q, k, v, dO in
+    rows of hd + 8 and P, dS in rows of Sk + 8, Sk = S rounded up to 16."""
+    if dtype == torch.bfloat16:
+        Sk = _round_up(S, 16)
+        return 2 * (4 * Sk * (hd + 8) + 2 * Sk * (Sk + 8))
+    Sp = _round_up(S, 4)
+    return 4 * Sp * (4 * (hd + 4) + 2 * (Sp + 4))
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,19 +147,20 @@ def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
     B, S, H, hd = q.shape
     if hd % 2 or hd < 2:
         raise ValueError(f"head_dim must be even, got {hd}")
-    if fwd and q.dtype == torch.bfloat16 and hd not in (16, 32, 64, 128):
-        raise ValueError(f"the bfloat16 forward kernel takes head_dim 16, "
+    if q.dtype == torch.bfloat16 and hd not in (16, 32, 64, 128):
+        raise ValueError(f"the bfloat16 (mma) kernels take head_dim 16, "
                          f"32, 64 or 128, got {hd}")
-    if fwd and q.dtype == torch.float32 and hd % 8:
-        raise ValueError(f"the float32 forward kernel takes head_dim a "
+    if q.dtype == torch.float32 and hd % 8:
+        raise ValueError(f"the float32 (simt) kernels take head_dim a "
                          f"multiple of 8, got {hd}")
     if fwd and smem_bytes(S, hd, q.dtype) > _SMEM_MAX:
         raise ValueError(f"S={S}, hd={hd} needs "
                          f"{smem_bytes(S, hd, q.dtype)} bytes of shared "
                          f"memory, above {_SMEM_MAX}")
-    if bwd and bwd_smem_bytes(S, hd) > _SMEM_MAX:
-        raise ValueError(f"S={S}, hd={hd} needs {bwd_smem_bytes(S, hd)} "
-                         f"bytes of shared memory for the backward, above "
+    if bwd and bwd_smem_bytes(S, hd, q.dtype) > _SMEM_MAX:
+        raise ValueError(f"S={S}, hd={hd} needs "
+                         f"{bwd_smem_bytes(S, hd, q.dtype)} bytes of shared "
+                         f"memory for the {bwd_form(q.dtype)} backward, above "
                          f"{_SMEM_MAX}")
     if (cos is None) != (sin is None):
         raise ValueError("pass both cos and sin, or neither")
@@ -161,12 +173,17 @@ def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
                     f"{q.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
 
 
+def _check_aligned(*tensors):
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the attention kernels move q, k, v, cos, sin and "
+                         "the gradients 16 bytes at a time: they must be "
+                         "16-byte aligned")
+
+
 def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
     global launches
     B, S, H, hd = q.shape
-    if any(t is not None and t.data_ptr() % 16 for t in (q, k, v, cos, sin)):
-        raise ValueError("the forward kernel reads q, k, v, cos and sin 16 "
-                         "bytes at a time: they must be 16-byte aligned")
+    _check_aligned(q, k, v, cos, sin)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         rc = _kernel(q.dtype)(
@@ -184,6 +201,7 @@ def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
 def _launch_bwd(q, k, v, cos, sin, d_out):
     global bwd_launches
     B, S, H, hd = q.shape
+    _check_aligned(q, k, v, cos, sin, d_out)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     with torch.cuda.device(q.device):
         rc = _bwd_kernel(q.dtype)(

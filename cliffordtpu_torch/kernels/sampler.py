@@ -13,7 +13,9 @@ core's hardware generator, these draw Philox-4x32-10 words keyed by the
 caller's key folded with ``RNG_FOLD`` (the TPU package's seed words) and
 counted by the flat element index: a different stream from ``jax.random``
 by design, the same in the kernel and in the plain version bit for bit,
-and independent of how the launch is tiled.
+and independent of how the launch is tiled.  Its kernel draws in front of
+the torus forward's FFT form for a power-of-two d and keeps the table form
+otherwise (``rng_form``).
 
 When ``loc`` or ``kappa`` needs a gradient, either CUDA path is a
 ``torch.autograd.Function`` whose backward is one launch of
@@ -68,6 +70,13 @@ def sample_embed_keyed_plain(key, loc: torch.Tensor, kappa: torch.Tensor):
     v = random.uniform(k_v, (R, d), device=loc.device)
     theta = circle_angles(loc, kappa, u, v)
     return angles_to_torus_matmul(theta), theta[:, 1:], u[:, 1:], v[:, 1:]
+
+
+def rng_form(d: int) -> str:
+    """Which form ``csrc/sampler_rng.cu`` takes for latent dim d: ``"fft"``
+    for a power of two, else ``"table"`` (the kernel's own dispatch, the
+    same as the torus forward's)."""
+    return torus.fwd_form(d)
 
 
 def rng_seed_words(key):

@@ -13,10 +13,11 @@ of the kernel, the plain version and the library forms, and the bound) and
 prints its result as one JSON line.  The torus-family kernels run at every
 shape R x d: ``torus_fwd``, ``torus_bwd`` (without the concentration
 epilogue), ``sampler_bwd`` (with it), ``sampler_keyed`` and ``sampler_rng``
-(one kappa per row).  ``attention_fwd`` runs in float32, then bfloat16, at
-every ``--attention`` shape B x S x H x hd (default the flagship's: B 64,
-S 68, 8 heads of 64), with the 2-D RoPE tables of S - 4 patch tokens and
-4 registers (S - 4 a square), or without RoPE after ``/norope``.
+(one kappa per row).  ``attention_fwd`` and ``attention_bwd`` run in
+float32, then bfloat16, at every ``--attention`` shape B x S x H x hd
+(default the flagship's: B 64, S 68, 8 heads of 64), with the 2-D RoPE
+tables of S - 4 patch tokens and 4 registers (S - 4 a square), or without
+RoPE after ``/norope``.
 The first line names the card and its power limit as ``nvidia-smi`` gives
 them.
 
@@ -41,7 +42,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
-KERNELS = ("attention_fwd", "torus_fwd", "torus_bwd", "sampler_bwd",
+ATTENTION = {"attention_fwd": chip_smoke.attention_case,
+             "attention_bwd": chip_smoke.attention_bwd_case}
+KERNELS = (*ATTENTION, "torus_fwd", "torus_bwd", "sampler_bwd",
            "sampler_keyed", "sampler_rng")
 
 
@@ -83,19 +86,17 @@ def main() -> int:
     }
     names = args.kernels.split(",")
     for spec in args.attention.split(","):
-        if "attention_fwd" not in names:
-            break
         shape, _, opt = spec.partition("/")
         B, S, H, hd = (int(s) for s in shape.split("x"))
-        for dtype in (torch.float32, torch.bfloat16):
-            case = chip_smoke.attention_case(attention, rope, B, S, H, hd,
-                                             dtype, opt != "norope", gen)
-            print(json.dumps({"kernel": "attention_fwd", **case}),
-                  flush=True)
+        for name in (n for n in names if n in ATTENTION):
+            for dtype in (torch.float32, torch.bfloat16):
+                case = ATTENTION[name](attention, rope, B, S, H, hd, dtype,
+                                       opt != "norope", gen)
+                print(json.dumps({"kernel": name, **case}), flush=True)
     for shape in args.shapes.split(","):
         R, d = (int(s) for s in shape.split("x"))
         for name in names:
-            if name != "attention_fwd":
+            if name not in ATTENTION:
                 print(json.dumps({"kernel": name, **cases[name](R, d)}),
                       flush=True)
     return 0

@@ -40,7 +40,7 @@ from torch_profile_serving import busy_us, kernel_events  # noqa: E402
 BATCH = 64
 STEPS = 5  # timed, then traced, after 3 warm-up steps
 CLASSES = (  # first match wins, on the lower-cased kernel name
-    ("attention_bwd_kernel", ("attention_bwd_kernel",)),
+    ("attention_bwd_kernel", ("attention_bwd_",)),
     ("attention_fwd_kernel", ("attention_fwd_",)),
     ("sampler_kernel", ("keyed_sample_embed", "rng_sample_embed")),
     ("torus_bwd_kernel", ("torus_bwd_kernel",)),

@@ -149,8 +149,8 @@ def test_bf16_rounding_points_stay_within_the_bar_of_xla():
 
 
 def test_forward_kernel_head_dims_are_checked_before_launch():
-    """The tensor-core form takes head_dim 16 / 32 / 64 / 128, the float32
-    form a multiple of 8; the backward alone keeps any even head_dim."""
+    """The tensor-core forms take head_dim 16 / 32 / 64 / 128, the float32
+    forms a multiple of 8, in the forward and the backward alike."""
     def qkv(hd, dtype):
         return [torch.zeros(1, 5, 1, hd, dtype=dtype) for _ in range(3)]
 
@@ -158,6 +158,8 @@ def test_forward_kernel_head_dims_are_checked_before_launch():
     attention._check(*qkv(24, torch.float32), None, None)
     for hd, dtype in ((24, torch.bfloat16), (256, torch.bfloat16),
                       (12, torch.float32)):
-        with pytest.raises(ValueError, match="forward kernel takes"):
+        with pytest.raises(ValueError, match="kernels take head_dim"):
             attention._check(*qkv(hd, dtype), None, None)
-        attention._check(*qkv(hd, dtype), None, None, fwd=False, bwd=True)
+        with pytest.raises(ValueError, match="kernels take head_dim"):
+            attention._check(*qkv(hd, dtype), None, None, fwd=False,
+                             bwd=True)

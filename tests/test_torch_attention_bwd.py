@@ -15,6 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 from cliffordtpu.kernels import attention_pallas as ap
 from cliffordtpu.nn.vit_vae import apply_rotary_half as jax_rotary_half
 from cliffordtpu_torch.kernels import attention
+from cliffordtpu_torch.nn.rope import apply_rotary_half
 
 torch.set_num_threads(1)
 
@@ -141,13 +142,157 @@ def test_autograd_function_routes_to_the_backward_launcher(monkeypatch,
 
 
 def test_backward_shared_memory_fits_the_flagship_and_is_refused_above():
-    """S = 68, hd = 64: 107,168 bytes, above the 48 KB default and within
-    the 227 KB opt-in limit; a sequence of 140 fits the forward only."""
-    assert attention.bwd_smem_bytes(68, 64) == 107168
+    """S = 68, hd = 64 in float32 (the simt form: q, k, v, dO in rows of
+    68, P and dS in rows of 72): 113,152 bytes, above the 48 KB default and
+    within the 227 KB opt-in limit; a sequence of 140 fits the forward
+    only."""
+    assert attention.bwd_smem_bytes(68, 64) == 113152
     assert 48 * 1024 < attention.bwd_smem_bytes(68, 64) <= attention._SMEM_MAX
     assert attention.bwd_smem_bytes(140, 64) > attention._SMEM_MAX
     assert attention.smem_bytes(140, 64) <= attention._SMEM_MAX
     q = torch.zeros(1, 140, 1, 64)
     attention._check(q, q, q, None, None)  # the forward alone fits
-    with pytest.raises(ValueError, match="for the backward"):
+    with pytest.raises(ValueError, match="for the simt backward"):
         attention._check(q, q, q, None, None, bwd=True)
+
+
+def test_backward_forms_and_their_shared_memory():
+    """``bwd_form``: the tensor-core form for bfloat16, register tiles for
+    float32.  The mma form keeps q, k, v, dO in rows of hd + 8 bfloat16 and
+    P, dS in rows of Sk + 8 (S padded to 16): 74,240 bytes at the flagship
+    shape, three blocks per SM.  Each form is refused by its own size: S
+    136 fits the mma form and not the simt one, S 200 neither."""
+    assert attention.bwd_form(torch.bfloat16) == "mma"
+    assert attention.bwd_form(torch.float32) == "simt"
+    mma = attention.bwd_smem_bytes(68, 64, torch.bfloat16)
+    assert mma == 2 * (4 * 80 * 72 + 2 * 80 * 88) == 74240
+    assert 3 * mma <= 228 * 1024 < 4 * mma
+    assert attention.bwd_smem_bytes(17, 64, torch.bfloat16) == \
+        2 * (4 * 32 * 72 + 2 * 32 * 40)
+    assert attention.bwd_smem_bytes(17, 64) == 4 * 20 * (4 * 68 + 2 * 24)
+    for S, fits in ((136, {torch.bfloat16}), (200, set())):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, S, 1, 64, dtype=dtype)
+            if dtype in fits:
+                attention._check(q, q, q, None, None, fwd=False, bwd=True)
+                continue
+            with pytest.raises(ValueError, match=f"{attention.bwd_form(dtype)}"
+                                                 f" backward"):
+                attention._check(q, q, q, None, None, fwd=False, bwd=True)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _mma_bwd_model(q, k, v, cos, sin, d_out, mask_rows=True, pad=None):
+    """The bfloat16 backward kernel's arithmetic, in torch on float32: q and
+    k rotated in float32 and rounded to bfloat16 (Qr, Kr); the rows padded
+    to a multiple of 16 (with zeros, or with ``pad``'s rows, to stand for
+    what a staging that skipped them would leave); scores, softmax, dP,
+    delta and dS in float32 with the padded keys at -inf and, with
+    ``mask_rows``, the padded query rows' P set to 0; P and dS rounded to
+    bfloat16 as the operands of dV = P^T dO, dQr = dS Kr, dKr = dS^T Qr;
+    sums in float32; the inverse rotation; outputs rounded to bfloat16."""
+    B, S, H, hd = q.shape
+    Sk = -(-S // 16) * 16
+    if cos is not None:
+        q = apply_rotary_half(q, cos[:S], sin[:S])
+        k = apply_rotary_half(k, cos[:S], sin[:S])
+    tiles = []
+    for i, t in enumerate((_bf16(q), _bf16(k), v, d_out)):
+        fill = torch.zeros(B, Sk - S, H, hd) if pad is None else pad[i]
+        tiles.append(torch.cat([t, fill], 1))
+    qr, kr, vp, dop = tiles
+    scale = hd ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", qr, kr) * scale
+    s[..., S:] = -torch.inf
+    p = torch.softmax(s, -1)
+    if mask_rows:
+        p[:, :, S:, :] = 0
+    dp = torch.einsum("bqhd,bkhd->bhqk", dop, vp)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), dop)[:, :S]
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), kr)[:, :S]
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), qr)[:, :S]
+    if cos is not None:
+        dq = apply_rotary_half(dq, cos[:S], -sin[:S])
+        dk = apply_rotary_half(dk, cos[:S], -sin[:S])
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+def _bf16_inputs(B, S, H, hd, rope, seed):
+    q, k, v, w, cos, sin = _inputs(B, S, H, hd, rope, seed)
+    return [_bf16(_t(a)).numpy() for a in (q, k, v, w)] + [cos, sin]
+
+
+@pytest.mark.parametrize("reference", ["plain", "xla"])
+@pytest.mark.parametrize("B,S,H,hd,rope", [(2, 68, 2, 64, True),
+                                           (2, 17, 2, 64, False)])
+def test_bf16_rounding_points_stay_within_the_bar(B, S, H, hd, rope,
+                                                 reference):
+    """chip_smoke holds the bfloat16 backward to 2e-2 x max(1, |ref|) of
+    the float32 plain version: the mma form's rounding points (Qr, Kr, P
+    and dS in bfloat16, everything else float32) keep within that bar of
+    ``attention_bwd_plain`` and of jax.grad of XLA attention, on the same
+    bfloat16 inputs, at the flagship sequence with RoPE and at S 17 (16-row
+    padding to 32) without it."""
+    q, k, v, w, cos, sin = _bf16_inputs(B, S, H, hd, rope, seed=6)
+    got = _mma_bwd_model(*map(_t, (q, k, v, cos, sin, w)))
+    if reference == "plain":
+        want = _plain(q, k, v, w, cos, sin)
+    else:
+        want = [np.asarray(g) for g in jax.grad(
+            lambda *a: jnp.sum(_xla(*a, cos, sin) * w),
+            argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))]
+    errs = []
+    for g, r in zip(got, want):
+        err = np.abs(g.numpy() - r).max()
+        assert err <= 2e-2 * max(1.0, np.abs(r).max())
+        errs.append(err)
+    assert max(errs) > 0  # the model does round
+
+
+def test_padded_query_rows_must_not_leak_into_dv_and_dk():
+    """S 17 pads to 32 rows.  A padded query row has Qr = 0, so its scores
+    are 0 and its softmax is uniform over the real keys, not zero.  With
+    zeros in the padded rows of dO its dP, delta and dS are 0 and nothing
+    leaks; but where the padded rows hold anything else (what a staging
+    loop that skipped them would leave in shared memory), an unmasked P
+    leaks into dV and dK by far more than the bar, and the mask on P keeps
+    both exact.  The kernel zero-fills and masks."""
+    B, S, H, hd = 2, 17, 2, 64
+    q, k, v, w, _, _ = map(_t, _bf16_inputs(B, S, H, hd, False, seed=7))
+    stale = [torch.from_numpy(np.random.default_rng(8 + i).normal(
+        size=(B, 32 - S, H, hd)).astype(np.float32)) for i in range(4)]
+    clean = _mma_bwd_model(q, k, v, None, None, w)
+    for pad, masked, leaks in ((None, False, False), (stale, True, False),
+                               (stale, False, True)):
+        got = _mma_bwd_model(q, k, v, None, None, w, mask_rows=masked,
+                             pad=pad)
+        torch.testing.assert_close(got[0], clean[0], atol=0, rtol=0)  # dq
+        for g, c in zip(got[1:], clean[1:]):  # dk, dv
+            err = (g - c).abs().max().item()
+            bar = 2e-2 * max(1.0, c.abs().max().item())
+            assert (err > 10 * bar) if leaks else err == 0
+
+
+def _accumulator_map(hd):
+    """Where an m16n8k16 accumulator tile of 16 rows x hd columns (hd / 8
+    n-tiles) lives: lane (g, t) holds, in n-tile n and element e, row
+    g + 8 (e // 2), column 8 n + 2 t + e % 2."""
+    return {(8 * n + 2 * t + e % 2, g + 8 * (e // 2)): (4 * g + t, n, e)
+            for g in range(8) for t in range(4) for n in range(hd // 8)
+            for e in range(4)}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def test_fragment_map_pairs_rotation_columns_in_one_thread(hd):
+    """The inverse rotation pairs column i with column i + hd/2.  In the
+    accumulator layout both lie in one lane, in n-tiles n and n + hd/16 at
+    the same element, so the kernel rotates dQr and dKr in registers."""
+    where = _accumulator_map(hd)
+    assert len(where) == 16 * hd  # every element of the tile, once
+    for (col, row), (lane, n, e) in where.items():
+        if col < hd // 2:
+            assert where[col + hd // 2, row] == (lane, n + hd // 16, e)

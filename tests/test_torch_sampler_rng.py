@@ -265,3 +265,61 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     with pytest.raises(ValueError):
         sampler.sample_embed_rng((0, 1), loc.to("meta"),
                                  torch.ones(4, 9, device="meta"))
+
+
+def _draw_then_fft(key, loc, kappa):
+    """The FFT form of csrc/sampler_rng.cu in torch: a row's angle pairs
+    (k, d - k), k = 1..d/2, each angle drawn from counter r d + k under
+    the seed words, sampled and written at column k - 1 (once: k = d - k
+    is drawn once); the pair packed as Z_k = A_k + i w_k B_k, Z_{d-k} =
+    conj(A_k - i w_k B_k), A_k = X_k + conj X_{d-k}, B_k = X_k - conj
+    X_{d-k}, X_k = e^{i theta_k}, w_k = e^{i pi k / d}, Z_0 = 2; the
+    unnormalised inverse d-point DFT z of Z; x_{2m} = Re z_m / n,
+    x_{2m+1} = Im z_m / n, n = 2d.  Returns (x, theta, u, v) and how often
+    each angle was written."""
+    R, d = loc.shape
+    kap = torch.broadcast_to(kappa, (R, d))
+    seed = sampler.rng_seed_words(key)
+    k = torch.arange(1, d // 2 + 1)
+    outs = [torch.zeros(R, d - 1) for _ in range(3)]  # theta, u, v
+    written = torch.zeros(R, d - 1, dtype=torch.int64)
+    for cols in (k, (d - k)[d - k != k]):
+        q = torch.arange(R)[:, None] * d + cols[None, :]
+        w0, w1, _, _ = trandom.philox4x32(seed, (q, 0, 0, 0))
+        u = torch.clamp(trandom.uniform_from_bits(w0), min=sampler.U_MIN)
+        v = trandom.uniform_from_bits(w1)
+        theta = sampler.circle_angles(loc[:, cols], kap[:, cols], u, v)
+        for out, val in zip(outs, (theta, u, v)):
+            out[:, cols - 1] = val
+        written[:, cols - 1] += 1
+    X = torch.polar(torch.ones(R, d - 1), outs[0])
+    Xk, Xr = X[:, k - 1], X[:, d - k - 1]
+    w = torch.polar(torch.ones(len(k)), (torch.pi / d) * k.float())
+    A, Bw = Xk + Xr.conj(), 1j * w * (Xk - Xr.conj())
+    Z = torch.zeros(R, d, dtype=torch.complex64)
+    Z[:, 0] = 2
+    Z[:, d - k] = (A - Bw).conj()
+    Z[:, k] = A + Bw  # k = d/2 last: Z_{d/2} = A + i w B
+    z = torch.fft.ifft(Z, dim=1) * d / (2 * d)
+    x = torch.stack([z.real, z.imag], dim=2).reshape(R, 2 * d)
+    return (x, *outs), written
+
+
+@pytest.mark.parametrize("d", [2, 16, 256, 4096])
+def test_draw_then_fft_equals_the_plain_version(d):
+    """The FFT form's pipeline (each angle pair drawn, sampled and packed
+    by one thread, then the inverse FFT) draws every angle exactly once,
+    gives the plain version's theta, u and v bit for bit and its x within
+    1e-5; ``rng_form`` sends exactly the powers of two to it."""
+    rows = 3
+    loc, kap = _inputs(d, rows, 500 + d, per_row=d != 16)
+    got, written = _draw_then_fft((0, 9 + d), loc, kap)
+    want = sampler.sample_embed_rng_plain((0, 9 + d), loc, kap)
+    assert bool((written == 1).all())
+    for name, g, w in zip(("theta", "u", "v"), got[1:], want[1:]):
+        assert torch.equal(g, w), name
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-5,
+                               rtol=0)
+    assert sampler.rng_form(d) == "fft"
+    assert [sampler.rng_form(n) for n in (3, 513, 2047, 4095)] == \
+        ["table"] * 4
