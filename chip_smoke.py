@@ -61,9 +61,31 @@ Phases, each printing one JSON line and each fatal when it fails:
             step of every route against the plain versions
             (``TRAIN_BARS``); the "rng" route gives one loss for one key
             and another for another;
+8. attention_route  ``fused_attention`` at image 256's shape (B 4, S 260,
+            8 heads of 64, RoPE) in each dtype, with and without a
+            gradient: the bfloat16 forward without a gradient must take
+            kernel A, every other case the dense route (``attention_dense``,
+            SDPA after the rotation), read from the counts; outputs and
+            gradients against the plain versions at the attention bars;
+9. image256  ``CliffordARVAE(image_size=256)`` (``default_config(256)``: 6
+            + 12 blocks of S 260), clifford latent 16, batch 4: one request
+            of each entry point and one train step per dtype; bfloat16
+            serving launches A 6 / 6 / 12 times, float32 serving takes the
+            dense route 6 / 6 / 12 times, and every step 18 times with no
+            launch of A or B; the bfloat16 first loss within
+            ``TRAIN_BARS`` of the float32 one;
+10. heads   the gaussian and powerspherical heads, batch 64, per dtype: one
+            request of each entry point and ``HEAD_STEPS`` steps after a
+            warm-up, on the cnn4096 ``CNNVAE`` (no launch of any kernel;
+            the float32 first step against the port's own step on the CPU,
+            ``TRAIN_BARS``) and on the flagship32 ``CliffordARVAE`` (A 4 /
+            4 / 8 per request, 12 A + 12 B per step, nothing else); then
+            the device time of one threefry ``normal`` and ``uniform`` draw
+            of the cnn4096 powerspherical draw's shape;
 
-then the table of all six kernels as one JSON line, the ``nvidia-smi`` line,
-and last
+then the table of all six kernels as one JSON line (the attention kernels
+also on the heads' path and at image 256), the ``nvidia-smi`` line, and
+last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
 """
@@ -492,15 +514,18 @@ def cnn4096(conv_vae, dtype, route="keyed"):
 
 
 def launch_counts(attention, sampler, torus):
+    """The six kernels' launch counts, and the calls of the dense attention
+    route (``attention_dense``, not a kernel of this repository)."""
     return {"attention_fwd": attention.launches,
             "attention_bwd": attention.bwd_launches,
+            "attention_dense": attention.dense_calls,
             "torus_fwd": torus.fwd_launches, "torus_bwd": torus.launches,
             "sampler_keyed": sampler.launches,
             "sampler_rng": sampler.rng_launches}
 
 
 def zero_counts(attention, sampler, torus):
-    attention.launches = attention.bwd_launches = 0
+    attention.launches = attention.bwd_launches = attention.dense_calls = 0
     torus.fwd_launches = torus.launches = 0
     sampler.launches = sampler.rng_launches = 0
 
@@ -510,14 +535,14 @@ def moved_counts(before, after):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
-def serve(kmods, srv, images, requests, label):
-    """Answer REQUESTS batch-64 requests per entry point.  ``requests`` maps
-    a name to (call(srv, images, key, outs), launches it must make);
-    returns the outputs of the last round, the latencies and the launch
-    counts."""
+def serve(kmods, srv, images, requests, label, rounds=None):
+    """Answer ``rounds`` (default ``REQUESTS``) requests per entry point.
+    ``requests`` maps a name to (call(srv, images, key, outs), launches it
+    must make); returns the outputs of the last round, the latencies and
+    the launch counts."""
     lat = {name: [] for name in requests}
     zero_counts(*kmods)
-    for i in range(REQUESTS):
+    for i in range(rounds or REQUESTS):
         outs = {}
         for name, (call, expected) in requests.items():
             before = launch_counts(*kmods)
@@ -616,9 +641,10 @@ def serve_check(kmods, ops_torus, label, srv, outs, bf16_outs, requests,
                         f"{bar}")
 
 
-def train(kmods, st, step, per_step, steps, images, label):
+def train(kmods, st, step, per_step, steps, images, label, must_fall=True):
     """One warm-up and ``steps`` timed AdamW steps on one batch; returns the
-    per-step losses, the step times and the launch counts."""
+    per-step losses, the step times and the launch counts.  With
+    ``must_fall`` the last total loss must lie below the first."""
     beta = torch.ones((), device=DEVICE)
     zero_counts(*kmods)
     history, ms = [], []
@@ -637,9 +663,10 @@ def train(kmods, st, step, per_step, steps, images, label):
         check(all(math.isfinite(v) for v in history[-1].values()),
               f"{label} train step {i}: losses not finite: {history[-1]}")
     counts = launch_counts(*kmods)
-    check(history[-1]["total_loss"] < history[0]["total_loss"],
-          f"{label} train: total loss did not fall: "
-          f"{history[0]['total_loss']} -> {history[-1]['total_loss']}")
+    check(not must_fall or history[-1]["total_loss"] < history[0][
+        "total_loss"], f"{label} train: total loss did not fall: "
+                       f"{history[0]['total_loss']} -> "
+                       f"{history[-1]['total_loss']}")
     for p in st.model.parameters():
         check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
               f"{label} train: a parameter or gradient is not float32")
@@ -650,10 +677,10 @@ def train(kmods, st, step, per_step, steps, images, label):
     return history, ms, counts
 
 
-def first_step(conv_vae, model, images, key=(0, 0)):
+def first_step(conv_vae, model, images, key=(0, 0), device=None):
     """Loss pieces and gradients of the first train step (seeded weights,
-    beta 1), without the update."""
-    model = model.to(DEVICE).train()
+    beta 1), without the update, on ``device`` (the card by default)."""
+    model = model.to(device or DEVICE).train()
     x_recon, q_z, p_z, _ = model(images, key)
     losses = conv_vae.cnn_vae_loss(
         images, x_recon, q_z, p_z, model.distribution, beta=1.0,
@@ -661,6 +688,33 @@ def first_step(conv_vae, model, images, key=(0, 0)):
     losses["total_loss"].backward()
     return ({k: v.item() for k, v in losses.items()},
             {n: p.grad for n, p in model.named_parameters()})
+
+
+def hold_step(losses, grads, ref_losses, ref_grads, what, scales=None):
+    """Hold one step's loss pieces and gradients against a reference step
+    at ``TRAIN_BARS``; returns the errors.  A loss piece's error is
+    relative to its reference value, or to ``scales[piece]`` where that is
+    larger (the magnitude of the terms the piece is a difference of)."""
+    scales = scales or {}
+    loss_rel = {k: abs(losses[k] - ref_losses[k])
+                / max(abs(ref_losses[k]), scales.get(k, 0.0), 1e-12)
+                for k in losses}
+    norm = math.sqrt(sum(g.double().pow(2).sum().item()
+                         for g in ref_grads.values()))
+    diff = {n: (grads[n].to(ref_grads[n].device) - ref_grads[n]).double()
+            for n in grads}
+    err = math.sqrt(sum(d.pow(2).sum().item() for d in diff.values()))
+    worst_name, worst = max(((n, d.abs().max().item())
+                             for n, d in diff.items()), key=lambda t: t[1])
+    check(max(loss_rel.values()) <= TRAIN_BARS["loss_rel"],
+          f"{what}: losses differ {loss_rel}")
+    check(err / norm <= TRAIN_BARS["grad_l2_rel"],
+          f"{what}: gradient l2 error {err / norm}")
+    check(worst / norm <= TRAIN_BARS["grad_max_rel"],
+          f"{what}: {worst_name} gradient error {worst / norm} of the "
+          f"global norm")
+    return dict(loss_rel=loss_rel, grad_norm=norm, grad_l2_rel=err / norm,
+                grad_max_rel=worst / norm, grad_max_param=worst_name)
 
 
 def train_check(kmods, ops_torus, conv_vae, make_model, images, label,
@@ -675,26 +729,9 @@ def train_check(kmods, ops_torus, conv_vae, make_model, images, label,
                                        images)
     check(launch_counts(*kmods) == before,
           f"{label}: the plain step launched a kernel")
-    loss_rel = {k: abs(losses[k] - p_losses[k]) / max(abs(p_losses[k]), 1e-12)
-                for k in losses}
-    norm = math.sqrt(sum(g.double().pow(2).sum().item()
-                         for g in p_grads.values()))
-    err = math.sqrt(sum((grads[n] - p_grads[n]).double().pow(2).sum().item()
-                        for n in grads))
-    worst_name, worst = max(
-        ((n, (grads[n] - p_grads[n]).abs().max().item()) for n in grads),
-        key=lambda t: t[1])
-    report = dict(loss_rel=loss_rel, grad_norm=norm, grad_l2_rel=err / norm,
-                  grad_max_rel=worst / norm, grad_max_param=worst_name)
-    check(max(loss_rel.values()) <= TRAIN_BARS["loss_rel"],
-          f"{label} float32 step, kernels vs plain: losses differ "
-          f"{loss_rel}")
-    check(err / norm <= TRAIN_BARS["grad_l2_rel"],
-          f"{label} float32 step, kernels vs plain: gradient l2 error "
-          f"{err / norm}")
-    check(worst / norm <= TRAIN_BARS["grad_max_rel"],
-          f"{label} float32 step, kernels vs plain: {worst_name} gradient "
-          f"error {worst / norm} of the global norm")
+    report = hold_step(losses, grads, p_losses, p_grads,
+                       f"{label} float32 step, kernels vs plain")
+    norm = report["grad_norm"]
     if bf16:
         bf16_losses, bf16_grads = first_step(
             conv_vae, make_model(torch.bfloat16), images)
@@ -714,6 +751,231 @@ def train_check(kmods, ops_torus, conv_vae, make_model, images, label,
     emit(f"{label}_check", **report, bars=TRAIN_BARS)
     return losses
 
+def attention_route(attention, rope, gen):
+    """``fused_attention`` at image 256's shape (B 4, S 260, H 8, hd 64,
+    RoPE) in each dtype, with and without a gradient: the route each took
+    (read from the counts), against the expected ones, and the outputs and
+    gradients against the plain versions at the attention bars."""
+    B, S, H, hd = 4, 260, 8, 64
+    c, s_ = rope.rope_2d_cos_sin(256, 16, hd, cls_token_num=4)
+    cos, sin = torch.from_numpy(c).to(DEVICE), torch.from_numpy(s_).to(DEVICE)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, d_out = (torch.randn(B, S, H, hd, generator=gen,
+                                      device=DEVICE).to(dtype)
+                          for _ in range(4))
+        for grad in (False, True):
+            qg, kg, vg = (t.clone().requires_grad_(grad) for t in (q, k, v))
+            before = (attention.launches, attention.bwd_launches,
+                      attention.dense_calls)
+            out = attention.fused_attention(qg, kg, vg, cos, sin)
+            grads = (torch.autograd.grad(out, (qg, kg, vg), d_out) if grad
+                     else None)
+            torch.cuda.synchronize()
+            moved = tuple(a - b for a, b in zip(
+                (attention.launches, attention.bwd_launches,
+                 attention.dense_calls), before))
+            route = {(1, 0, 0): "kernel", (1, 1, 0): "kernel",
+                     (0, 0, 1): "dense"}.get(moved, f"counts {moved}")
+            want_route = ("kernel" if dtype == torch.bfloat16 and not grad
+                          else "dense")
+            check(route == want_route, f"attention_route {dtype} grad={grad}"
+                                       f": took {route}, expected "
+                                       f"{want_route}")
+            want = attention.attention_plain(q, k, v, cos, sin)
+            err = (out.detach().float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            bar = 1e-5 if dtype == torch.float32 else 2e-2 * scale
+            check(err <= bar, f"attention_route {dtype} grad={grad}: output "
+                              f"error {err} > {bar}")
+            row = dict(dtype=str(dtype).replace("torch.", ""), grad=grad,
+                       route=route, max_abs_err=err, bar=bar)
+            if grad:
+                ref = attention.attention_bwd_plain(q, k, v, cos, sin, d_out)
+                errs = {}
+                for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+                    errs[name] = (a.float() - b.float()).abs().max().item()
+                    gbar = (1e-5 if dtype == torch.float32 else 2e-2) * max(
+                        1.0, b.float().abs().max().item())
+                    check(errs[name] <= gbar,
+                          f"attention_route {dtype}: {name} error "
+                          f"{errs[name]} > {gbar}")
+                row["grad_errors"] = errs
+            rows.append(row)
+    emit("attention_route", B=B, S=S, H=H, hd=hd, cases=rows,
+         smem_bytes={"fwd_f32": attention.smem_bytes(S, hd),
+                     "fwd_bf16": attention.smem_bytes(S, hd, torch.bfloat16),
+                     "bwd_f32": attention.bwd_smem_bytes(S, hd),
+                     "bwd_bf16": attention.bwd_smem_bytes(
+                         S, hd, torch.bfloat16)},
+         smem_max=attention._SMEM_MAX)
+
+
+IMAGE256_BATCH = 4
+
+
+def image256(vit_vae, dtype):
+    """``CliffordARVAE(image_size=256)`` at ``default_config(256)``: 6
+    encoder and 12 decoder blocks of S 260, clifford latent 16."""
+    return vit_vae.CliffordARVAE(latent_dim=16, image_size=256,
+                                 compute_dtype=dtype, seed=0)
+
+
+def image256_phase(kmods, serving, vit_vae, state, loop, gen):
+    """Serve one request of each entry point and take one train step per
+    dtype: bfloat16 serving takes the forward kernel (it fits at S 260),
+    float32 serving and every train step the dense route."""
+    images = torch.rand(IMAGE256_BATCH, 256, 256, 3, generator=gen,
+                        device=DEVICE) * 2 - 1
+    requests = {
+        "bfloat16": {
+            "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0],
+                          {"attention_fwd": 6}),
+            "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0],
+                         {"attention_fwd": 6, "sampler_keyed": 1}),
+            "decode": (FLAGSHIP_REQUESTS["decode"][0],
+                       {"attention_fwd": 12})},
+        "float32": {
+            "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0],
+                          {"attention_dense": 6}),
+            "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0],
+                         {"attention_dense": 6, "sampler_keyed": 1}),
+            "decode": (FLAGSHIP_REQUESTS["decode"][0],
+                       {"attention_dense": 12})},
+    }
+    per_step = {"attention_dense": 18, "sampler_keyed": 1, "torus_bwd": 1}
+    first, path_counts = {}, {}
+    for label, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        srv = serving.Serving(image256(vit_vae, dtype), device=DEVICE)
+        outs, lat, counts = serve(kmods, srv, images, requests[label],
+                                  f"image256 {label}", rounds=1)
+        check(outs["encode_z"].shape == (IMAGE256_BATCH, 256 * 32)
+              and outs["decode"].shape == images.shape, "image256 shapes")
+        del srv
+        st = state.create_train_state(image256(vit_vae, dtype),
+                                      optimizer="adamw", lr=1e-4,
+                                      device=DEVICE)
+        history, ms, step_counts = train(
+            kmods, st, loop.make_cnn_train_step(st.model, st.optimizer),
+            per_step, 0, images, f"image256 {label}", must_fall=False)
+        first[label] = history[0]
+        path_counts[label] = (counts, step_counts)
+        emit("image256", compute_dtype=label, batch=IMAGE256_BATCH,
+             tokens=260, blocks=[6, 12], serve_launches=counts,
+             serve_ms={k: v[0] for k, v in lat.items()},
+             train_launches=step_counts, train_step_ms=ms[0],
+             losses=history[0],
+             params_m=sum(p.numel() for p in st.model.parameters()) / 1e6)
+        del st
+        torch.cuda.empty_cache()
+    rel = abs(first["bfloat16"]["total_loss"] - first["float32"][
+        "total_loss"]) / abs(first["float32"]["total_loss"])
+    emit("image256_check", bf16_vs_f32_loss_rel=rel, bars=TRAIN_BARS)
+    check(rel <= TRAIN_BARS["bf16_loss_rel"], f"image256: bfloat16 loss vs "
+                                              f"float32 {rel}")
+    return path_counts
+
+
+HEAD_STEPS = 3  # timed train steps of a head's path, after one warm-up
+HEADS = ("gaussian", "powerspherical")
+
+
+def cnn4096_head(conv_vae, dtype, head):
+    return conv_vae.CNNVAE(latent_dim=CNN_LATENT, in_channels=1, img_size=32,
+                           distribution=head, compute_dtype=dtype, seed=0)
+
+
+def flagship_head(vit_vae, dtype, head):
+    return vit_vae.CliffordARVAE(latent_dim=16, image_size=32, in_channels=1,
+                                 distribution=head, compute_dtype=dtype,
+                                 seed=0)
+
+
+def heads_phase(kmods, serving, conv_vae, vit_vae, state, loop, random,
+                images, gen):
+    """The gaussian and powerspherical heads of cnn4096 (no kernel of A-F
+    on the path; the float32 first step against the port's own step on the
+    CPU) and of flagship32 (attention kernels only: 4 / 4 / 8 per request,
+    12 + 12 per step)."""
+    nothing = {}
+    paths = {
+        "cnn4096": (lambda dt, h: cnn4096_head(conv_vae, dt, h),
+                    {"encode_mu": nothing, "encode_z": nothing,
+                     "decode": nothing}, nothing, CNN_LATENT, 1),
+        "flagship32": (lambda dt, h: flagship_head(vit_vae, dt, h),
+                       {"encode_mu": {"attention_fwd": 4},
+                        "encode_z": {"attention_fwd": 4},
+                        "decode": {"attention_fwd": 8}},
+                       {"attention_fwd": 12, "attention_bwd": 12}, 16, 64),
+    }
+    counts = {}
+    for path, (make, req_counts, per_step, d, tokens) in paths.items():
+        requests = {name: (FLAGSHIP_REQUESTS[name][0], req_counts[name])
+                    for name in ("encode_mu", "encode_z", "decode")}
+        for head in HEADS:
+            for label, dtype in (("float32", torch.float32),
+                                 ("bfloat16", torch.bfloat16)):
+                srv = serving.Serving(make(dtype, head), device=DEVICE)
+                outs, lat, served = serve(kmods, srv, images, requests,
+                                          f"{path} {head} {label}", rounds=1)
+                check(outs["encode_z"].shape == (BATCH, tokens * d)
+                      and outs["decode"].shape == images.shape,
+                      f"{path} {head} shapes")
+                del srv
+                st = state.create_train_state(make(dtype, head),
+                                              optimizer="adamw", lr=1e-4,
+                                              device=DEVICE)
+                history, ms, stepped = train(
+                    kmods, st, loop.make_cnn_train_step(st.model,
+                                                        st.optimizer),
+                    per_step, HEAD_STEPS, images, f"{path} {head} {label}",
+                    must_fall=False)
+                counts[path, head, label] = (served, stepped)
+                emit("heads", path=path, head=head, compute_dtype=label,
+                     batch=BATCH, serve_launches=served,
+                     serve_ms={k: v[0] for k, v in lat.items()},
+                     steps=HEAD_STEPS, train_launches=stepped,
+                     per_step_launches=per_step,
+                     median_ms_per_step=statistics.median(ms[1:]),
+                     min_ms_per_step=min(ms[1:]), first_ms=ms[0],
+                     first_losses=history[0], last_losses=history[-1])
+                del st
+                torch.cuda.empty_cache()
+    for head in HEADS:
+        # the float32 first step on the card against the port's own step on
+        # the CPU: same seeded weights, batch and key, same threefry words
+        losses, grads = first_step(conv_vae, cnn4096_head(
+            conv_vae, torch.float32, head), images)
+        cpu_losses, cpu_grads = first_step(
+            conv_vae, cnn4096_head(conv_vae, torch.float32, head),
+            images.cpu(), device=torch.device("cpu"))
+        # a KL against the uniform prior is -H[q] + H[uniform]: at d 4096
+        # the powerspherical entropies are about -1.1e4 and cancel to about
+        # 1e-3, which float32 resolves to about 1e-3 on either device, so
+        # that piece is held relative to the entropy it is made from
+        report = hold_step(losses, grads, cpu_losses, cpu_grads,
+                           f"cnn4096 {head} float32 step, card vs CPU",
+                           scales={"kld_loss": abs(cpu_losses["entropy"])})
+        bf16_losses, _ = first_step(conv_vae, cnn4096_head(
+            conv_vae, torch.bfloat16, head), images)
+        bf16_rel = abs(bf16_losses["total_loss"] - losses["total_loss"]) \
+            / abs(losses["total_loss"])
+        check(bf16_rel <= TRAIN_BARS["bf16_loss_rel"],
+              f"cnn4096 {head}: bfloat16 first loss vs float32 {bf16_rel}")
+        emit("heads_check", path="cnn4096", head=head, card_vs_cpu=report,
+             bf16_loss_rel=bf16_rel, bars=TRAIN_BARS)
+    # what the threefry normals cost: the powerspherical draw of cnn4096
+    # (64 rows of 4095 chi-square normals and the tangent direction)
+    key = (0, 7)
+    normal_ms = cuda_ms(lambda: random.normal(key, (BATCH, CNN_LATENT - 1),
+                                              device=DEVICE), reps=5)
+    uniform_ms = cuda_ms(lambda: random.uniform(key, (BATCH, CNN_LATENT - 1),
+                                                device=DEVICE), reps=5)
+    emit("threefry_cost", shape=[BATCH, CNN_LATENT - 1], normal_ms=normal_ms,
+         uniform_ms=uniform_ms)
+    return counts
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -721,6 +983,7 @@ def main() -> int:
         return 1
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    from cliffordtpu_torch import random as trandom
     from cliffordtpu_torch import serving
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
     from cliffordtpu_torch.nn import conv_vae, rope, vit_vae
@@ -883,10 +1146,27 @@ def main() -> int:
           "cnn4096 rng: one key gave two losses")
     check(other["total_loss"] != first["rng"]["total_loss"],
           "cnn4096 rng: another key gave the same loss")
+    del rng_model
+    torch.cuda.empty_cache()
+
+    attention_route(attention, rope, gen)
+    image_counts = image256_phase(kmods, serving, vit_vae, state, loop, gen)
+    head_counts = heads_phase(kmods, serving, conv_vae, vit_vae, state, loop,
+                              trandom, images, gen)
+    att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
+                                          260, 8, 64, torch.bfloat16, True,
+                                          gen)
+    emit("kernel", kernel="attention_fwd", **att["bf16_image256"])
 
     def launched(name, path, dtype=None):
         """Launches on a main path, serving plus training, in one compute
         dtype or in both."""
+        if path == "flagship32_heads":
+            return sum(c[name] for (p, _, label), pair in head_counts.items()
+                       if p == "flagship32" and dtype == label
+                       for c in pair)
+        if path == "image256":
+            return sum(c[name] for c in image_counts[dtype])
         served, stepped = ((runs, trained) if path == "flagship32"
                            else (cnn_runs, cnn_trained))
         return sum(c[name] for group in (served, stepped)
@@ -915,6 +1195,16 @@ def main() -> int:
               att_b["f32"], "float32"),
         entry("attention_bwd", "flagship32", att_b_src, att_b_tpu,
               att_b["bf16"], "bfloat16"),
+        entry("attention_fwd", "flagship32_heads", att_src, att_tpu,
+              att["f32"], "float32"),
+        entry("attention_fwd", "flagship32_heads", att_src, att_tpu,
+              att["bf16"], "bfloat16"),
+        entry("attention_bwd", "flagship32_heads", att_b_src, att_b_tpu,
+              att_b["f32"], "float32"),
+        entry("attention_bwd", "flagship32_heads", att_b_src, att_b_tpu,
+              att_b["bf16"], "bfloat16"),
+        entry("attention_fwd", "image256", att_src, att_tpu,
+              att["bf16_image256"], "bfloat16"),
         entry("torus_fwd", "cnn4096", "torus_fwd.cu", "torus_pallas.py:126",
               tor_f["cnn4096"]),
         entry("torus_bwd", "flagship32", "torus_bwd.cu",

@@ -2,15 +2,24 @@
 
 ``kl_divergence(q, p)`` dispatches on the (type(q), type(p)) pair; new
 pairs register with ``@register_kl``.  The pairs against a uniform prior
-have the form ``KL(q || uniform) = -H[q] + H[uniform]``.
+have the form ``KL(q || uniform) = -H[q] + H[uniform]``; the Gaussian pair
+is the closed form, elementwise.
 """
 
 from __future__ import annotations
 
 from cliffordtpu_torch.distributions.clifford_torus import (
     CliffordPowerSphericalDistribution,
+    CliffordTorusDistribution,
 )
-from cliffordtpu_torch.distributions.uniforms import CliffordTorusUniform
+from cliffordtpu_torch.distributions.normal import Normal, kl_normal_normal
+from cliffordtpu_torch.distributions.power_spherical import PowerSpherical
+from cliffordtpu_torch.distributions.uniforms import (
+    CliffordTorusUniform,
+    HypersphericalUniform,
+    VMFHypersphericalUniform,
+)
+from cliffordtpu_torch.distributions.von_mises_fisher import VonMisesFisher
 
 _KL_REGISTRY = {}
 
@@ -31,6 +40,13 @@ def kl_divergence(q, p):
     return fn(q, p)
 
 
-@register_kl(CliffordPowerSphericalDistribution, CliffordTorusUniform)
 def _neg_entropy_plus_uniform(q, p):
     return -q.entropy() + p.entropy()
+
+
+for _pair in ((CliffordPowerSphericalDistribution, CliffordTorusUniform),
+              (CliffordTorusDistribution, CliffordTorusUniform),
+              (PowerSpherical, HypersphericalUniform),
+              (VonMisesFisher, VMFHypersphericalUniform)):
+    register_kl(*_pair)(_neg_entropy_plus_uniform)
+register_kl(Normal, Normal)(kl_normal_normal)

@@ -2,12 +2,25 @@
 ``cliffordtpu/kernels/attention_pallas.py::fused_attention`` and of its
 custom VJP (``_attn_bwd``).
 
-``fused_attention`` launches ``csrc/attention_fwd.cu`` for CUDA tensors and
-runs ``attention_plain`` for CPU tensors; any other device raises.  When an
-input needs a gradient, the CUDA path is a ``torch.autograd.Function``
-whose backward launches ``csrc/attention_bwd.cu``; on the CPU autograd
-differentiates ``attention_plain``.  There is no fallback from a kernel to
-its plain version on the card.
+``fused_attention`` runs ``attention_plain`` for CPU tensors; any device
+other than CUDA or the CPU raises.  For CUDA tensors it takes one of two
+routes, chosen before anything runs from the shape, the dtype and whether
+a gradient is needed (``kernel_fits``):
+
+* the kernels: ``csrc/attention_fwd.cu``, and under autograd a
+  ``torch.autograd.Function`` whose backward launches
+  ``csrc/attention_bwd.cu``;
+* the dense route, ``attention_dense``, for the shapes no kernel form can
+  hold (a head_dim outside the forms, or a sequence whose blocks exceed
+  the shared memory, such as S 260 at ``default_config(256)``): the
+  rotation, then ``scaled_dot_product_attention``, differentiated by
+  autograd.  It is the counterpart of the JAX package's XLA branch
+  (``cliffordtpu/nn/vit_vae.py::Attention``), which takes every shape
+  outside ``attention_supported``; it is not a port of either kernel.
+
+The route is a property of the shape, not a fallback: a kernel that fails
+on a shape ``kernel_fits`` accepts raises, and under autograd one route
+serves both directions.  ``dense_calls`` counts the dense route.
 
 Each kernel has one form per dtype (``fwd_form``, ``bwd_form``): bfloat16
 runs on the tensor cores (``mma.sync``, head_dim 16, 32, 64 or 128),
@@ -22,6 +35,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from cliffordtpu_torch.kernels import build
 from cliffordtpu_torch.nn.rope import apply_rotary_half
@@ -29,6 +43,7 @@ from cliffordtpu_torch.nn.rope import apply_rotary_half
 # kernel launches since the counts were last set to 0
 launches = 0  # forward kernel
 bwd_launches = 0  # backward kernel
+dense_calls = 0  # fused_attention calls on CUDA that took attention_dense
 
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
 _SYMBOLS = {torch.float32: "attention_fwd_f32",
@@ -132,7 +147,33 @@ def _kernel(dtype):
     return fn
 
 
-def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
+def _kernel_problem(S: int, hd: int, dtype, fwd: bool, bwd: bool
+                    ) -> Optional[str]:
+    """Why no kernel form holds this shape, or None when they do."""
+    if dtype == torch.bfloat16 and hd not in (16, 32, 64, 128):
+        return (f"the bfloat16 (mma) kernels take head_dim 16, 32, 64 or "
+                f"128, got {hd}")
+    if dtype == torch.float32 and hd % 8:
+        return (f"the float32 (simt) kernels take head_dim a multiple of 8, "
+                f"got {hd}")
+    if fwd and smem_bytes(S, hd, dtype) > _SMEM_MAX:
+        return (f"S={S}, hd={hd} needs {smem_bytes(S, hd, dtype)} bytes of "
+                f"shared memory, above {_SMEM_MAX}")
+    if bwd and bwd_smem_bytes(S, hd, dtype) > _SMEM_MAX:
+        return (f"S={S}, hd={hd} needs {bwd_smem_bytes(S, hd, dtype)} bytes "
+                f"of shared memory for the {bwd_form(dtype)} backward, above "
+                f"{_SMEM_MAX}")
+    return None
+
+
+def kernel_fits(S: int, hd: int, dtype, backward: bool) -> bool:
+    """Whether the forward kernel, and with ``backward`` also the backward
+    kernel, hold a sequence of S tokens with heads of hd in ``dtype``."""
+    return _kernel_problem(S, hd, dtype, True, backward) is None
+
+
+def _check_inputs(q, k, v, cos, sin):
+    """The input errors, whatever the route."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(
             f"q, k, v must share one (B, S, H, hd) shape, got "
@@ -144,24 +185,9 @@ def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
         raise ValueError("q, k, v must lie on one device")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous")
-    B, S, H, hd = q.shape
+    S, hd = q.shape[1], q.shape[3]
     if hd % 2 or hd < 2:
         raise ValueError(f"head_dim must be even, got {hd}")
-    if q.dtype == torch.bfloat16 and hd not in (16, 32, 64, 128):
-        raise ValueError(f"the bfloat16 (mma) kernels take head_dim 16, "
-                         f"32, 64 or 128, got {hd}")
-    if q.dtype == torch.float32 and hd % 8:
-        raise ValueError(f"the float32 (simt) kernels take head_dim a "
-                         f"multiple of 8, got {hd}")
-    if fwd and smem_bytes(S, hd, q.dtype) > _SMEM_MAX:
-        raise ValueError(f"S={S}, hd={hd} needs "
-                         f"{smem_bytes(S, hd, q.dtype)} bytes of shared "
-                         f"memory, above {_SMEM_MAX}")
-    if bwd and bwd_smem_bytes(S, hd, q.dtype) > _SMEM_MAX:
-        raise ValueError(f"S={S}, hd={hd} needs "
-                         f"{bwd_smem_bytes(S, hd, q.dtype)} bytes of shared "
-                         f"memory for the {bwd_form(q.dtype)} backward, above "
-                         f"{_SMEM_MAX}")
     if (cos is None) != (sin is None):
         raise ValueError("pass both cos and sin, or neither")
     if cos is not None:
@@ -171,6 +197,15 @@ def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
                 raise ValueError(
                     f"cos/sin must be float32 (S' >= {S}, {hd // 2}) on "
                     f"{q.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _check(q, k, v, cos, sin, fwd: bool = True, bwd: bool = False):
+    """The input errors, then the kernels' own rules: a shape the kernels
+    cannot hold raises here."""
+    _check_inputs(q, k, v, cos, sin)
+    problem = _kernel_problem(q.shape[1], q.shape[3], q.dtype, fwd, bwd)
+    if problem:
+        raise ValueError(problem)
 
 
 def _check_aligned(*tensors):
@@ -254,21 +289,47 @@ def fused_attention_bwd(q, k, v, cos: Optional[torch.Tensor],
     return _launch_bwd(q, k, v, cos, sin, d_out.contiguous())
 
 
+def attention_dense(q, k, v, cos: Optional[torch.Tensor] = None,
+                    sin: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense route: ``apply_rotary_half`` on q and k, then
+    ``scaled_dot_product_attention`` in (B, H, S, hd) layout, in q's dtype,
+    as the JAX package's XLA branch rotates and then calls
+    ``jax.nn.dot_product_attention``.  Differentiable by autograd."""
+    if cos is not None:
+        q = apply_rotary_half(q, cos, sin)
+        k = apply_rotary_half(k, cos, sin)
+    out = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return out.transpose(1, 2)
+
+
 def fused_attention(q, k, v, cos: Optional[torch.Tensor] = None,
                     sin: Optional[torch.Tensor] = None) -> torch.Tensor:
     """softmax(rot(q) rot(k)^T / sqrt(hd)) v for q, k, v (B, S, H, hd) in
     float32 or bfloat16 and cos, sin (S' >= S, hd/2) float32, or None for
     no rotation.  Returns (B, S, H, hd) in q's dtype.  Differentiable in
-    q, k and v."""
+    q, k and v.  On CUDA, the kernels where ``kernel_fits``, else
+    ``attention_dense`` (see the module docstring)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, cos, sin)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    return _routed(q, k, v, cos, sin)
+
+
+def _routed(q, k, v, cos, sin) -> torch.Tensor:
+    """``fused_attention`` for CUDA tensors: the route is chosen from the
+    shape, the dtype and whether a gradient is needed, before anything
+    runs; under autograd it serves both directions."""
+    global dense_calls
+    _check_inputs(q, k, v, cos, sin)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
-    _check(q, k, v, cos, sin, bwd=needs_grad)
     S = q.shape[1]
+    if not kernel_fits(S, q.shape[3], q.dtype, backward=needs_grad):
+        dense_calls += 1
+        return attention_dense(q, k, v, cos, sin)
     if cos is not None:
         cos, sin = cos[:S].contiguous(), sin[:S].contiguous()
     if needs_grad:

@@ -15,13 +15,16 @@ and the decoder's Dense run in it; the encoder's heads, the sampler, the
 loss and the decoder's last transposed convolution with its tanh are
 float32.  Parameters are float32 throughout (``nn/layers.py``).
 
-Only the clifford latent is ported; the gaussian and powerspherical heads
-raise.
+The heads of the three latents the JAX model has: clifford (mean angles
+and one concentration; the decoder reads the 2d-wide torus point),
+gaussian (mean and log-variance) and powerspherical (a unit mean and one
+concentration); the last two decode a d-wide latent.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,7 +32,10 @@ from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
 from cliffordtpu_torch.nn.layers import Conv, ConvT, Linear
+from cliffordtpu_torch.nn.mlp_vae import l2_normalize
 from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
+
+HEADS = ("clifford", "gaussian", "powerspherical")
 
 
 def clifford_concentration_floor(latent_dim: int) -> float:
@@ -78,25 +84,37 @@ class ResUpBlock(nn.Module):
         return h + F.interpolate(skip, scale_factor=2, mode="nearest")
 
 
+def _check_head(distribution: str):
+    if distribution not in HEADS:
+        raise ValueError(f"distribution must be one of {HEADS}, got "
+                         f"{distribution!r}")
+
+
 class Encoder(nn.Module):
-    """Image (B, H, W, C) -> (mu (B, d), kappa (B, 1)), kappa =
-    clip(softplus(.) + floor, <= 10).  The heads are float32."""
+    """Image (B, H, W, C) -> the heads, float32: clifford (mu (B, d),
+    kappa (B, 1) = clip(softplus(.) + floor, <= 10)); gaussian (mu,
+    l2-normalised with ``l2_normalize``, and log_var (B, d));
+    powerspherical (unit mu, kappa = clip(softplus(.) + 0.5, <= 10))."""
 
     def __init__(self, latent_dim: int, in_channels: int,
                  distribution: str = "clifford",
                  concentration_floor: float = 0.1, img_size: int = 32,
-                 dtype=torch.float32):
+                 dtype=torch.float32, l2_normalize: bool = False):
         super().__init__()
-        if distribution != "clifford":
-            raise NotImplementedError(
-                f"only the clifford latent is ported, not {distribution!r}")
+        _check_head(distribution)
         chs = ([64, 128, 256, 512, 512] if img_size == 64
                else [64, 128, 256, 512])
+        self.distribution = distribution
+        self.l2_normalize = l2_normalize
         self.concentration_floor = concentration_floor
         self.blocks = nn.ModuleList(
             ResBlock(a, b, dtype) for a, b in zip([in_channels] + chs, chs))
         self.mu = Linear(512 * 2 * 2, latent_dim, torch.float32, bias=True)
-        self.kappa = Linear(512 * 2 * 2, 1, torch.float32, bias=True)
+        if distribution == "gaussian":
+            self.log_var = Linear(512 * 2 * 2, latent_dim, torch.float32,
+                                  bias=True)
+        else:
+            self.kappa = Linear(512 * 2 * 2, 1, torch.float32, bias=True)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)
@@ -104,14 +122,22 @@ class Encoder(nn.Module):
             x = block(x)
         # the JAX module flattens its NHWC map: (h, w, c) order
         x = x.float().permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        mu = self.mu(x)
+        if self.distribution == "gaussian":
+            if self.l2_normalize:
+                mu = l2_normalize(mu)
+            return mu, self.log_var(x)
+        if self.distribution == "powerspherical":
+            return l2_normalize(mu), torch.clamp(
+                F.softplus(self.kappa(x)) + 0.5, max=10.0)
         kappa = torch.clamp(
             F.softplus(self.kappa(x)) + self.concentration_floor, max=10.0)
-        return self.mu(x), kappa
+        return mu, kappa
 
 
 class Decoder(nn.Module):
-    """Latent (B, 2d) -> image (B, H, W, C) in (-1, 1).  The last transposed
-    convolution and the tanh are float32."""
+    """Latent (B, z_dim) -> image (B, H, W, C) in (-1, 1).  The last
+    transposed convolution and the tanh are float32."""
 
     def __init__(self, z_dim: int, out_channels: int, img_size: int = 32,
                  dtype=torch.float32):
@@ -152,24 +178,25 @@ def reset_parameters(module: nn.Module, seed: int):
 
 
 class CNNVAE(nn.Module):
-    """ResNet CNN VAE with one Clifford-torus latent per image: ``forward``
+    """ResNet CNN VAE with one latent per image (``HEADS``): ``forward``
     (the training path), ``encode`` / ``encode_heads``, ``reparam``,
     ``decode``, ``get_flat_latent``, ``loss_sigmas``.
 
-    ``sampler`` is the route of the reparameterised draw
-    (``distributions/clifford_torus.py::SAMPLERS``).  ``seed`` makes the
-    random initialisation reproducible; weights carried from JAX replace
-    it (``nn/param_import.py::cnnvae_from_jax``)."""
+    ``sampler`` is the route of a clifford draw
+    (``distributions/clifford_torus.py::SAMPLERS``, default "keyed"); the
+    other latents have one route and refuse a ``sampler``.  With
+    ``l2_normalize`` a gaussian model normalises its mean and its draw.
+    ``seed`` makes the random initialisation reproducible; weights
+    carried from JAX replace it (``nn/param_import.py::cnnvae_from_jax``)."""
 
     def __init__(self, latent_dim: int, in_channels: int,
                  distribution: str = "clifford", recon_loss_type: str = "l1",
                  l1_weight: float = 1.0, img_size: int = 32,
-                 use_learnable_beta: bool = False, sampler: str = "keyed",
+                 use_learnable_beta: bool = False,
+                 sampler: Optional[str] = None, l2_normalize: bool = False,
                  compute_dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if distribution != "clifford":
-            raise NotImplementedError(
-                f"only the clifford latent is ported, not {distribution!r}")
+        _check_head(distribution)
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
@@ -181,19 +208,23 @@ class CNNVAE(nn.Module):
         self.img_size = img_size
         self.use_learnable_beta = use_learnable_beta
         self.sampler = sampler
+        self.l2_normalize = l2_normalize
         self.compute_dtype = compute_dtype
         self.floor = clifford_concentration_floor(latent_dim)
         self.encoder = Encoder(latent_dim, in_channels, distribution,
-                               self.floor, img_size, compute_dtype)
-        self.decoder = Decoder(2 * latent_dim, in_channels, img_size,
-                               compute_dtype)
+                               self.floor, img_size, compute_dtype,
+                               l2_normalize)
+        self.decoder = Decoder(
+            2 * latent_dim if distribution == "clifford" else latent_dim,
+            in_channels, img_size, compute_dtype)
         if use_learnable_beta:
             self.log_sigma_0 = nn.Parameter(torch.zeros(1))
             self.log_sigma_1 = nn.Parameter(torch.zeros(1))
         reset_parameters(self, seed)
 
     def encode(self, x):
-        """Image (B, H, W, C) -> (mu (B, d), kappa (B, 1))."""
+        """Image (B, H, W, C) -> the heads: (mu (B, d), kappa (B, 1)) or,
+        gaussian, (mu, log_var (B, d))."""
         return self.encoder(x)
 
     encode_heads = encode
@@ -201,26 +232,29 @@ class CNNVAE(nn.Module):
     def decode(self, z):
         return self.decoder(z)
 
-    def reparam(self, mu, kappa, key, sampler=None):
-        """(z, q_z, p_z): the torus latent z (B, 2d) drawn with the sampling
-        ``key`` (two uint32 words), the posterior and the prior.  kappa
-        (B, 1) is broadcast over the d circles without a copy."""
-        q_z, p_z = reparameterize(self.distribution, mu,
-                                  kappa.expand(mu.shape), self.latent_dim)
-        return (sample_latent(key, self.distribution, q_z,
+    def reparam(self, mu, params, key, sampler=None):
+        """(z, q_z, p_z): the latent z drawn with the sampling ``key`` (two
+        uint32 words), the posterior and the prior.  Clifford: the torus
+        point (B, 2d), kappa (B, 1) broadcast over the d circles without a
+        copy; otherwise z (B, d)."""
+        if self.distribution == "clifford":
+            params = params.expand(mu.shape)
+        q_z, p_z = reparameterize(self.distribution, mu, params,
+                                  self.latent_dim)
+        return (sample_latent(key, self.distribution, q_z, self.l2_normalize,
                               sampler or self.sampler), q_z, p_z)
 
     def forward(self, x, key):
         """Image (B, H, W, C) and the sampling ``key`` ->
         (x_recon, q_z, p_z, mu)."""
-        mu, kappa = self.encoder(x)
-        z, q_z, p_z = self.reparam(mu, kappa, key)
+        mu, params = self.encoder(x)
+        z, q_z, p_z = self.reparam(mu, params, key)
         return self.decoder(z), q_z, p_z, mu
 
     def get_flat_latent(self, x, key, sampler=None):
-        """(B, 2d) sampled latents."""
-        mu, kappa = self.encoder(x)
-        return self.reparam(mu, kappa, key, sampler)[0]
+        """(B, 2d) or (B, d) sampled latents."""
+        mu, params = self.encoder(x)
+        return self.reparam(mu, params, key, sampler)[0]
 
     def loss_sigmas(self):
         """(sigma_0, sigma_1), each (1,), of the learnable-beta loss, or
@@ -238,12 +272,11 @@ def cnn_vae_loss(x, x_recon, q_z, p_z, distribution, beta=1.0,
     the total is the learnable-beta form recon / sigma_0^2 + KL / sigma_1^2
     + sigma_0^2 + sigma_1^2 and ``beta`` is not used.  Returns a dict of
     scalar tensors: total_loss, recon_loss, kld_loss, entropy,
-    effective_beta, and sigma_0, sigma_1 when they are given."""
-    if distribution != "clifford":
-        raise NotImplementedError(
-            f"only the clifford latent is ported, not {distribution!r}")
+    effective_beta, and sigma_0, sigma_1 when they are given.  The
+    gaussian KL is summed over the latent dims before the mean."""
     B = x.shape[0]
-    kld = kl_divergence(q_z, p_z).mean()
+    kl = kl_divergence(q_z, p_z)
+    kld = kl.sum(-1).mean() if distribution == "gaussian" else kl.mean()
     if recon_loss_type == "mse":
         recon_loss = ((x_recon - x) ** 2).sum() / B
     elif recon_loss_type == "l1":

@@ -17,7 +17,11 @@ writes to ``params.npz`` (keys like
 The ``CNNVAE`` modules flatten and unflatten their 2 x 2 x 512 feature map
 in JAX's NHWC order (``nn/conv_vae.py``), so the encoder's heads and the
 decoder's first Dense are plain Dense kernels here, with no permutation of
-their rows or columns.
+their rows or columns.  The encoder's second head, ``encoder/Dense_1``, is
+``log_var`` (width d) for the gaussian latent and ``kappa`` (width 1) for
+the others; the widths of ``quant_proj``, ``post_quant_proj`` and the
+decoder's first Dense follow the latent and are checked when the state
+dict is loaded.
 
 Every rule is a transpose, a flip or the identity, so it is linear and
 maps ``jax.grad``'s tree onto the gradients of the port's parameters as it
@@ -175,7 +179,8 @@ def res_block_rules(flat, jax_prefix: str, up: bool) -> List[Rule]:
     return rules
 
 
-def cnnvae_rules(flat) -> List[Rule]:
+def cnnvae_rules(flat, distribution: str = "clifford") -> List[Rule]:
+    second_head = "log_var" if distribution == "gaussian" else "kappa"
     n_down = _count(flat, "encoder/ResBlock")
     n_up = _count(flat, "decoder/ResUpBlock")
     return [
@@ -183,7 +188,7 @@ def cnnvae_rules(flat) -> List[Rule]:
             res_block_rules(flat, f"encoder/ResBlock_{i}", up=False),
             f"encoder.blocks.{i}", f"encoder/ResBlock_{i}")],
         *_bias("encoder.mu", "encoder/Dense_0", _dense),
-        *_bias("encoder.kappa", "encoder/Dense_1", _dense),
+        *_bias(f"encoder.{second_head}", "encoder/Dense_1", _dense),
         *_bias("decoder.fc", "decoder/Dense_0", _dense),
         *[r for i in range(n_up) for r in _nest(
             res_block_rules(flat, f"decoder/ResUpBlock_{i}", up=True),
@@ -213,16 +218,20 @@ def cliffordar_from_jax(flat: Dict[str, np.ndarray]
     return convert(flat, cliffordar_rules(flat))
 
 
-def cnnvae_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """JAX ``CNNVAE`` params (flat ``params.npz`` keys, clifford latent) ->
-    a state dict for ``cliffordtpu_torch.nn.conv_vae.CNNVAE``; a flat JAX
-    gradient tree -> the gradients of the port's parameters, by name."""
-    return convert(flat, cnnvae_rules(flat))
+def cnnvae_from_jax(flat: Dict[str, np.ndarray],
+                    distribution: str = "clifford"
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``CNNVAE`` params (flat ``params.npz`` keys) of a model with the
+    ``distribution`` latent -> a state dict for
+    ``cliffordtpu_torch.nn.conv_vae.CNNVAE``; a flat JAX gradient tree ->
+    the gradients of the port's parameters, by name."""
+    return convert(flat, cnnvae_rules(flat, distribution))
 
 
-def from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+def from_jax(flat: Dict[str, np.ndarray], distribution: str = "clifford"
+             ) -> Dict[str, torch.Tensor]:
     """``cnnvae_from_jax`` or ``cliffordar_from_jax``, by the tree's own
     keys."""
     if any(k.startswith("encoder/") for k in flat):
-        return cnnvae_from_jax(flat)
+        return cnnvae_from_jax(flat, distribution)
     return cliffordar_from_jax(flat)

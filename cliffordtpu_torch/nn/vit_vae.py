@@ -12,11 +12,17 @@ projections cast their input and their weight to ``compute_dtype``
 (float32 or bfloat16) where they use them.  Norms, the register tokens,
 the encoder head, ``quant_proj``, ``post_quant_proj``, the decoder's first
 and last convolutions and the distribution math run in float32.  The
-attention core of every block is the fused RoPE + attention kernel
-(``kernels/attention.py``), forward and backward.
+attention core of every block is ``kernels/attention.py::fused_attention``:
+the fused RoPE + attention kernels, forward and backward, where they hold
+the shape, and the dense route where they cannot (S 260 at image 256 in
+float32 and under autograd), as the JAX module leaves such shapes to XLA.
 
-Not ported yet: ``fused_proj``, ``scan_layers`` and the Gaussian and
-PowerSpherical heads.
+The per-token heads: clifford (mean angles and a concentration, the
+decoder reads 2d-wide torus points), gaussian (mean and log-variance from
+a 2d-wide ``quant_proj``) and powerspherical (a unit mean and a
+concentration; the draw is scaled by sqrt(d)).
+
+Not ported yet: ``fused_proj`` and ``scan_layers``.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
 from cliffordtpu_torch.kernels import attention as attention_kernel
-from cliffordtpu_torch.nn.conv_vae import reset_parameters
+from cliffordtpu_torch.nn.conv_vae import HEADS, reset_parameters
 from cliffordtpu_torch.nn.layers import Conv as _Conv
 from cliffordtpu_torch.nn.layers import ConvT as _ConvT
 from cliffordtpu_torch.nn.layers import Linear as _Linear
@@ -41,7 +47,7 @@ from cliffordtpu_torch.nn.rope import apply_rotary_half, rope_2d_cos_sin
 __all__ = [
     "rope_2d_cos_sin", "apply_rotary_half", "RMSNorm", "GroupNorm",
     "SwiGLU", "Attention", "TransformerBlock", "ResDownBlock", "ResUpBlock",
-    "ViTEncoder", "ViTDecoder", "default_config", "CliffordARVAE",
+    "ViTEncoder", "ViTDecoder", "default_config", "CliffordARVAE", "HEADS",
 ]
 
 
@@ -88,7 +94,8 @@ class SwiGLU(nn.Module):
 
 class Attention(nn.Module):
     """Non-causal multi-head attention with 2-D RoPE.  The projections are
-    plain matrix products; the core is the fused kernel."""
+    plain matrix products; the core is ``fused_attention``, which takes
+    the kernels or the dense route by shape."""
 
     def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
         super().__init__()
@@ -273,12 +280,14 @@ def default_config(image_size: int) -> dict:
 
 
 class CliffordARVAE(nn.Module):
-    """Hybrid CNN+ViT S-VAE with per-token Clifford-torus latents:
-    ``forward`` (the training path), ``encode``, ``encode_heads``,
-    ``reparam``, ``decode``, ``get_flat_latent``, ``loss_sigmas``.
+    """Hybrid CNN+ViT S-VAE with per-token latents (``HEADS``): ``forward``
+    (the training path), ``encode``, ``encode_heads``, ``reparam``,
+    ``decode``, ``get_flat_latent``, ``loss_sigmas``.
 
-    ``sampler`` is the route of the reparameterised draw
-    (``distributions/clifford_torus.py::SAMPLERS``).  ``seed`` makes the
+    ``sampler`` is the route of a clifford draw
+    (``distributions/clifford_torus.py::SAMPLERS``, default "keyed"); the
+    other latents have one route and refuse a ``sampler``.  With
+    ``l2_normalize`` a gaussian draw is normalised.  ``seed`` makes the
     random initialisation (xavier-uniform weights, unit-normal register
     tokens, zero biases) reproducible; weights carried from JAX replace it
     (``nn/param_import.py``)."""
@@ -292,12 +301,13 @@ class CliffordARVAE(nn.Module):
                  encoder_vit_layers: Optional[int] = None,
                  decoder_vit_layers: Optional[int] = None,
                  patch_size: Optional[int] = None, register_tokens: int = 4,
-                 concentration_floor: float = 0.03, sampler: str = "keyed",
+                 concentration_floor: float = 0.03,
+                 sampler: Optional[str] = None, l2_normalize: bool = False,
                  compute_dtype: torch.dtype = torch.float32, seed: int = 0):
         super().__init__()
-        if distribution != "clifford":
-            raise NotImplementedError(
-                f"only the clifford latent is ported, not {distribution!r}")
+        if distribution not in HEADS:
+            raise ValueError(f"distribution must be one of {HEADS}, got "
+                             f"{distribution!r}")
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, "
                              f"got {compute_dtype}")
@@ -315,6 +325,7 @@ class CliffordARVAE(nn.Module):
         self.use_learnable_beta = use_learnable_beta
         self.concentration_floor = concentration_floor
         self.sampler = sampler
+        self.l2_normalize = l2_normalize
         self.compute_dtype = compute_dtype
         grid = image_size // (2 ** (len(cnn_chs) - 1))
         self.num_tokens = grid * grid
@@ -322,9 +333,13 @@ class CliffordARVAE(nn.Module):
             encoder_vit_layers or cfg["encoder_vit_layers"], n_heads, zc,
             cnn_chs, image_size, patch_size, in_channels, register_tokens,
             compute_dtype)
-        self.quant_proj = _Linear(zc, latent_dim + 1, torch.float32,
-                                  bias=True)
-        self.post_quant_proj = _Linear(2 * latent_dim, zc, torch.float32)
+        self.quant_proj = _Linear(
+            zc, 2 * latent_dim if distribution == "gaussian"
+            else latent_dim + 1, torch.float32, bias=True)
+        self.dec_latent_dim = (2 * latent_dim if distribution == "clifford"
+                               else latent_dim)
+        self.post_quant_proj = _Linear(self.dec_latent_dim, zc,
+                                       torch.float32)
         self.decoder_vit = ViTDecoder(
             decoder_vit_layers or cfg["decoder_vit_layers"], n_heads, zc,
             cnn_chs[::-1], in_channels, image_size, patch_size,
@@ -335,47 +350,63 @@ class CliffordARVAE(nn.Module):
         reset_parameters(self, seed)
 
     def encode_heads(self, x):
-        """Image (B, H, W, C) -> per-token (mu (B, T, d), kappa (B, T)),
-        kappa = clip(softplus(.) + floor, <= 10)."""
+        """Image (B, H, W, C) -> per-token heads: clifford (mu (B, T, d),
+        kappa (B, T) = clip(softplus(.) + floor, <= 10)); gaussian (mu,
+        log_var (B, T, d)); powerspherical (unit mu, kappa =
+        clip(softplus(.) + 0.8, <= 10))."""
         proj = self.quant_proj(self.encoder_vit(x))
+        if self.distribution == "gaussian":
+            return proj[..., :self.latent_dim], proj[..., self.latent_dim:]
         mu, kappa = proj[..., :-1], proj[..., -1]
+        if self.distribution == "powerspherical":
+            return l2_normalize(mu), torch.clamp(F.softplus(kappa) + 0.8,
+                                                 max=10.0)
         kappa = torch.clamp(F.softplus(kappa) + self.concentration_floor,
                             max=10.0)
         return mu, kappa
 
-    def reparam(self, mu, kappa, key, sampler=None):
-        """(z, q_z, p_z): per-token torus latents z (B, T, 2d) drawn with
-        the sampling ``key`` (two uint32 words), the posterior and the
-        prior."""
-        q_z, p_z = reparameterize(self.distribution, mu,
-                                  kappa[..., None].expand(mu.shape),
+    def reparam(self, mu, params, key, sampler=None):
+        """(z, q_z, p_z): per-token latents drawn with the sampling ``key``
+        (two uint32 words), the posterior and the prior.  Clifford: torus
+        points (B, T, 2d); powerspherical: (B, T, d) scaled by sqrt(d);
+        gaussian: (B, T, d)."""
+        if self.distribution == "clifford":
+            params = params[..., None].expand(mu.shape)
+        q_z, p_z = reparameterize(self.distribution, mu, params,
                                   self.latent_dim)
-        return (sample_latent(key, self.distribution, q_z,
-                              sampler or self.sampler), q_z, p_z)
+        z = sample_latent(key, self.distribution, q_z, self.l2_normalize,
+                          sampler or self.sampler)
+        if self.distribution == "powerspherical":
+            z = z * (self.latent_dim ** 0.5)
+        return z, q_z, p_z
 
     def decode(self, z):
-        """(B, T, 2d) or flat (B, T*2d) latents -> image (B, H, W, C)."""
+        """(B, T, k) or flat (B, T*k) latents -> image (B, H, W, C), k =
+        ``dec_latent_dim`` (2d for clifford, d otherwise)."""
         if z.dim() == 2:
-            z = z.reshape(z.shape[0], self.num_tokens, 2 * self.latent_dim)
+            z = z.reshape(z.shape[0], self.num_tokens, self.dec_latent_dim)
         return self.decoder_vit(self.post_quant_proj(z))
 
     def forward(self, x, key):
         """Image (B, H, W, C) and the sampling ``key`` ->
         (x_recon, q_z, p_z, mu)."""
-        mu, kappa = self.encode_heads(x)
-        z, q_z, p_z = self.reparam(mu, kappa, key)
+        mu, params = self.encode_heads(x)
+        z, q_z, p_z = self.reparam(mu, params, key)
         return self.decode(z), q_z, p_z, mu
 
     def encode(self, x, key):
-        """(z, kl_loss): sampled latents and the mean KL(q_z || p_z)."""
-        mu, kappa = self.encode_heads(x)
-        z, q_z, p_z = self.reparam(mu, kappa, key)
-        return z, kl_divergence(q_z, p_z).mean()
+        """(z, kl_loss): sampled latents and the mean KL(q_z || p_z), the
+        gaussian one summed over the latent dims first."""
+        mu, params = self.encode_heads(x)
+        z, q_z, p_z = self.reparam(mu, params, key)
+        kl = kl_divergence(q_z, p_z)
+        return z, (kl.sum(-1) if self.distribution == "gaussian"
+                   else kl).mean()
 
     def get_flat_latent(self, x, key, sampler=None):
-        """(B, num_tokens * 2d) sampled latents."""
-        mu, kappa = self.encode_heads(x)
-        z, _, _ = self.reparam(mu, kappa, key, sampler)
+        """(B, num_tokens * k) sampled latents."""
+        mu, params = self.encode_heads(x)
+        z, _, _ = self.reparam(mu, params, key, sampler)
         return z.reshape(z.shape[0], -1)
 
     def loss_sigmas(self):

@@ -9,13 +9,17 @@ with n = 2d, C[k, j] = (2/n) cos(2 pi k j / n), S[k, j] = -(2/n)
 sin(2 pi k j / n) and c_j = (1 + (-1)^j) / n.  Angle index 0 is pinned to
 phase 0: only the d-1 angles 1..d-1 enter.
 
-``angles_to_torus`` is two matrix products against the materialised bases
-(``angles_to_torus_matmul``), except for CUDA tensors with
-``KERNEL_MIN_DIM <= d <= MATMUL_MAX_DIM``, where the bases would be 2 x
-134 MB at d = 4096: those go through the hand-written embedding kernel and
-its backward kernel (``kernels/torus.py::torus_embed``), as the JAX
-package routes the same range to its fused TPU kernel.  The fused sampler
-kernels (``kernels/sampler.py``) build the same basis in their own bodies.
+``angles_to_torus`` (``method="auto"``) is two matrix products against the
+materialised bases (``angles_to_torus_matmul``) up to ``MATMUL_MAX_DIM``,
+except for CUDA tensors with ``KERNEL_MIN_DIM <= d <= MATMUL_MAX_DIM``,
+where the bases would be 2 x 134 MB at d = 4096: those go through the
+hand-written embedding kernel and its backward kernel
+(``kernels/torus.py::torus_embed``), as the JAX package routes the same
+range to its fused TPU kernel.  Above ``MATMUL_MAX_DIM`` both directions
+are a ``torch.fft`` transform of the Hermitian spectrum, as the JAX
+package computes them with ``jnp.fft`` in XLA; ``method="matmul"`` or
+``"fft"`` takes one form at any d.  The fused sampler kernels
+(``kernels/sampler.py``) build the same basis in their own bodies.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import functools
 import numpy as np
 import torch
 
-# above this latent dim the reference switches to an FFT; not ported
+# above this latent dim "auto" takes the FFT form (the basis pair passes
+# 268 MB at d = 4096)
 MATMUL_MAX_DIM = 4096
 # from this latent dim up to MATMUL_MAX_DIM a CUDA tensor is embedded by
 # the hand-written kernel (the JAX package's PALLAS_MIN_DIM)
@@ -90,18 +95,18 @@ def _fft_bases(d: int, device):
     return tuple(torch.from_numpy(b).to(device) for b in _fft_bases_host(d))
 
 
-def _check_dim(d: int):
-    if not 2 <= d <= MATMUL_MAX_DIM:
-        raise ValueError(
-            f"latent dim {d} outside [2, {MATMUL_MAX_DIM}]; the FFT path "
-            "for larger dims is not ported")
+METHODS = ("auto", "matmul", "fft")
+
+
+def _check_method(method: str):
+    if method not in METHODS:
+        raise ValueError(f"method must be one of {METHODS}, got {method!r}")
 
 
 def angles_to_torus_matmul(angles: torch.Tensor) -> torch.Tensor:
     """Embed d angles (..., d) onto the Clifford torus in R^{2d} as two
     matrix products against the bases, on any device."""
     d = angles.shape[-1]
-    _check_dim(d)
     cos_b, sin_b, const = (b.to(angles.dtype)
                            for b in torus_bases(d, angles.device))
     th = angles[..., 1:]
@@ -114,13 +119,32 @@ def uses_kernel(device_type: str, d: int) -> bool:
     return device_type == "cuda" and KERNEL_MIN_DIM <= d <= MATMUL_MAX_DIM
 
 
-def angles_to_torus(angles: torch.Tensor) -> torch.Tensor:
-    """Embed d angles (..., d) onto the Clifford torus in R^{2d}: through
-    the embedding kernel for a CUDA tensor of a large latent, else as
-    matrix products (see the module docstring)."""
+def angles_to_torus_fft(angles: torch.Tensor) -> torch.Tensor:
+    """Embed d angles (..., d) as the real part of the inverse FFT of the
+    Hermitian spectrum [0, th_1..th_{d-1}, 0, -th_{d-1}..-th_1] of phases,
+    in complex64."""
+    th = angles[..., 1:]
+    zero = torch.zeros_like(angles[..., :1])
+    theta_s = torch.cat([zero, th, zero, -torch.flip(th, (-1,))], -1)
+    spectrum = torch.polar(torch.ones_like(theta_s, dtype=torch.float32),
+                           theta_s.float())
+    return torch.fft.ifft(spectrum, dim=-1).real.to(angles.dtype)
+
+
+def angles_to_torus(angles: torch.Tensor, method: str = "auto"
+                    ) -> torch.Tensor:
+    """Embed d angles (..., d) onto the Clifford torus in R^{2d}.
+    ``"auto"``: through the embedding kernel for a CUDA tensor of a large
+    latent, as matrix products up to ``MATMUL_MAX_DIM``, as an FFT above
+    (see the module docstring)."""
+    _check_method(method)
     d = angles.shape[-1]
-    if not uses_kernel(angles.device.type, d):
+    if method == "auto" and not uses_kernel(angles.device.type, d):
+        method = "matmul" if d <= MATMUL_MAX_DIM else "fft"
+    if method == "matmul":
         return angles_to_torus_matmul(angles)
+    if method == "fft":
+        return angles_to_torus_fft(angles)
     from cliffordtpu_torch.kernels import torus as torus_kernel
 
     theta = angles.reshape(-1, d)[:, 1:].float()
@@ -128,10 +152,15 @@ def angles_to_torus(angles: torch.Tensor) -> torch.Tensor:
     return x.reshape(*angles.shape[:-1], 2 * d).to(angles.dtype)
 
 
-def torus_to_angles(x: torch.Tensor) -> torch.Tensor:
-    """Recover d angles from a torus point (..., 2d): ``angle(fft(x)[:d])``."""
+def torus_to_angles(x: torch.Tensor, method: str = "auto") -> torch.Tensor:
+    """Recover d angles from a torus point (..., 2d): ``angle(fft(x)[:d])``,
+    as matrix products up to ``MATMUL_MAX_DIM`` (``"auto"``), as an FFT
+    above."""
+    _check_method(method)
     d = x.shape[-1] // 2
-    _check_dim(d)
+    if method == "fft" or (method == "auto" and d > MATMUL_MAX_DIM):
+        freq = torch.fft.fft(x.to(torch.complex64), dim=-1)[..., :d]
+        return torch.angle(freq).to(x.dtype)
     cos_b, sin_b = (b.to(x.dtype) for b in _fft_bases(d, x.device))
     return torch.atan2(x @ sin_b, x @ cos_b)
 

@@ -11,8 +11,17 @@ jax 0.9):
   ``x0 ^ x1`` with ``(x0, x1) = threefry2x32(key, hi=0, lo=q)``
   (``_threefry_random_bits_partitionable``);
 * ``uniform`` turns bits into a float with the mantissa trick and
-  ``max(minval, f * (maxval - minval) + minval)`` in float32
-  (``jax._src.random._uniform``).
+  ``max(minval, f * (maxval - minval) + minval)`` in float32, with
+  ``maxval - minval`` rounded to float32 first
+  (``jax._src.random._uniform``).  XLA contracts the product and the sum
+  into one fused multiply-add, so the port forms them in float64 (where
+  the product of two float32 values is exact) and rounds once to
+  float32;
+* ``normal`` is ``jax._src.random._normal_real``: a uniform in
+  (nextafter(-1, 0), 1), then ``sqrt(2) * erfinv``.  Its words are
+  jax's bit for bit; the normals differ from jax's by XLA's float32
+  ``erf_inv`` approximation (a few 1e-6 relative on the CPU), against
+  ``torch.special.erfinv``'s near-exact one.
 
 * ``fold_in(key, data) = threefry2x32(key, hi=0, lo=data)``
   (``_threefry_fold_in`` on ``threefry_seed(data)``).
@@ -107,23 +116,39 @@ def random_bits(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     return (x0 ^ x1).reshape(tuple(shape))
 
 
-def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0
-                      ) -> torch.Tensor:
-    """uint32 words -> float32 uniforms in [minval, 1), exactly as
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """uint32 words -> float32 uniforms in [minval, maxval), exactly as
     ``jax.random.uniform`` does: mantissa float f in [0, 1), then
-    ``max(minval, f * (1 - minval) + minval)`` in float32."""
+    ``max(minval, f * (maxval - minval) + minval)`` in float32."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    if minval == 0.0:
+    if minval == 0.0 and maxval == 1.0:
         return f  # max(0, f * 1 + 0) == f for f in [0, 1)
-    mv = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    scale = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - mv
-    return torch.maximum(mv, f * scale + mv)
+    # the bounds and their difference rounded to float32 as jax rounds
+    # them, held as Python floats (no copy to the device); then
+    # f * (hi - lo) + lo as one fused multiply-add, as XLA computes it
+    lo = np.float32(minval)
+    scale = float(np.float32(maxval) - lo)
+    fma = (f.double() * scale + float(lo)).float()
+    return torch.clamp(fma, min=float(lo))
 
 
 def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
-            device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval)`` bit for bit."""
-    return uniform_from_bits(random_bits(key, shape, device), minval)
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` bit for
+    bit."""
+    return uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+
+
+# nextafter(-1, 0) in float32: the lower end of jax's normal draws
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: the same uniform words in
+    (nextafter(-1, 0), 1), then sqrt(2) * erfinv."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return torch.special.erfinv(u) * np.float32(np.sqrt(2.0))
 
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers

@@ -2,11 +2,13 @@
 ``cliffordtpu/serving.py:125-153``), on the card by default.
 
 ``Serving`` holds one ``CliffordARVAE`` (T tokens per image) or ``CNNVAE``
-(T = 1) on one device and answers:
+(T = 1), with any of their latents, on one device and answers:
 
-* ``encode_mu(x)``      images (B, H, W, C) -> mean angles (B, T*d)
-* ``encode_z(key, x)``  images -> sampled torus latents (B, T*2d)
-* ``decode(z)``         latents (B, T*2d) -> images (B, H, W, C)
+* ``encode_mu(x)``      images (B, H, W, C) -> means (B, T*d): the mean
+                        angles of a clifford latent
+* ``encode_z(key, x)``  images -> sampled latents (B, T*k): torus points,
+                        k = 2d, for clifford; k = d otherwise
+* ``decode(z)``         latents (B, T*k) -> images (B, H, W, C)
 
 ``CliffordARServing`` is the same class under its first name.
 
@@ -49,7 +51,7 @@ class Serving:
                  device=None):
         self.device = resolve_device(device)
         if params is not None:
-            model.load_state_dict(from_jax(params))
+            model.load_state_dict(from_jax(params, model.distribution))
         self.model = model.to(self.device).eval()
 
     def _input(self, a) -> torch.Tensor:
@@ -70,8 +72,10 @@ class Serving:
         holding only that rng gets the sampling key from JAX with
         ``model.apply(variables, rngs={"sample": rng},
         method=lambda m: m.make_rng("sample"))``.  ``sampler`` names the
-        route of the draw (``distributions/clifford_torus.py::SAMPLERS``)
-        for this request; the default is the model's own."""
+        route of a clifford draw
+        (``distributions/clifford_torus.py::SAMPLERS``) for this request;
+        the default is the model's own.  The other latents have one route,
+        and a ``sampler`` for them raises ``ValueError``."""
         return self.model.get_flat_latent(self._input(x), key, sampler)
 
     @torch.inference_mode()

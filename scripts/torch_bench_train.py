@@ -87,6 +87,7 @@ def main() -> int:
     def counts():
         return {"attention_fwd": attention.launches,
                 "attention_bwd": attention.bwd_launches,
+                "attention_dense": attention.dense_calls,
                 "torus_fwd": torus.fwd_launches,
                 "torus_bwd": torus.launches,
                 "sampler_keyed": sampler.launches,

@@ -10,7 +10,8 @@ per sampler route), seeded random weights, in float32 and in bfloat16
 compute, warms each entry point up, then traces 5 batch-64 requests of each
 with ``torch.profiler``.  For each (dtype, entry point) it prints one JSON line: the request's wall
 time (host clock, ends in a synchronise), the device's busy time (union of
-kernel intervals) and idle share, and device time by kernel class
+kernel intervals) and idle share, the launches per request of the port's
+kernels and its dense attention calls, and device time by kernel class
 (attention kernel, sampler and torus forward kernels, GEMM, convolution,
 norm, other).  The full per-kernel table goes to
 ``<out-dir>/profile_<config>_<dtype>_<entry>.txt``.
@@ -71,6 +72,17 @@ def busy_us(events) -> float:
     return total
 
 
+def counts(attention, sampler, torus):
+    """The launch counts of the port's kernels and the dense attention
+    route's calls."""
+    return {"attention_fwd": attention.launches,
+            "attention_bwd": attention.bwd_launches,
+            "attention_dense": attention.dense_calls,
+            "torus_fwd": torus.fwd_launches, "torus_bwd": torus.launches,
+            "sampler_keyed": sampler.launches,
+            "sampler_rng": sampler.rng_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="profiles",
@@ -84,7 +96,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from cliffordtpu_torch import serving
-    from cliffordtpu_torch.kernels import build
+    from cliffordtpu_torch.kernels import attention, build, sampler, torus
     from cliffordtpu_torch.nn.conv_vae import CNNVAE
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
 
@@ -121,6 +133,7 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
             walls = []
+            before = counts(attention, sampler, torus)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(REQUESTS):
@@ -128,6 +141,7 @@ def main() -> int:
                     fn()
                     torch.cuda.synchronize()
                     walls.append((time.perf_counter() - t0) * 1e3)
+            after = counts(attention, sampler, torus)
             events = kernel_events(prof)
             by_class = {}
             for e in events:
@@ -150,6 +164,8 @@ def main() -> int:
                 "device_busy_ms_per_request": busy,
                 "idle_share": 1.0 - busy / wall if wall else None,
                 "kernels_per_request": len(events) / n,
+                "port_launches_per_request": {
+                    k: (after[k] - before[k]) / n for k in after},
                 "device_ms_per_request_by_class": {
                     k: v / n for k, v in sorted(by_class.items())},
             }), flush=True)

@@ -221,9 +221,16 @@ def test_rng_route_serves_unit_torus_points_on_its_own_stream(served):
 
 
 def test_heads_not_ported_and_bad_arguments_raise():
-    for dist in ("gaussian", "powerspherical"):
-        with pytest.raises(NotImplementedError):
+    """Every head of the JAX model is ported now; a latent the JAX CNN has
+    no head for (vmf) or an unknown one raises ValueError, as the JAX
+    encoder does; so do a float16 compute dtype, an unknown sampler
+    route, and any route for a latent that has one route only."""
+    for dist in ("vmf", "beta"):
+        with pytest.raises(ValueError, match="distribution"):
             conv_vae.CNNVAE(LATENT, 1, distribution=dist)
+    with pytest.raises(ValueError, match="sampler"):
+        conv_vae.CNNVAE(LATENT, 1, distribution="gaussian",
+                        sampler="keyed")(torch.zeros(1, 32, 32, 1), (0, 1))
     with pytest.raises(ValueError):
         conv_vae.CNNVAE(LATENT, 1, compute_dtype=torch.float16)
     model = conv_vae.CNNVAE(LATENT, 1, sampler="philox")

@@ -136,13 +136,13 @@ def test_paths_not_ported_yet_raise():
     q, p = reparameterize("clifford", torch.from_numpy(mu),
                           torch.from_numpy(kappa)[..., None], D)
     args = (torch.from_numpy(x), torch.from_numpy(x_recon), q, p)
-    with pytest.raises(NotImplementedError):
-        conv_vae.cnn_vae_loss(*args, "gaussian")
+    # every latent is ported now: what still raises is an unknown
+    # reconstruction loss, latent or model head
     with pytest.raises(ValueError):
         conv_vae.cnn_vae_loss(*args, "clifford", recon_loss_type="bce")
-    with pytest.raises(NotImplementedError):
-        reparameterize("vmf", torch.from_numpy(mu), torch.from_numpy(kappa),
+    with pytest.raises(ValueError, match="unknown distribution"):
+        reparameterize("beta", torch.from_numpy(mu), torch.from_numpy(kappa),
                        D)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="distribution"):
         vit_vae.CliffordARVAE(latent_dim=4, image_size=32, in_channels=1,
-                              distribution="gaussian")
+                              distribution="vmf")

@@ -66,7 +66,11 @@ def test_the_new_modules_and_scripts_are_covered():
                  "cliffordtpu_torch/train/loop.py",
                  "scripts/torch_bench_train.py",
                  "scripts/torch_profile_train.py",
-                 "scripts/torch_profile_serving.py"):
+                 "scripts/torch_profile_serving.py",
+                 "cliffordtpu_torch/distributions/normal.py",
+                 "cliffordtpu_torch/distributions/gamma.py",
+                 "cliffordtpu_torch/distributions/bessel.py",
+                 "cliffordtpu_torch/distributions/von_mises_fisher.py"):
         assert name in names, name
 
 

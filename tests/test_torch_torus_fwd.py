@@ -106,8 +106,11 @@ def test_cpu_path_counts_no_launch_and_other_devices_raise():
     assert (torus.fwd_launches, torus.launches) == before
     with pytest.raises(ValueError):
         torus.torus_fwd(torch.zeros(4, 8, device="meta"))
+    # above the kernel's range the FFT form runs, with no launch either
+    assert ops_torus.angles_to_torus(torch.zeros(2, 4097)).shape == (2, 8194)
+    assert (torus.fwd_launches, torus.launches) == before
     with pytest.raises(ValueError):
-        ops_torus.angles_to_torus(torch.zeros(2, 4097))
+        ops_torus.angles_to_torus(torch.zeros(2, 8), method="pallas")
 
 
 def _fft_packing(theta: torch.Tensor) -> torch.Tensor:
