@@ -16,7 +16,9 @@ Phases, each printing one JSON line and each fatal when it fails:
             paths' shapes (flagship32: attention B 64, S 68, 8 heads of 64,
             sampler and torus R 4096, d 16; cnn4096: R 64, d 4096) and at
             odd ones (attention at S 17 without RoPE, 16-row padding in
-            bfloat16; d 2048; the table forms at d 513), with the form that
+            bfloat16; d 2048; the table forms at d 513; the keyed sampler
+            and the torus backward at the MNIST MLP's R 128, d 5, 40 and
+            256), with the form that
             ran (attention forward and backward: "mma" or "simt"; torus
             forward and Philox sampler: "fft" or "table"), its device time
             (CUDA events, median after warm-up; see ``cuda_ms``), the plain
@@ -78,13 +80,31 @@ Phases, each printing one JSON line and each fatal when it fails:
             request of each entry point and ``HEAD_STEPS`` steps after a
             warm-up, on the cnn4096 ``CNNVAE`` (no launch of any kernel;
             the float32 first step against the port's own step on the CPU,
-            ``TRAIN_BARS``) and on the flagship32 ``CliffordARVAE`` (A 4 /
-            4 / 8 per request, 12 A + 12 B per step, nothing else); then
-            the device time of one threefry ``normal`` and ``uniform`` draw
-            of the cnn4096 powerspherical draw's shape;
+            ``TRAIN_BARS``) and, with the vmf head too, on the flagship32
+            ``CliffordARVAE`` (A 4 / 4 / 8 per request, 12 A + 12 B per
+            step, nothing else); then the device time of one threefry
+            ``normal`` and ``uniform`` draw of the cnn4096 powerspherical
+            draw's shape;
+11. mlp     the ``MLPVAE`` at the MNIST runner's defaults (h_dim 128, batch
+            128, Adam lr 1e-3, clip 1, binarised inputs, beta from
+            ``linear_kl_warmup``) on seeded synthetic images of 784 pixels
+            in [0, 1]: every family at d 5 (normal with l2, powerspherical
+            at z_dim 6, vmf, clifford) for ``MLP_STEPS`` steps after a
+            warm-up, 1 keyed sampler + 1 torus backward launch per clifford
+            step and none for the others, a falling loss, the float32 first
+            step against the port's own step on the CPU (``TRAIN_BARS``);
+            the clifford step at every d of the sweep (2 ... 256); ``fit``
+            (2 epochs, 2048 / 512 images) and ``fit_trials`` (20 lanes):
+            the first step of every lane against its own ``MLPVAE``'s
+            (losses, gradient norms and clipped gradients within
+            ``MLP_LANE_STEP_BAR``), two lanes' histories against their own
+            sequential ``fit`` (rtol 2e-4),
+            the epoch times of both; ``compute_test_metrics`` with 10 IWAE
+            samples finite;
 
 then the table of all six kernels as one JSON line (the attention kernels
-also on the heads' path and at image 256), the ``nvidia-smi`` line, and
+also on the heads' path and at image 256; the keyed sampler and the torus
+backward also at the MNIST shapes), the ``nvidia-smi`` line, and
 last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
@@ -436,8 +456,8 @@ def torus_bwd_case(torus, sampler, ops_torus, R, d, epilogue, gen):
                 f"autograd of {fused.__name__} differs from sampler_bwd")
     del got, want, by_fft
     b_ms, b_by, dense = torus_bound_ms(nbytes, R, d)
-    return dict(R=R, d=d, epilogue=epilogue, max_abs_err=max(errs.values()),
-                errors=errs, ms=cuda_ms(run),
+    return dict(R=R, d=d, epilogue=epilogue, form="table",
+                max_abs_err=max(errs.values()), errors=errs, ms=cuda_ms(run),
                 plain_ms=cuda_ms(run_plain, reps=5),
                 matmul_ms=matmul_yardstick_ms(ops_torus, theta, g),
                 library_ms=cuda_ms(run_fft), bound_ms=b_ms, bound_by=b_by,
@@ -528,6 +548,11 @@ def zero_counts(attention, sampler, torus):
     attention.launches = attention.bwd_launches = attention.dense_calls = 0
     torus.fwd_launches = torus.launches = 0
     sampler.launches = sampler.rng_launches = 0
+
+
+def launched_since_zero(kmods):
+    """The kernels launched since ``zero_counts``, with their counts."""
+    return {k: v for k, v in launch_counts(*kmods).items() if v}
 
 
 def moved_counts(before, after):
@@ -641,11 +666,12 @@ def serve_check(kmods, ops_torus, label, srv, outs, bf16_outs, requests,
                         f"{bar}")
 
 
-def train(kmods, st, step, per_step, steps, images, label, must_fall=True):
-    """One warm-up and ``steps`` timed AdamW steps on one batch; returns the
-    per-step losses, the step times and the launch counts.  With
-    ``must_fall`` the last total loss must lie below the first."""
-    beta = torch.ones((), device=DEVICE)
+def train(kmods, st, step, per_step, steps, images, label, must_fall=True,
+          total="total_loss", beta=1.0):
+    """One warm-up and ``steps`` timed Adam(W) steps on one batch; returns
+    the per-step losses, the step times and the launch counts.  With
+    ``must_fall`` the last ``total`` loss must lie below the first."""
+    beta = torch.full((), beta, device=DEVICE)
     zero_counts(*kmods)
     history, ms = [], []
     for i in range(steps + 1):
@@ -663,10 +689,9 @@ def train(kmods, st, step, per_step, steps, images, label, must_fall=True):
         check(all(math.isfinite(v) for v in history[-1].values()),
               f"{label} train step {i}: losses not finite: {history[-1]}")
     counts = launch_counts(*kmods)
-    check(not must_fall or history[-1]["total_loss"] < history[0][
-        "total_loss"], f"{label} train: total loss did not fall: "
-                       f"{history[0]['total_loss']} -> "
-                       f"{history[-1]['total_loss']}")
+    check(not must_fall or history[-1][total] < history[0][total],
+          f"{label} train: total loss did not fall: {history[0][total]} -> "
+          f"{history[-1][total]}")
     for p in st.model.parameters():
         check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
               f"{label} train: a parameter or gradient is not float32")
@@ -879,6 +904,8 @@ def image256_phase(kmods, serving, vit_vae, state, loop, gen):
 
 HEAD_STEPS = 3  # timed train steps of a head's path, after one warm-up
 HEADS = ("gaussian", "powerspherical")
+# CliffordARVAE also has the vmf head (CNNVAE has none, in JAX either)
+FLAGSHIP_HEADS = HEADS + ("vmf",)
 
 
 def cnn4096_head(conv_vae, dtype, head):
@@ -896,24 +923,25 @@ def heads_phase(kmods, serving, conv_vae, vit_vae, state, loop, random,
                 images, gen):
     """The gaussian and powerspherical heads of cnn4096 (no kernel of A-F
     on the path; the float32 first step against the port's own step on the
-    CPU) and of flagship32 (attention kernels only: 4 / 4 / 8 per request,
-    12 + 12 per step)."""
+    CPU) and those and the vmf head of flagship32 (attention kernels only:
+    4 / 4 / 8 per request, 12 + 12 per step)."""
     nothing = {}
     paths = {
         "cnn4096": (lambda dt, h: cnn4096_head(conv_vae, dt, h),
                     {"encode_mu": nothing, "encode_z": nothing,
-                     "decode": nothing}, nothing, CNN_LATENT, 1),
+                     "decode": nothing}, nothing, CNN_LATENT, 1, HEADS),
         "flagship32": (lambda dt, h: flagship_head(vit_vae, dt, h),
                        {"encode_mu": {"attention_fwd": 4},
                         "encode_z": {"attention_fwd": 4},
                         "decode": {"attention_fwd": 8}},
-                       {"attention_fwd": 12, "attention_bwd": 12}, 16, 64),
+                       {"attention_fwd": 12, "attention_bwd": 12}, 16, 64,
+                       FLAGSHIP_HEADS),
     }
     counts = {}
-    for path, (make, req_counts, per_step, d, tokens) in paths.items():
+    for path, (make, req_counts, per_step, d, tokens, heads) in paths.items():
         requests = {name: (FLAGSHIP_REQUESTS[name][0], req_counts[name])
                     for name in ("encode_mu", "encode_z", "decode")}
-        for head in HEADS:
+        for head in heads:
             for label, dtype in (("float32", torch.float32),
                                  ("bfloat16", torch.bfloat16)):
                 srv = serving.Serving(make(dtype, head), device=DEVICE)
@@ -976,6 +1004,248 @@ def heads_phase(kmods, serving, conv_vae, vit_vae, state, loop, random,
          uniform_ms=uniform_ms)
     return counts
 
+# the MNIST runner's defaults (scripts/mnist_clifpws.py): batch 128, Adam at
+# lr 1e-3 behind a clip of 1, h_dim 128, 20 trials, beta from a linear
+# warmup over 100 epochs; the sweep's latent dims (cliffordtpu/configs)
+MLP_BATCH = 128
+MNIST_KERNEL_DIMS = (5, 40, 256)  # F and D held at R 128 at these d
+MLP_LR = 1e-3
+MLP_H_DIM = 128
+MLP_TRIALS = 20
+MLP_WARMUP_EPOCHS = 100
+MLP_DIMS = (2, 5, 10, 20, 40, 128, 256)
+MLP_D = 5
+MLP_STEPS = 5  # timed steps of each family, after one warm-up
+MLP_TRAIN, MLP_VAL, MLP_EPOCHS = 2048, 512, 2
+MLP_IWAE_SAMPLES = 10
+MLP_DATA_SEED = 7
+# (family, l2_normalize, z_dim at d 5): the runner's powerspherical model
+# is one dim wider than d
+MLP_FAMILIES = (("normal", True, MLP_D), ("powerspherical", False, MLP_D + 1),
+                ("vmf", False, MLP_D), ("clifford", False, MLP_D))
+MLP_PER_STEP = {"sampler_keyed": 1, "torus_bwd": 1}  # clifford; others none
+# fit_trials' lanes against their own sequential fit: tests/test_train.py's
+# bar for the JAX loops
+MLP_LANE_RTOL = 2e-4
+MLP_HELD_LANES = (0, 7)
+# one step of a lane against its MLPVAE on the same batch and key: a lane
+# runs its model's own products and norm, bit-equal but for the loss sums'
+# order (1e-7); a wrong key, slice or clip factor moves it by percents
+MLP_LANE_STEP_BAR = 1e-5
+
+
+def mlp_images(n):
+    """Seeded synthetic digits of 784 pixels in [0, 1], from a generator of
+    their own (``MLP_DATA_SEED``), whatever ran before: 10 prototypes whose
+    pixels are on (0.95, with probability 0.2) or off (0.05); image i is
+    prototype i % 10 plus uniform noise of +-0.05.  Binarised, they hold
+    structure a step can learn (uniform noise would leave the BCE at its
+    floor of 784 ln 2 from the first step)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(MLP_DATA_SEED)
+    protos = (torch.rand(10, 784, generator=gen, device=DEVICE) < 0.2) \
+        .float() * 0.9 + 0.05
+    noise = (torch.rand(n, 784, generator=gen, device=DEVICE) - 0.5) * 0.1
+    return (protos[torch.arange(n, device=DEVICE) % 10] + noise).clamp(0, 1)
+
+
+def mlp_model(mlp_vae, dist, z_dim, l2=False, seed=0):
+    return mlp_vae.MLPVAE(MLP_H_DIM, z_dim, dist, l2, seed=seed)
+
+
+def mlp_first_step(loop, model, x, beta, device=None):
+    """Loss pieces and gradients of the first MLP train step (key (0, 0),
+    seeded weights), without the update, on ``device`` (the card by
+    default)."""
+    model = model.to(device or DEVICE).train()
+    losses = loop.mlp_losses(model, x.to(device or DEVICE), (0, 0), beta)
+    losses["total"].backward()
+    return ({k: v.item() for k, v in losses.items()},
+            {n: p.grad for n, p in model.named_parameters()})
+
+
+def mlp_lane_step(loop, lanes, singles, x, rngs, beta):
+    """The first train step of every lane of ``lanes`` against the same
+    step of its own ``MLPVAE`` in ``singles`` on batch x[t] and rng
+    rngs[t]: the loss, the gradient norm (relative) and the clipped
+    gradients (largest difference over the clipped norm), each held at
+    ``MLP_LANE_STEP_BAR``.  Returns the worst of each over the lanes."""
+    kb, ks = loop.lane_keys([rngs], DEVICE)
+    got = loop.make_lane_train_step(lanes.model, lanes.optimizer)(
+        x, (kb[0], ks[0]), beta)
+    lane_grads = [p.grad for p in lanes.model.parameters()]
+    worst = {"loss_rel": 0.0, "grad_norm_rel": 0.0, "grad_max_rel": 0.0}
+    for t, st in enumerate(singles):
+        want = loop.make_mlp_train_step(st.model, st.optimizer)(
+            x[t], rngs[t], beta)
+        norm = want["grad_norm"].item()
+        err = dict(
+            loss_rel=abs(got["total"][t].item() - want["total"].item())
+            / abs(want["total"].item()),
+            grad_norm_rel=abs(got["grad_norm"][t].item() - norm) / norm,
+            grad_max_rel=max((g[t] - p.grad).abs().max().item()
+                             for g, p in zip(lane_grads,
+                                             st.model.parameters()))
+            / min(norm, 1.0))  # the clipped norm
+        check(max(err.values()) <= MLP_LANE_STEP_BAR,
+              f"mlp fit_trials lane {t}, first step vs its MLPVAE: {err}")
+        worst = {k: max(v, err[k]) for k, v in worst.items()}
+    return worst
+
+
+def mlp_fit_counts(n_steps, n_val_batches, lanes=1):
+    """F and D launches of a fit: a draw per train and validation batch,
+    a backward per train step, per lane, per epoch."""
+    return {"sampler_keyed": lanes * MLP_EPOCHS * (n_steps + n_val_batches),
+            "torus_bwd": lanes * MLP_EPOCHS * n_steps}
+
+
+def mlp_phase(kmods, mods):
+    """The MLP family at the MNIST sweep's dims: every family's step at d 5
+    (launches, a falling loss, the float32 first step on the card against
+    the port's CPU step), the clifford step at every d of the sweep, then
+    ``fit`` and ``fit_trials`` (20 lanes) at d 5 with two lanes held
+    against their own sequential ``fit``, and ``compute_test_metrics``.
+    Returns the clifford launch counts per d."""
+    loop, state, mlp_vae, losses, schedules, trandom = mods
+    t_phase = time.perf_counter()
+    images = mlp_images(MLP_TRAIN + MLP_VAL)
+    x_train, x_val = images[:MLP_TRAIN], images[MLP_TRAIN:]
+    batch = x_train[:MLP_BATCH]
+    beta = schedules.linear_kl_warmup(0, MLP_WARMUP_EPOCHS)
+    per_d = {}
+
+    def add(d, counts):
+        mine = per_d.setdefault(d, {})
+        for k, v in counts.items():
+            mine[k] = mine.get(k, 0) + v
+
+    for dist, l2, z_dim in MLP_FAMILIES:
+        st = state.create_train_state(mlp_model(mlp_vae, dist, z_dim, l2),
+                                      "adam", MLP_LR, device=DEVICE)
+        per_step = MLP_PER_STEP if dist == "clifford" else {}
+        history, ms, counts = train(
+            kmods, st, loop.make_mlp_train_step(st.model, st.optimizer),
+            per_step, MLP_STEPS, batch, f"mlp {dist}", total="total",
+            beta=beta)
+        if dist == "clifford":
+            add(MLP_D, counts)
+        card = mlp_first_step(loop, mlp_model(mlp_vae, dist, z_dim, l2),
+                              batch, beta)
+        cpu = mlp_first_step(loop, mlp_model(mlp_vae, dist, z_dim, l2),
+                             batch.cpu(), beta, torch.device("cpu"))
+        report = hold_step(*card, *cpu, f"mlp {dist} float32 step, card vs "
+                                        f"CPU")
+        emit("mlp", family=dist, l2_normalize=l2, z_dim=z_dim,
+             batch=MLP_BATCH, steps=MLP_STEPS, beta=beta, launches=counts,
+             per_step_launches=per_step,
+             median_ms_per_step=statistics.median(ms[1:]),
+             min_ms_per_step=min(ms[1:]), first_ms=ms[0],
+             first_losses=history[0], last_losses=history[-1],
+             card_vs_cpu=report, bars=TRAIN_BARS)
+        del st
+    sweep = {}
+    for d in MLP_DIMS:
+        st = state.create_train_state(mlp_model(mlp_vae, "clifford", d),
+                                      "adam", MLP_LR, device=DEVICE)
+        history, ms, counts = train(
+            kmods, st, loop.make_mlp_train_step(st.model, st.optimizer),
+            MLP_PER_STEP, 0, batch, f"mlp clifford d{d}", must_fall=False,
+            total="total", beta=beta)
+        add(d, counts)
+        sweep[d] = dict(ms=ms[0], launches=counts,
+                        total=history[0]["total"])
+    emit("mlp_sweep", family="clifford", batch=MLP_BATCH, steps=sweep)
+
+    # fit and fit_trials at d 5: one trial sequentially, 20 lanes at once
+    n_steps = MLP_TRAIN // MLP_BATCH
+    n_val_batches = -(-MLP_VAL // MLP_BATCH)
+    kw = dict(epochs=MLP_EPOCHS, batch_size=MLP_BATCH,
+              beta_fn=lambda e: schedules.linear_kl_warmup(
+                  e, MLP_WARMUP_EPOCHS))
+    trial_key = lambda t: (0, 1000 + t)  # noqa: E731
+
+    def sequential(t):
+        st = state.create_train_state(mlp_model(mlp_vae, "clifford", MLP_D,
+                                                seed=t), "adam", MLP_LR,
+                                      device=DEVICE)
+        stamps = [time.perf_counter()]
+        st, hist = loop.fit(
+            st, loop.make_mlp_train_step(st.model, st.optimizer),
+            loop.make_mlp_eval_step(st.model), trial_key(t), x_train, x_val,
+            log_fn=lambda e, d: stamps.append(time.perf_counter()), **kw)
+        return st, hist, [b - a for a, b in zip(stamps, stamps[1:])]
+
+    zero_counts(*kmods)
+    seq_st, seq_hist, seq_epoch_s = sequential(0)
+    fit_counts = launched_since_zero(kmods)
+    check(fit_counts == mlp_fit_counts(n_steps, n_val_batches),
+          f"mlp fit: launches {fit_counts}")
+    check(all(math.isfinite(v) for v in seq_hist["train_loss"]
+              + seq_hist["val_loss"])
+          and seq_hist["train_loss"][-1] < seq_hist["train_loss"][0],
+          f"mlp fit: history {seq_hist}")
+    add(MLP_D, fit_counts)
+
+    def trials():
+        return [state.create_train_state(mlp_model(mlp_vae, "clifford", MLP_D,
+                                                   seed=t), "adam", MLP_LR,
+                                         device=DEVICE)
+                for t in range(MLP_TRIALS)]
+
+    # each lane's first step on its own batch and fit's first step key
+    zero_counts(*kmods)
+    lane_step = mlp_lane_step(
+        loop, loop.stack_trial_states(trials()), trials(),
+        x_train[torch.arange(MLP_TRIALS * MLP_BATCH, device=DEVICE)
+                % MLP_TRAIN].reshape(MLP_TRIALS, MLP_BATCH, -1),
+        [trandom.fold_in_words(trandom.fold_in_words(trial_key(t), 0), 1)
+         for t in range(MLP_TRIALS)], beta)
+    add(MLP_D, launched_since_zero(kmods))
+    lanes = loop.stack_trial_states(trials())
+    zero_counts(*kmods)
+    stamps = [time.perf_counter()]
+    lanes, lane_hist = loop.fit_trials(
+        lanes, [trial_key(t) for t in range(MLP_TRIALS)], x_train, x_val,
+        log_fn=lambda e, d: stamps.append(time.perf_counter()), **kw)
+    trial_epoch_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    trial_counts = launched_since_zero(kmods)
+    check(trial_counts == mlp_fit_counts(n_steps, n_val_batches,
+                                         MLP_TRIALS),
+          f"mlp fit_trials: launches {trial_counts}")
+    add(MLP_D, trial_counts)
+    lane_err = {}
+    for t in MLP_HELD_LANES:
+        _, hist, _ = (seq_st, seq_hist, None) if t == 0 else sequential(t)
+        lane_err[t] = max(abs(a - b) / abs(b) for k in ("train_loss",
+                                                         "val_loss")
+                          for a, b in zip(lane_hist[t][k], hist[k]))
+        check(len(lane_hist[t]["val_loss"]) == len(hist["val_loss"])
+              and lane_err[t] <= MLP_LANE_RTOL
+              and abs(lane_hist[t]["best_val"] - hist["best_val"])
+              <= MLP_LANE_RTOL * abs(hist["best_val"]),
+              f"mlp fit_trials lane {t} vs its fit: {lane_hist[t]} vs "
+              f"{hist}")
+    zero_counts(*kmods)
+    metrics = losses.compute_test_metrics(
+        (0, 7), seq_st.model,
+        [(x_val[s:s + MLP_BATCH], None)
+         for s in range(0, MLP_VAL, MLP_BATCH)], MLP_IWAE_SAMPLES)
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"mlp compute_test_metrics: {metrics}")
+    add(MLP_D, launched_since_zero(kmods))
+    emit("mlp_fit", family="clifford", d=MLP_D, train=MLP_TRAIN,
+         val=MLP_VAL, batch=MLP_BATCH, epochs=MLP_EPOCHS,
+         fit_epoch_s=seq_epoch_s, fit_history=seq_hist,
+         fit_launches=fit_counts, trials=MLP_TRIALS,
+         fit_trials_epoch_s=trial_epoch_s,
+         fit_trials_launches=trial_counts,
+         lane_vs_fit_rel={str(t): v for t, v in lane_err.items()},
+         lane_rtol=MLP_LANE_RTOL, lane_first_step=lane_step,
+         lane_step_bar=MLP_LANE_STEP_BAR, test_metrics=metrics,
+         iwae_samples=MLP_IWAE_SAMPLES,
+         phase_s=time.perf_counter() - t_phase)
+    return per_d
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -986,9 +1256,9 @@ def main() -> int:
     from cliffordtpu_torch import random as trandom
     from cliffordtpu_torch import serving
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
-    from cliffordtpu_torch.nn import conv_vae, rope, vit_vae
+    from cliffordtpu_torch.nn import conv_vae, losses, mlp_vae, rope, vit_vae
     from cliffordtpu_torch.ops import torus as ops_torus
-    from cliffordtpu_torch.train import loop, state
+    from cliffordtpu_torch.train import loop, schedules, state
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1052,6 +1322,18 @@ def main() -> int:
             ("rng", "cnn4096", BATCH, CNN_LATENT, True)):
         smp[route, label] = sampler_case(sampler, route, R, d, per_row, gen)
         emit("kernel", kernel=f"sampler_{route}", **smp[route, label])
+    # F and D at the MNIST MLP's shapes: batch 128, one kappa per row; the
+    # table form at d 5 and 40, d 256 a power of two
+    mnist = {}
+    for d in MNIST_KERNEL_DIMS:
+        mnist["sampler_keyed", d] = sampler_case(sampler, "keyed", MLP_BATCH,
+                                                 d, True, gen)
+        emit("kernel", kernel="sampler_keyed", shape="mnist_mlp",
+             **mnist["sampler_keyed", d])
+        mnist["torus_bwd", d] = torus_bwd_case(torus, sampler, ops_torus,
+                                               MLP_BATCH, d, True, gen)
+        emit("kernel", kernel="torus_bwd", shape="mnist_mlp",
+             **mnist["torus_bwd", d])
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -1153,6 +1435,8 @@ def main() -> int:
     image_counts = image256_phase(kmods, serving, vit_vae, state, loop, gen)
     head_counts = heads_phase(kmods, serving, conv_vae, vit_vae, state, loop,
                               trandom, images, gen)
+    mlp_counts = mlp_phase(
+        kmods, (loop, state, mlp_vae, losses, schedules, trandom))
     att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
                                           260, 8, 64, torch.bfloat16, True,
                                           gen)
@@ -1167,6 +1451,8 @@ def main() -> int:
                        for c in pair)
         if path == "image256":
             return sum(c[name] for c in image_counts[dtype])
+        if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
+            return mlp_counts[int(path.split(",d")[1])].get(name, 0)
         served, stepped = ((runs, trained) if path == "flagship32"
                            else (cnn_runs, cnn_trained))
         return sum(c[name] for group in (served, stepped)
@@ -1218,6 +1504,14 @@ def main() -> int:
         entry("sampler_keyed", "cnn4096", "sampler_keyed.cu",
               "sampler_pallas.py:356", smp["keyed", "cnn4096"]),
     ]
+    for (name, d), case in mnist.items():
+        kernels.append({
+            **entry(name, f"mnist_mlp,d{d}",
+                    "sampler_keyed.cu" if name == "sampler_keyed"
+                    else "torus_bwd.cu",
+                    "sampler_pallas.py:356" if name == "sampler_keyed"
+                    else "torus_pallas.py:154", case),
+            "shape": "mnist_mlp", "R": case["R"], "d": d})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

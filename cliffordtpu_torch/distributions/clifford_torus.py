@@ -108,10 +108,15 @@ class CliffordPowerSphericalDistribution:
                                  torch.sin(loc_angles)], -1)
         return PowerSpherical(mean_dirs, kappa)
 
-    def sample(self, key, sampler: str = "keyed") -> torch.Tensor:
-        """One reparameterised draw (..., 2d), differentiable in ``loc`` and
-        ``concentration``.  ``sampler`` names the route (``SAMPLERS``), the
-        port's form of the JAX package's ``CLIFFORDTPU_SAMPLER``:
+    def sample(self, key, sample_shape=(), sampler: str = "keyed"
+               ) -> torch.Tensor:
+        """Reparameterised draws sample_shape + (..., 2d), differentiable in
+        ``loc`` and ``concentration``.  With a ``sample_shape`` the draw
+        takes the ``"unfused"`` route whatever ``sampler`` says, as the JAX
+        package never fuses one: u and v of shape sample_shape + loc's on
+        the split key.  Without one, ``sampler`` names the route
+        (``SAMPLERS``), the port's form of the JAX package's
+        ``CLIFFORDTPU_SAMPLER``:
 
         * ``"keyed"`` (``pallas_keyed``): the fused keyed kernel
           (``kernels/sampler.py::sample_embed_keyed``), one launch, on the
@@ -127,11 +132,13 @@ class CliffordPowerSphericalDistribution:
                              f"{sampler!r}")
         loc, kappa = self._params()
         d = loc.shape[-1]
-        if sampler == "unfused":
+        sample_shape = tuple(sample_shape)
+        if sample_shape or sampler == "unfused":
+            shape = sample_shape + loc.shape
             k_u, k_v = random.split_words(key)
-            u = random.uniform(k_u, loc.shape, minval=sampler_kernel.U_MIN,
+            u = random.uniform(k_u, shape, minval=sampler_kernel.U_MIN,
                                device=loc.device)
-            v = random.uniform(k_v, loc.shape, device=loc.device)
+            v = random.uniform(k_v, shape, device=loc.device)
             return angles_to_torus(
                 sampler_kernel.circle_angles(loc, kappa, u, v))
         fused = (sampler_kernel.sample_embed_keyed if sampler == "keyed"

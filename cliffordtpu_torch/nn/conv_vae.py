@@ -23,7 +23,6 @@ concentration); the last two decode a d-wide latent.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -31,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
-from cliffordtpu_torch.nn.layers import Conv, ConvT, Linear
+from cliffordtpu_torch.nn.layers import Conv, ConvT, Linear, reset_parameters
 from cliffordtpu_torch.nn.mlp_vae import l2_normalize
 from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
 
@@ -155,26 +154,6 @@ class Decoder(nn.Module):
         for block in self.blocks:
             x = block(x)
         return torch.tanh(self.conv_out(x.float())).permute(0, 2, 3, 1)
-
-
-@torch.no_grad()
-def reset_parameters(module: nn.Module, seed: int):
-    """JAX's initialisers, drawn in float32 from ``seed``: xavier-uniform
-    weights, unit-normal register tokens, unit norm scales, zero biases and
-    zero log-sigmas."""
-    gen = torch.Generator().manual_seed(seed)
-    for name, p in module.named_parameters():
-        if name.endswith("register_token"):
-            val = torch.randn(p.shape, generator=gen)
-        elif name.endswith(".bias") or "log_sigma" in name:
-            val = torch.zeros(p.shape)
-        elif p.dim() == 1:  # norm scales
-            val = torch.ones(p.shape)
-        else:
-            rf = p[0, 0].numel()  # receptive field (1 for Linear)
-            limit = math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * rf))
-            val = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
-        p.copy_(val)
 
 
 class CNNVAE(nn.Module):

@@ -4,9 +4,12 @@ Every parameter is held in float32, as flax holds them, so gradients, Adam
 moments and weight decay are float32; a layer casts its input and its
 parameters to ``compute_dtype`` (float32 or bfloat16) where it uses them,
 which is what flax's ``dtype=`` argument does.  Convolutions are NCHW.
+``reset_parameters`` draws the models' initialisation from a seed.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -59,3 +62,23 @@ class ConvT(nn.ConvTranspose2d):
         return F.conv_transpose2d(x.to(dt), self.weight.to(dt),
                                   _cast(self.bias, dt), self.stride,
                                   self.padding)
+
+
+@torch.no_grad()
+def reset_parameters(module: nn.Module, seed: int):
+    """JAX's initialisers, drawn in float32 from ``seed``: xavier-uniform
+    weights, unit-normal register tokens, unit norm scales, zero biases and
+    zero log-sigmas."""
+    gen = torch.Generator().manual_seed(seed)
+    for name, p in module.named_parameters():
+        if name.endswith("register_token"):
+            val = torch.randn(p.shape, generator=gen)
+        elif name.endswith(".bias") or "log_sigma" in name:
+            val = torch.zeros(p.shape)
+        elif p.dim() == 1:  # norm scales
+            val = torch.ones(p.shape)
+        else:
+            rf = p[0, 0].numel()  # receptive field (1 for Linear)
+            limit = math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * rf))
+            val = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
+        p.copy_(val)

@@ -1,5 +1,5 @@
-"""Carry JAX ``CliffordARVAE`` or ``CNNVAE`` parameters, or a gradient tree
-of the same layout, into the port's modules.
+"""Carry JAX ``CliffordARVAE``, ``CNNVAE`` or ``MLPVAE`` parameters, or a
+gradient tree of the same layout, into the port's modules.
 
 Input is the flat dict that ``cliffordtpu/serving.py::_flatten_params``
 writes to ``params.npz`` (keys like
@@ -38,6 +38,8 @@ from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from cliffordtpu_torch.nn.mlp_vae import LAYERS
 
 
 def _same(a):
@@ -228,10 +230,22 @@ def cnnvae_from_jax(flat: Dict[str, np.ndarray],
     return convert(flat, cnnvae_rules(flat, distribution))
 
 
+def mlpvae_from_jax(flat: Dict[str, np.ndarray]
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``MLPVAE`` params (flat keys ``"enc1/kernel"``, ...) -> a state
+    dict for ``cliffordtpu_torch.nn.mlp_vae.MLPVAE``: every Dense kernel
+    transposed for ``nn.Linear``; ``fc_var`` (normal) or ``fc_scale``
+    (the others), whichever the tree holds."""
+    return convert(flat, [r for name in LAYERS if f"{name}/kernel" in flat
+                          for r in _bias(name, name, _dense)])
+
+
 def from_jax(flat: Dict[str, np.ndarray], distribution: str = "clifford"
              ) -> Dict[str, torch.Tensor]:
-    """``cnnvae_from_jax`` or ``cliffordar_from_jax``, by the tree's own
-    keys."""
+    """``mlpvae_from_jax``, ``cnnvae_from_jax`` or ``cliffordar_from_jax``,
+    by the tree's own keys."""
+    if "enc1/kernel" in flat:
+        return mlpvae_from_jax(flat)
     if any(k.startswith("encoder/") for k in flat):
         return cnnvae_from_jax(flat, distribution)
     return cliffordar_from_jax(flat)

@@ -19,8 +19,11 @@ float32 and under autograd), as the JAX module leaves such shapes to XLA.
 
 The per-token heads: clifford (mean angles and a concentration, the
 decoder reads 2d-wide torus points), gaussian (mean and log-variance from
-a 2d-wide ``quant_proj``) and powerspherical (a unit mean and a
-concentration; the draw is scaled by sqrt(d)).
+a 2d-wide ``quant_proj``), powerspherical (a unit mean and a
+concentration; the draw is scaled by sqrt(d)) and vmf (the clifford head:
+raw means and a floored concentration, one per token, into a von
+Mises-Fisher posterior; the decoder reads d-wide draws).  ``CNNVAE`` has
+no vmf head, in the JAX package either.
 
 Not ported yet: ``fused_proj`` and ``scan_layers``.
 """
@@ -36,13 +39,16 @@ from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
 from cliffordtpu_torch.kernels import attention as attention_kernel
-from cliffordtpu_torch.nn.conv_vae import HEADS, reset_parameters
 from cliffordtpu_torch.nn.layers import Conv as _Conv
 from cliffordtpu_torch.nn.layers import ConvT as _ConvT
 from cliffordtpu_torch.nn.layers import Linear as _Linear
+from cliffordtpu_torch.nn.layers import reset_parameters
 from cliffordtpu_torch.nn.mlp_vae import l2_normalize
 from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
 from cliffordtpu_torch.nn.rope import apply_rotary_half, rope_2d_cos_sin
+
+# the per-token latents of the model (``CNNVAE``'s ``HEADS`` and vmf)
+HEADS = ("clifford", "gaussian", "powerspherical", "vmf")
 
 __all__ = [
     "rope_2d_cos_sin", "apply_rotary_half", "RMSNorm", "GroupNorm",
@@ -353,7 +359,7 @@ class CliffordARVAE(nn.Module):
         """Image (B, H, W, C) -> per-token heads: clifford (mu (B, T, d),
         kappa (B, T) = clip(softplus(.) + floor, <= 10)); gaussian (mu,
         log_var (B, T, d)); powerspherical (unit mu, kappa =
-        clip(softplus(.) + 0.8, <= 10))."""
+        clip(softplus(.) + 0.8, <= 10)); vmf as clifford."""
         proj = self.quant_proj(self.encoder_vit(x))
         if self.distribution == "gaussian":
             return proj[..., :self.latent_dim], proj[..., self.latent_dim:]
@@ -369,7 +375,8 @@ class CliffordARVAE(nn.Module):
         """(z, q_z, p_z): per-token latents drawn with the sampling ``key``
         (two uint32 words), the posterior and the prior.  Clifford: torus
         points (B, T, 2d); powerspherical: (B, T, d) scaled by sqrt(d);
-        gaussian: (B, T, d)."""
+        gaussian and vmf: (B, T, d), the vmf concentration (B, T) not
+        broadcast."""
         if self.distribution == "clifford":
             params = params[..., None].expand(mu.shape)
         q_z, p_z = reparameterize(self.distribution, mu, params,

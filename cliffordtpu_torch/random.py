@@ -24,7 +24,18 @@ jax 0.9):
   ``torch.special.erfinv``'s near-exact one.
 
 * ``fold_in(key, data) = threefry2x32(key, hi=0, lo=data)``
-  (``_threefry_fold_in`` on ``threefry_seed(data)``).
+  (``_threefry_fold_in`` on ``threefry_seed(data)``);
+* ``permutation(key, n)`` is ``jax._src.random._shuffle`` on a range:
+  ceil(3 ln n / ln(2**32 - 1)) rounds, each splitting the key, drawing
+  32-bit sort keys and sorting stably by them;
+* flax's first ``make_rng("sample")`` in a root module is
+  ``fold_in(rng, 3213575472)`` (``sample_key``): the first four bytes of
+  the SHA-1 of the counter 1, which ``flax.core.scope._fold_in_static``
+  folds in.
+
+``lane_uniform`` draws for T keys at once: the key words are (T, 1)
+tensors, so one set of integer operations gives T draws, each the one
+its key gives alone (the counterpart of ``jax.vmap`` over keys).
 
 Beside threefry stands Philox-4x32-10 (Salmon et al., SC'11), the
 generator of the Philox sampler kernel (``csrc/sampler_rng.cu``), which
@@ -104,16 +115,65 @@ def split(key: Key, num: int = 2) -> torch.Tensor:
     return torch.tensor(split_words(key, num), dtype=torch.int64)
 
 
+def fold_in(key: Key, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the new key as an int64 tensor (2,) (CPU)."""
+    return torch.tensor(fold_in_words(key, data), dtype=torch.int64)
+
+
+# the first four bytes of sha1(b"\x01"): flax folds the rng counter 1 in so
+MAKE_RNG_DATA = 3213575472
+
+
+def sample_key(rng: Key) -> Tuple[int, int]:
+    """The key that a flax root module's first ``self.make_rng(name)``
+    derives from the rng passed to ``apply`` as ``rngs={name: rng}``: the
+    sampling key of one forward pass of the JAX models."""
+    return fold_in_words(rng, MAKE_RNG_DATA)
+
+
+def _bits(k0, k1, n: int, device) -> torch.Tensor:
+    """x0 ^ x1 of threefry2x32(key, (0, q)) for the counters q < n; k0, k1
+    are ints or (T, 1) tensors, which give (T, n)."""
+    if n > 2 ** 32:
+        raise ValueError("counters beyond 2**32 need the hi word; not ported")
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
+    return x0 ^ x1
+
+
 def random_bits(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), the words
     ``jax.random.bits(key, shape)`` gives."""
     k0, k1 = key_words(key)
     n = int(np.prod(shape, dtype=np.int64))
-    if n > 2 ** 32:
-        raise ValueError("counters beyond 2**32 need the hi word; not ported")
-    lo = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
-    return (x0 ^ x1).reshape(tuple(shape))
+    return _bits(k0, k1, n, device).reshape(tuple(shape))
+
+
+def lane_uniform(keys: torch.Tensor, shape: Sequence[int],
+                 minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.uniform(k, shape))(keys)`` bit for
+    bit: ``keys`` is an int64 tensor (T, 2) of key words on the device the
+    draws go to; returns (T, *shape)."""
+    if keys.dim() != 2 or keys.shape[1] != 2 or keys.dtype != torch.int64:
+        raise ValueError(f"keys must be int64 (T, 2), got "
+                         f"{tuple(keys.shape)} {keys.dtype}")
+    n = int(np.prod(shape, dtype=np.int64))
+    bits = _bits(keys[:, :1], keys[:, 1:], n, keys.device)
+    return uniform_from_bits(bits, minval, maxval).reshape(
+        (keys.shape[0], *shape))
+
+
+def permutation(key: Key, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` (int64 (n,)): per round a split,
+    32-bit sort keys from ``random_bits`` and a stable sort."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        key, sub = split_words(key)
+        order = torch.sort(random_bits(sub, (n,), device), stable=True)[1]
+        x = x[order]
+    return x
 
 
 def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,

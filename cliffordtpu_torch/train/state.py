@@ -13,18 +13,31 @@ the same update:
   parameter, norms and biases included, as optax applies it without a mask;
   betas (0.9, 0.999), eps 1e-8.
 
+``adam_fused`` / ``adamw_fused`` name the JAX package's flat-vector form
+of the same chain (``fused_adam``); here they are the same optimizers, as
+PyTorch's fused multi-tensor Adam(W) already updates every parameter in a
+few launches on the card.
+
 With ``sigma_lr_scale`` the learnable-beta parameters (those whose name
 holds ``log_sigma``) form a second parameter group that trains at
 ``lr * sigma_lr_scale``, as the reference's ``optax.multi_transform``
 does; the clip's norm is taken over both groups.
 
-Not ported yet: gradient accumulation (``accum_steps``).
+With ``accum_steps`` k > 1 the chain behaves as ``optax.MultiSteps``: the
+gradients are averaged over k steps (a running mean), and the clip and
+the update fire once per cycle, on the mean; the parameters and Adam's
+step count do not move in between.
+
+``LaneClippedOptimizer`` is the chain for T independent models held in
+stacked parameters (a leading lane axis): Adam is elementwise, so one
+update over the stacks is each lane's own, and the clip takes one norm
+per lane, as ``jax.vmap`` of the chain does.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
@@ -32,6 +45,7 @@ from torch import nn
 from cliffordtpu_torch.device import resolve_device
 
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
+OPTIMIZERS = ("adam", "adamw", "adam_fused", "adamw_fused")
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -41,32 +55,82 @@ def global_norm(tensors) -> torch.Tensor:
         torch.stack(torch._foreach_norm(list(tensors))))
 
 
-class ClippedOptimizer:
-    """``optax.chain(clip_by_global_norm(clip_norm), inner)``: ``step``
-    scales the gradients in place by the clip factor, steps ``inner`` and
-    returns the global gradient norm from before the clip.  Nothing in it
-    waits for the device."""
+def lane_norms(tensors) -> torch.Tensor:
+    """``global_norm`` of each lane of tensors with a leading lane axis,
+    lane by lane as one model's (T,)."""
+    lanes = [t.unbind(0) for t in tensors]
+    return torch.stack([global_norm(lane) for lane in zip(*lanes)])
 
-    def __init__(self, inner: torch.optim.Optimizer, clip_norm: float = 1.0):
+
+class ClippedOptimizer:
+    """``optax.chain(clip_by_global_norm(clip_norm), inner)``, wrapped in
+    ``optax.MultiSteps`` when ``accum_steps`` > 1: ``step`` scales the
+    gradients in place by the clip factor, steps ``inner`` and returns the
+    global norm of this step's gradients, from before the clip and the
+    averaging.  Nothing in it waits for the device."""
+
+    def __init__(self, inner: torch.optim.Optimizer, clip_norm: float = 1.0,
+                 accum_steps: int = 1):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         self.inner = inner
         self.clip_norm = clip_norm
+        self.accum_steps = accum_steps
+        self.micro_step = 0  # steps into the current accumulation cycle
+        self._acc: Optional[List[torch.Tensor]] = None
 
-    def _grads(self):
-        return [p.grad for group in self.inner.param_groups
+    def _params(self):
+        return [p for group in self.inner.param_groups
                 for p in group["params"] if p.grad is not None]
 
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
 
-    @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        grads = self._grads()
-        norm = global_norm(grads)
+    def _norm(self, grads) -> torch.Tensor:
+        return global_norm(grads)
+
+    def _scale(self, grads, factor: torch.Tensor):
+        torch._foreach_mul_(grads, factor)
+
+    def _clip_and_update(self, grads, norm):
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                              self.clip_norm / norm)
-        torch._foreach_mul_(grads, factor)
+        self._scale(grads, factor)
         self.inner.step()
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        params = self._params()
+        grads = [p.grad for p in params]
+        norm = self._norm(grads)
+        if self.accum_steps == 1:
+            self._clip_and_update(grads, norm)
+            return norm
+        if self._acc is None:
+            self._acc = [torch.zeros_like(g) for g in grads]
+        # optax.MultiSteps' running mean: acc + (g - acc) / (n + 1)
+        delta = torch._foreach_sub(grads, self._acc)
+        torch._foreach_div_(delta, float(self.micro_step + 1))
+        torch._foreach_add_(self._acc, delta)
+        self.micro_step += 1
+        if self.micro_step == self.accum_steps:
+            torch._foreach_copy_(grads, self._acc)
+            self._clip_and_update(grads, self._norm(grads))
+            torch._foreach_zero_(self._acc)
+            self.micro_step = 0
         return norm
+
+
+class LaneClippedOptimizer(ClippedOptimizer):
+    """The chain over parameters with a leading lane axis of T models:
+    one clip norm and factor per lane; ``step`` returns the T norms."""
+
+    def _norm(self, grads) -> torch.Tensor:
+        return lane_norms(grads)
+
+    def _scale(self, grads, factor: torch.Tensor):
+        for g in grads:
+            g.mul_(factor.reshape((-1,) + (1,) * (g.dim() - 1)))
 
 
 def _is_sigma(name: str) -> bool:
@@ -75,9 +139,10 @@ def _is_sigma(name: str) -> bool:
 
 def make_optimizer(params, optimizer: str = "adam", lr: float = 1e-3,
                    clip_norm: float = 1.0,
-                   sigma_lr_scale: Optional[float] = None
-                   ) -> ClippedOptimizer:
-    """Adam or AdamW at ``lr`` behind a global-norm clip.  ``params`` is an
+                   sigma_lr_scale: Optional[float] = None,
+                   accum_steps: int = 1) -> ClippedOptimizer:
+    """Adam or AdamW at ``lr`` behind a global-norm clip (``OPTIMIZERS``;
+    the ``_fused`` names are the same optimizers).  ``params`` is an
     iterable of parameters or, as ``sigma_lr_scale`` needs it, of (name,
     parameter) pairs (``model.named_parameters()``).  The parameters must
     already lie on the device they train on: on CUDA the update is
@@ -94,16 +159,16 @@ def make_optimizer(params, optimizer: str = "adam", lr: float = 1e-3,
             {"params": [p for n, p in params if _is_sigma(n)],
              "lr": lr * sigma_lr_scale}]
     fused = all(p.device.type == "cuda" for g in groups for p in g["params"])
-    if optimizer == "adam":
-        inner = torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                 fused=fused)
-    elif optimizer == "adamw":
+    if optimizer not in OPTIMIZERS:
+        raise ValueError(optimizer)
+    if optimizer.startswith("adamw"):
         inner = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                   weight_decay=ADAMW_WEIGHT_DECAY,
                                   fused=fused)
     else:
-        raise ValueError(optimizer)
-    return ClippedOptimizer(inner, clip_norm)
+        inner = torch.optim.Adam(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 fused=fused)
+    return ClippedOptimizer(inner, clip_norm, accum_steps)
 
 
 @dataclass
@@ -123,10 +188,8 @@ def create_train_state(model: nn.Module, optimizer: str = "adam",
     weights) to ``device`` and build its optimizer.  ``device`` defaults to
     CUDA and raises when there is none; pass ``device="cpu"`` to train with
     the plain versions of the kernels."""
-    if accum_steps != 1:
-        raise NotImplementedError("gradient accumulation is not ported")
     device = resolve_device(device)
     model = model.to(device).train()
     tx = make_optimizer(model.named_parameters(), optimizer, lr, clip_norm,
-                        sigma_lr_scale)
+                        sigma_lr_scale, accum_steps)
     return TrainState(model=model, optimizer=tx, device=device)

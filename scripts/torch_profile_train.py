@@ -2,8 +2,8 @@
 """Where a train step's time goes in the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile_train.py [--out-dir profiles]
-        [--config flagship32|cnn4096|image256]
-        [--distribution clifford|gaussian|powerspherical]
+        [--config flagship32|cnn4096|image256|mnist_mlp]
+        [--distribution clifford|gaussian|powerspherical|normal]
 
 Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``), with
 ``--config cnn4096`` the ``CNNVAE`` at latent 4096 (a clifford latent on
@@ -22,6 +22,14 @@ class (attention forward and backward kernels, sampler and torus forward /
 backward kernels, GEMM, convolution, norm, optimizer, other).  The full
 per-kernel table goes to
 ``<out-dir>/profile_train_<config>[_<distribution>]_<dtype>[_<route>].txt``.
+
+``--config mnist_mlp`` is the MNIST sweep's ``MLPVAE`` at d 5 (h_dim 128,
+float32, Adam lr 1e-3, clip 1, batch 128, binarised synthetic images,
+beta 0.01 as the runner's warmup starts), clifford or, with
+``--distribution normal``, the normal latent with ``l2_normalize``: the
+same lines for its train step, then one more for an epoch of
+``fit_trials`` with 20 lanes (2048 training and 512 validation images),
+whose numbers are per epoch (``wall_ms_per_epoch`` ...).
 Imports nothing of JAX.
 """
 
@@ -67,16 +75,132 @@ def classify(name: str) -> str:
     return "other"
 
 
+def by_kernel_class(events):
+    """Device ms of the traced kernels, summed by ``classify``."""
+    out = {}
+    for e in events:
+        c = classify(e.name)
+        out[c] = out.get(c, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+MLP_BATCH, MLP_D, MLP_BETA = 128, 5, 0.01
+MLP_TRAIN, MLP_VAL, MLP_TRIALS = 2048, 512, 20  # the runner's 20 trials
+
+
+def report(name, out_dir, prof, events, walls, traced_walls, n, unit,
+           launches, **fields):
+    """Write the per-kernel table and print one JSON line per ``unit``
+    (a step or an epoch) of ``n`` traced units."""
+    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=60))
+    wall = statistics.median(walls)
+    busy = busy_us(events) / 1e3 / n
+    print(json.dumps({
+        **fields, f"wall_ms_per_{unit}": wall,
+        f"wall_ms_per_{unit}_profiled": statistics.median(traced_walls),
+        f"device_busy_ms_per_{unit}": busy,
+        "idle_share": 1.0 - busy / wall if wall else None,
+        f"kernels_per_{unit}": len(events) / n,
+        f"port_launches_per_{unit}": launches,
+        f"device_ms_per_{unit}_by_class": {
+            k: v / n for k, v in sorted(by_kernel_class(events).items())},
+    }), flush=True)
+
+
+def profile_mnist(args, out_dir, gen) -> int:
+    """The mnist_mlp cell: the MLPVAE train step, then a fit_trials epoch."""
+    from cliffordtpu_torch.kernels import attention, sampler, torus
+    from cliffordtpu_torch.nn.mlp_vae import MLPVAE
+    from cliffordtpu_torch.train import loop
+    from cliffordtpu_torch.train.state import create_train_state
+
+    dist = args.distribution
+    images = torch.rand(MLP_TRAIN + MLP_VAL, 784, generator=gen,
+                        device="cuda")
+    x = images[:MLP_BATCH]
+    beta = torch.full((), MLP_BETA, device="cuda")
+
+    def model(seed=0):
+        return MLPVAE(128, MLP_D, dist, dist == "normal", seed=seed)
+
+    st = create_train_state(model(), optimizer="adam", lr=1e-3)
+    step = loop.make_mlp_train_step(st.model, st.optimizer)
+
+    def timed_steps(first_key):
+        walls = []
+        for i in range(STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(x, (0, first_key + i), beta)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    for i in range(3):
+        step(x, (0, i), beta)
+    before = counts(attention, sampler, torus)
+    walls = timed_steps(10)
+    after = counts(attention, sampler, torus)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = timed_steps(20)
+    report(f"profile_train_mnist_mlp_{dist}", out_dir, prof,
+           kernel_events(prof), walls, traced, STEPS, "step",
+           {k: (after[k] - before[k]) / STEPS for k in after},
+           config="mnist_mlp", distribution=dist, dtype="float32",
+           batch=MLP_BATCH, d=MLP_D, steps=STEPS)
+
+    T = MLP_TRIALS
+    lanes = loop.stack_trial_states([
+        create_train_state(model(t), optimizer="adam", lr=1e-3)
+        for t in range(T)])
+    x_train, x_val = images[:MLP_TRAIN], images[MLP_TRAIN:]
+
+    def epochs(first_key, n=2):
+        walls = []
+        for e in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.fit_trials(lanes, [(first_key + e, t) for t in range(T)],
+                            x_train, x_val, epochs=1, batch_size=MLP_BATCH,
+                            beta_fn=lambda _: MLP_BETA)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return walls
+
+    epochs(0, 1)
+    before = counts(attention, sampler, torus)
+    walls = epochs(10)
+    after = counts(attention, sampler, torus)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = epochs(20)
+    report(f"profile_train_mnist_mlp_{dist}_trials{T}", out_dir, prof,
+           kernel_events(prof), walls, traced, 2, "epoch",
+           {k: (after[k] - before[k]) / 2 for k in after},
+           config="mnist_mlp", distribution=dist, dtype="float32",
+           batch=MLP_BATCH, d=MLP_D, trials=T, train=MLP_TRAIN,
+           val=MLP_VAL, steps_per_epoch=MLP_TRAIN // MLP_BATCH)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", default="profiles",
                     help="where the per-kernel tables go (relative paths "
                          "are taken from the repository root)")
     ap.add_argument("--config", default="flagship32",
-                    choices=("flagship32", "cnn4096", "image256"))
+                    choices=("flagship32", "cnn4096", "image256",
+                             "mnist_mlp"))
     ap.add_argument("--distribution", default="clifford",
-                    choices=("clifford", "gaussian", "powerspherical"))
+                    choices=("clifford", "gaussian", "powerspherical",
+                             "normal"))
     args = ap.parse_args()
+    mlp = args.config == "mnist_mlp"
+    if (mlp and args.distribution not in ("clifford", "normal")
+            or not mlp and args.distribution == "normal"):
+        ap.error("mnist_mlp takes clifford or normal; normal is the MLP's")
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 1
@@ -97,6 +221,8 @@ def main() -> int:
     out_dir = os.path.join(ROOT, args.out_dir)
     os.makedirs(out_dir, exist_ok=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.config == "mnist_mlp":
+        return profile_mnist(args, out_dir, gen)
     shape = ((4, 256, 256, 3) if args.config == "image256"
              else (BATCH, 32, 32, 1))
     x = torch.rand(*shape, generator=gen, device="cuda") * 2 - 1
@@ -141,34 +267,15 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             traced_walls = timed_steps(20)
-        events = kernel_events(prof)
-        by_class = {}
-        for e in events:
-            c = classify(e.name)
-            by_class[c] = by_class.get(c, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
-        wall = statistics.median(plain_walls)
-        busy = busy_us(events) / 1e3 / STEPS
         tag = str(dtype).replace("torch.", "")
         name = (f"profile_train_{args.config}"
                 + ("" if dist == "clifford" else f"_{dist}") + f"_{tag}"
                 + (f"_{route}" if len(routes) > 1 else ""))
-        with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
-            f.write(prof.key_averages().table(
-                sort_by="self_cuda_time_total", row_limit=60))
-        print(json.dumps({
-            "config": args.config, "distribution": dist, "dtype": tag,
-            "sampler": route, "batch": x.shape[0], "steps": STEPS,
-            "wall_ms_per_step": wall,
-            "wall_ms_per_step_profiled": statistics.median(traced_walls),
-            "device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / wall if wall else None,
-            "kernels_per_step": len(events) / STEPS,
-            "port_launches_per_step": {k: (after[k] - before[k]) / STEPS
-                                       for k in after},
-            "device_ms_per_step_by_class": {
-                k: v / STEPS for k, v in sorted(by_class.items())},
-        }), flush=True)
+        report(name, out_dir, prof, kernel_events(prof), plain_walls,
+               traced_walls, STEPS, "step",
+               {k: (after[k] - before[k]) / STEPS for k in after},
+               config=args.config, distribution=dist, dtype=tag,
+               sampler=route, batch=x.shape[0], steps=STEPS)
         del st, step
         torch.cuda.empty_cache()
     return 0

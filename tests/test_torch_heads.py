@@ -1,6 +1,7 @@
-"""The gaussian and powerspherical heads of the port's models, the KL of
-every pair and ``reparameterize`` for every latent, against the JAX
-package: cliffordtpu/nn/{reparam,conv_vae,vit_vae}.py and
+"""The gaussian and powerspherical heads of the port's models, the vmf
+head of ``CliffordARVAE``, the KL of every pair and ``reparameterize`` for
+every latent, against the JAX package:
+cliffordtpu/nn/{reparam,conv_vae,vit_vae}.py and
 cliffordtpu/distributions/kl.py.
 
 The models run at tiny widths (``CNNVAE`` at latent 16; the
@@ -168,9 +169,13 @@ def _port_model(family, dist, l2):
 CONFIGS = [("cnn", "gaussian", False), ("cnn", "gaussian", True),
            ("cnn", "powerspherical", False), ("vit", "gaussian", False),
            ("vit", "powerspherical", False)]
+# the vmf head of CliffordARVAE (the JAX module reads it as its clifford
+# head: raw means, a floored concentration (B, T) into VonMisesFisher);
+# CNNVAE has none
+VMF_CONFIGS = [("vit", "vmf", False)]
 
 
-@pytest.fixture(scope="module", params=CONFIGS,
+@pytest.fixture(scope="module", params=CONFIGS + VMF_CONFIGS,
                 ids=lambda c: "-".join(map(str, c)))
 def pair(request):
     """The JAX side of one model and head, computed in one jitted call:

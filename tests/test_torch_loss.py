@@ -143,6 +143,7 @@ def test_paths_not_ported_yet_raise():
     with pytest.raises(ValueError, match="unknown distribution"):
         reparameterize("beta", torch.from_numpy(mu), torch.from_numpy(kappa),
                        D)
+    # CliffordARVAE takes vmf as the JAX module does; CNNVAE has no vmf
+    # head, in the JAX package either
     with pytest.raises(ValueError, match="distribution"):
-        vit_vae.CliffordARVAE(latent_dim=4, image_size=32, in_channels=1,
-                              distribution="vmf")
+        conv_vae.CNNVAE(latent_dim=4, in_channels=1, distribution="vmf")

@@ -43,7 +43,10 @@ def test_importing_the_port_loads_no_jax():
             " cliffordtpu_torch.train.loop, cliffordtpu_torch.train.state,"
             " cliffordtpu_torch.nn.conv_vae, cliffordtpu_torch.nn.layers,"
             " cliffordtpu_torch.kernels.sampler,"
-            " cliffordtpu_torch.distributions.kl;"
+            " cliffordtpu_torch.distributions.kl,"
+            " cliffordtpu_torch.nn.mlp_vae, cliffordtpu_torch.nn.losses,"
+            " cliffordtpu_torch.train.schedules,"
+            " cliffordtpu_torch.data.loaders;"
             " bad = sorted(m for m in set(sys.modules) - before"
             f" if m.split('.')[0] in {FORBIDDEN!r});"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -67,10 +70,15 @@ def test_the_new_modules_and_scripts_are_covered():
                  "scripts/torch_bench_train.py",
                  "scripts/torch_profile_train.py",
                  "scripts/torch_profile_serving.py",
+                 "scripts/torch_trial_lanes.py",
                  "cliffordtpu_torch/distributions/normal.py",
                  "cliffordtpu_torch/distributions/gamma.py",
                  "cliffordtpu_torch/distributions/bessel.py",
-                 "cliffordtpu_torch/distributions/von_mises_fisher.py"):
+                 "cliffordtpu_torch/distributions/von_mises_fisher.py",
+                 "cliffordtpu_torch/nn/mlp_vae.py",
+                 "cliffordtpu_torch/nn/losses.py",
+                 "cliffordtpu_torch/train/schedules.py",
+                 "cliffordtpu_torch/data/loaders.py"):
         assert name in names, name
 
 

@@ -224,8 +224,12 @@ def test_sigma_group_needs_names_and_a_train_state_gives_them():
 
 def test_paths_not_ported_yet_and_missing_devices_raise(monkeypatch):
     model = _tiny_port()
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        state.create_train_state(model, accum_steps=2, device="cpu")
+    # gradient accumulation is ported (tests/test_torch_optim.py holds it
+    # against optax.MultiSteps); a cycle shorter than one step raises
+    assert state.create_train_state(model, accum_steps=2, device="cpu"
+                                    ).optimizer.accum_steps == 2
+    with pytest.raises(ValueError, match="accum_steps"):
+        state.make_optimizer(model.parameters(), "adam", accum_steps=0)
     with pytest.raises(ValueError):
         state.make_optimizer(model.parameters(), "sgd")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
