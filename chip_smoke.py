@@ -101,10 +101,33 @@ Phases, each printing one JSON line and each fatal when it fails:
             sequential ``fit`` (rtol 2e-4),
             the epoch times of both; ``compute_test_metrics`` with 10 IWAE
             samples finite;
+12. hybrid  the Fashion runner's ``--arch hybrid`` at the sweep's largest
+            latent: ``HybridVAE`` (32 px, channels [64, 128, 256], 64
+            tokens of latent 256), float32, batch 256 of seeded random
+            images: the three entry points (1 keyed sampler launch per
+            ``encode_z``, none otherwise; unit torus points; against the
+            plain versions), ``HYBRID_STEPS`` AdamW steps at lr 1e-3 (1
+            keyed sampler + 1 torus backward per step, a falling loss), the
+            first step against the plain versions (``TRAIN_BARS``), then
+            the gaussian and powerspherical heads (no kernel);
+13. checkpoint  resume: 5 steps straight against 3, ``save_checkpoint``,
+            ``load_checkpoint`` into a fresh model and optimizer and 2
+            more, bit-equal losses and parameters (under cuDNN's
+            deterministic algorithms; whether two straight runs differ
+            without them is reported), with AdamW and with the
+            learnable-beta sigma group under two-step accumulation;
+14. eval    the battery on the trained hybrid over seeded labelled images:
+            an item memory of 1000 flat latents (T x 2d = 32768),
+            bundle and role-filler capacity (20 trials), self-binding to
+            depth 40 by both unbindings, the per-class bundle test,
+            ``test_vsa_operations``, the pairwise and cross-class decodes,
+            kNN (torch backend) and class means; every number finite,
+            every accuracy in [0, 1], the keyed sampler launched;
 
 then the table of all six kernels as one JSON line (the attention kernels
 also on the heads' path and at image 256; the keyed sampler and the torus
-backward also at the MNIST shapes), the ``nvidia-smi`` line, and
+backward also at the MNIST shapes and at the hybrid's, R 16384 rows of d
+256), the ``nvidia-smi`` line, and
 last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
@@ -121,6 +144,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -1247,6 +1271,302 @@ def mlp_phase(kmods, mods):
     return per_d
 
 
+# the Fashion runner's --arch hybrid at the sweep's largest latent (4096 //
+# 16 = 256 per token, 8 x 8 tokens), batch 256, AdamW lr 1e-3 behind a
+# clip of 1 (powerspherical: lr 1e-4), float32
+HYBRID_LATENT = 256
+HYBRID_BATCH = 256
+HYBRID_TOKENS = 64
+HYBRID_LR = {"clifford": 1e-3, "gaussian": 1e-3, "powerspherical": 1e-4}
+HYBRID_STEPS = 5  # timed clifford steps, after one warm-up
+HYBRID_PER_STEP = {"sampler_keyed": 1, "torus_bwd": 1}
+HYBRID_REQUESTS = {
+    "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0], {}),
+    "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0], {"sampler_keyed": 1}),
+    "decode": (FLAGSHIP_REQUESTS["decode"][0], {}),
+}
+CKPT_STEPS, CKPT_SAVE_AT = 5, 3  # resume after step 3 of 5
+# eval_checkpoint.py's sampled protocol: an item memory of 1000 flat
+# sampled latents, 20 trials per capacity point, self-binding to depth 40
+# over 10 targets, kNN on 100 / 600 / 1000 training means
+EVAL_N_MEM, EVAL_TRIALS, EVAL_TRAIN = 1000, 20, 2000
+EVAL_DATA_SEED = 11
+
+
+def hybrid_model(hybrid_vae, head="clifford", seed=0, learn=False):
+    return hybrid_vae.HybridVAE(latent_dim=HYBRID_LATENT, in_channels=1,
+                                distribution=head, img_size=32,
+                                use_learnable_beta=learn, seed=seed)
+
+
+def labelled_images(n, seed):
+    """Seeded labelled synthetic images (n, 32, 32, 1) in [-1, 1] and their
+    labels: 10 class prototypes of uniform pixels, image i is prototype
+    y_i at 0.7 plus uniform noise at 0.3, y_i uniform over the classes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    protos = torch.rand(10, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
+    y = torch.randint(0, 10, (n,), generator=gen, device=DEVICE)
+    noise = torch.rand(n, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
+    return 0.7 * protos[y] + 0.3 * noise, y.cpu().numpy()
+
+
+def hybrid_phase(kmods, ops_torus, serving, conv_vae, hybrid_vae, state,
+                 loop, images):
+    """``HybridVAE`` at the full width: the three entry points (1 F launch
+    per ``encode_z``, float32 against the plain versions), clifford AdamW
+    steps (1 F + 1 D each, a falling loss, the first step against the
+    plain versions), then the gaussian and powerspherical heads (no
+    kernel).  Returns the clifford path's launch counts and its trained
+    state."""
+    attention, sampler, _ = kmods
+    t_phase = time.perf_counter()
+    label = "hybrid_fashion4096"
+    srv = serving.Serving(hybrid_model(hybrid_vae), device=DEVICE)
+    outs, lat, served = serve(kmods, srv, images, HYBRID_REQUESTS, label)
+    B, T, d = HYBRID_BATCH, HYBRID_TOKENS, HYBRID_LATENT
+    check(outs["encode_mu"].shape == (B, T * d)
+          and outs["encode_z"].shape == (B, T * 2 * d)
+          and outs["decode"].shape == (B, 32, 32, 1), f"{label} shapes")
+    norms = outs["encode_z"].reshape(B, T, 2 * d).norm(dim=-1)
+    check((norms - 1).abs().max().item() < 1e-4,
+          f"{label} encode_z: torus points are not of unit norm")
+    before = launch_counts(*kmods)
+    with plain_versions(attention, sampler, ops_torus), \
+            torch.inference_mode():
+        plain = {name: call(srv, images, (0, REQUESTS - 1), outs)
+                 for name, (call, _) in HYBRID_REQUESTS.items()}
+    check(launch_counts(*kmods) == before,
+          f"{label}: the plain requests launched a kernel")
+    serve_diffs = {k: (outs[k] - plain[k]).abs().max().item() for k in plain}
+    check(max(serve_diffs.values()) <= 5e-4,
+          f"{label}: serving with kernels vs plain: {serve_diffs} > 5e-4")
+    del srv, outs, plain
+    st = state.create_train_state(hybrid_model(hybrid_vae), "adamw",
+                                  HYBRID_LR["clifford"], device=DEVICE)
+    history, ms, stepped = train(
+        kmods, st, loop.make_cnn_train_step(st.model, st.optimizer),
+        HYBRID_PER_STEP, HYBRID_STEPS, images, f"{label} clifford")
+    first = train_check(kmods, ops_torus, conv_vae,
+                        lambda dtype: hybrid_model(hybrid_vae), images,
+                        label, bf16=False)
+    emit("hybrid", config=label, head="clifford", batch=B, tokens=T,
+         latent_dim=d, lr=HYBRID_LR["clifford"], serve_launches=served,
+         serve_median_ms={k: statistics.median(v[1:])
+                          for k, v in lat.items()},
+         serve_first_ms={k: v[0] for k, v in lat.items()},
+         kernels_vs_plain_serving=serve_diffs, steps=HYBRID_STEPS,
+         train_launches=stepped, per_step_launches=HYBRID_PER_STEP,
+         params_m=sum(p.numel() for p in st.model.parameters()) / 1e6,
+         median_ms_per_step=statistics.median(ms[1:]),
+         min_ms_per_step=min(ms[1:]), first_ms=ms[0],
+         first_losses=history[0], last_losses=history[-1],
+         first_step_total=first["total_loss"])
+    counts = {k: served.get(k, 0) + stepped.get(k, 0)
+              for k in set(served) | set(stepped)}
+    for head in ("gaussian", "powerspherical"):
+        srv = serving.Serving(hybrid_model(hybrid_vae, head), device=DEVICE)
+        h_outs, _, h_served = serve(kmods, srv, images, {
+            name: (call, {}) for name, (call, _) in
+            HYBRID_REQUESTS.items()}, f"{label} {head}", rounds=1)
+        check(h_outs["encode_z"].shape == (B, T * d), f"{label} {head} "
+                                                      f"encode_z shape")
+        del srv, h_outs
+        h_st = state.create_train_state(hybrid_model(hybrid_vae, head),
+                                        "adamw", HYBRID_LR[head],
+                                        device=DEVICE)
+        h_hist, h_ms, h_stepped = train(
+            kmods, h_st, loop.make_cnn_train_step(h_st.model,
+                                                  h_st.optimizer),
+            {}, HEAD_STEPS, images, f"{label} {head}", must_fall=False)
+        emit("hybrid", config=label, head=head, batch=B,
+             lr=HYBRID_LR[head], serve_launches=h_served,
+             steps=HEAD_STEPS, train_launches=h_stepped,
+             median_ms_per_step=statistics.median(h_ms[1:]),
+             first_losses=h_hist[0], last_losses=h_hist[-1])
+        del h_st
+    torch.cuda.empty_cache()
+    emit("hybrid_phase", seconds=time.perf_counter() - t_phase)
+    return counts, st
+
+
+def checkpoint_phase(kmods, checkpoint, hybrid_vae, state, loop, images,
+                     root):
+    """Resume on the card: ``CKPT_STEPS`` steps straight against
+    ``CKPT_SAVE_AT`` steps, a save, a load into a fresh model (another
+    seed) and optimizer, and the rest; losses and parameters bit-equal.
+    Once with plain AdamW, once with the learnable-beta sigma group and
+    two-step accumulation (the save falls in the middle of a cycle).
+    Two runs of the same steps are equal bit for bit only with cuDNN's
+    deterministic convolution algorithms, which the phase selects; it
+    first reports whether two straight runs differ without them."""
+    t_phase = time.perf_counter()
+    out = os.path.join(root, "build", "chip_smoke_checkpoint")
+    keys = [(0, 300 + i) for i in range(CKPT_STEPS)]
+    results = {}
+    saved_flags = (torch.backends.cudnn.deterministic,
+                   torch.backends.cudnn.benchmark)
+    for name, learn, accum in (("adamw", False, 1),
+                               ("sigma_group_accum2", True, 2)):
+        def fresh(seed):
+            return state.create_train_state(
+                hybrid_model(hybrid_vae, seed=seed, learn=learn), "adamw",
+                HYBRID_LR["clifford"],
+                sigma_lr_scale=0.1 if learn else None, accum_steps=accum,
+                device=DEVICE)
+
+        def steps(st, ks):
+            step = loop.make_cnn_train_step(st.model, st.optimizer)
+            return [step(images, k, 1.0)["total_loss"] for k in ks]
+
+        torch.backends.cudnn.deterministic = False
+        twice = [steps(fresh(0), keys) for _ in range(2)]
+        results[name] = dict(straight_runs_differ_without_flag=not all(
+            torch.equal(a, b) for a, b in zip(*twice)))
+        del twice
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        straight = fresh(0)
+        want = steps(straight, keys)
+        first = fresh(0)
+        got = steps(first, keys[:CKPT_SAVE_AT])
+        checkpoint.save_checkpoint(out, first, step=CKPT_SAVE_AT,
+                                   rng_key=keys[CKPT_SAVE_AT])
+        del first
+        resumed = fresh(1)
+        meta = checkpoint.restore_checkpoint(
+            resumed, checkpoint.load_checkpoint(out))
+        got += steps(resumed, keys[CKPT_SAVE_AT:])
+        same_loss = all(torch.equal(a, b) for a, b in zip(got, want))
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            resumed.model.state_dict().values(),
+            straight.model.state_dict().values()))
+        results[name].update(losses=[v.item() for v in got],
+                             bit_equal_losses=same_loss,
+                             bit_equal_params=same_params,
+                             micro_step=resumed.optimizer.micro_step,
+                             restored_step=meta["step"])
+        check(same_loss and same_params and meta["step"] == CKPT_SAVE_AT,
+              f"checkpoint {name}: resumed run differs: {results[name]}")
+        checkpoint.delete_checkpoint(out)
+        check(checkpoint.load_checkpoint(out) is None,
+              f"checkpoint {name}: not deleted")
+        del straight, resumed
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved_flags
+    torch.cuda.empty_cache()
+    emit("checkpoint", config="hybrid_fashion4096", steps=CKPT_STEPS,
+         save_after=CKPT_SAVE_AT, runs=results,
+         seconds=time.perf_counter() - t_phase)
+
+
+def depth_curve_ok(curve) -> bool:
+    """A binding-depth curve of cosines: finite at depth 1, every finite
+    value within [-1, 1] (to rounding), and once not finite never finite
+    again.  A flat latent of T unit torus points has norm sqrt(T) = 8, so
+    unbinding by the involution leaves float32's range after about 40 / 4
+    binds; the JAX package's curve degenerates at the same depths
+    (``tests/test_torch_eval.py``)."""
+    finite = [math.isfinite(v) for v in curve]
+    return (finite[0] and all(abs(v) <= 1 + 1e-5 for v, f in
+                              zip(curve, finite) if f)
+            and finite == sorted(finite, reverse=True))
+
+
+def eval_phase(kmods, mods, model):
+    """The battery on the trained hybrid over seeded labelled images:
+    ``collect_flat_z`` (a memory of ``EVAL_N_MEM`` flat latents of T * 2d),
+    bundle and role-filler capacity, self-binding (both unbindings), the
+    per-class bundle test, ``test_vsa_operations``, the pairwise and the
+    cross-class decodes, kNN with the torch backend and class means.
+    Every number finite, every accuracy in [0, 1].  Returns the launch
+    counts."""
+    adapters, binding, capacity, class_means, knn = mods
+    t_phase = time.perf_counter()
+    x, y = labelled_images(EVAL_TRAIN + EVAL_N_MEM, EVAL_DATA_SEED)
+    x_train, y_train = x[:EVAL_TRAIN], y[:EVAL_TRAIN]
+    x_test, y_test = x[EVAL_TRAIN:], y[EVAL_TRAIN:]
+    handle = adapters.ModelHandle(model.eval())
+    key = (0, 0)
+    timings, results = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = fn()
+        torch.cuda.synchronize()
+        timings[name] = time.perf_counter() - t0
+        return results[name]
+
+    zero_counts(*kmods)
+    memory, labels = timed("collect_flat_z", lambda: handle.collect_flat_z(
+        x_test, y_test, key, limit=EVAL_N_MEM))
+    check(memory.shape == (EVAL_N_MEM, HYBRID_TOKENS * 2 * HYBRID_LATENT)
+          and bool(torch.isfinite(memory).all()),
+          f"eval item memory {tuple(memory.shape)}")
+    results["collect_flat_z"] = list(memory.shape)
+    d_mem = memory.shape[-1]
+    curves = {
+        "bundle_capacity": lambda: capacity.test_bundle_capacity(
+            d=d_mem, n_items=EVAL_N_MEM, n_trials=EVAL_TRIALS,
+            item_memory=memory, key=key),
+        "role_filler": lambda: capacity.test_binding_unbinding_pairs(
+            d=d_mem, n_items=EVAL_N_MEM, n_trials=EVAL_TRIALS,
+            item_memory=memory, key=key),
+    }
+    for name, fn in curves.items():
+        res = timed(name, fn)
+        check(all(0.0 <= a <= 1.0 for a in res["accuracy"])
+              and all(math.isfinite(s) for s in res["std"]),
+              f"eval {name}: {res}")
+    for method in ("*", "†"):
+        res = timed(f"self_binding[{method}]", lambda: binding
+                    .test_self_binding(handle, x_test[:500], y_test[:500],
+                                       unbind_method=method, key=key))
+        for curve in ("k_sims", "self_k_sims"):
+            check(len(res[curve]) == 40 and depth_curve_ok(res[curve]),
+                  f"eval self_binding {method} {curve}: {res[curve]}")
+            res[f"{curve}_finite_depths"] = sum(
+                math.isfinite(v) for v in res[curve])
+    res = timed("per_class", lambda: capacity
+                .test_per_class_bundle_capacity_k_items(
+                    d=HYBRID_LATENT, n_items=EVAL_N_MEM, n_classes=10,
+                    items_per_class=1, item_memory=memory, labels=labels,
+                    key=key))
+    check(bool(np.isfinite(res["avg_similarity_matrix"]).all())
+          and res["n_bundles"] == 10, "eval per_class")
+    results["per_class"] = {"n_bundles": res["n_bundles"],
+                            "diag_mean": float(np.diag(
+                                res["avg_similarity_matrix"]).mean())}
+    for name, fn in (
+            ("vsa_operations", lambda: binding.test_vsa_operations(
+                handle, x_test, y_test, key=key)),
+            ("pairwise", lambda: binding.test_pairwise_bind_bundle_decode(
+                handle, x_test[:500], y_test[:500], key=key)),
+            ("cross_class", lambda: binding.test_cross_class_bind_unbind(
+                handle, x_test[:500], y_test[:500], class_a=5, class_b=6,
+                key=key))):
+        res = timed(name, fn)
+        check(all(math.isfinite(v) for v in res.values()
+                  if isinstance(v, float)), f"eval {name}: {res}")
+    res = timed("knn", lambda: knn.perform_knn_evaluation(
+        handle, x_train, y_train, x_test, y_test, (100, 600, 1000),
+        backend="torch", rng=np.random.default_rng(0), key=key))
+    check(all(0.0 <= v <= 1.0 for v in res.values()), f"eval knn: {res}")
+    acc = timed("mean_vector_cosine", lambda: class_means
+                .evaluate_mean_vector_cosine(
+                    handle, x_test, y_test, class_means.compute_class_means(
+                        handle, x_train, y_train, key=key), key=key)[0])
+    check(0.0 <= acc <= 1.0, f"eval mean_vector_cosine {acc}")
+    counts = launched_since_zero(kmods)
+    check(counts.get("sampler_keyed", 0) > 0,
+          f"eval: the keyed sampler never launched: {counts}")
+    emit("eval", config="hybrid_fashion4096", n_mem=EVAL_N_MEM,
+         trials=EVAL_TRIALS, train=EVAL_TRAIN, launches=counts,
+         results=results, seconds=timings,
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1255,10 +1575,24 @@ def main() -> int:
     sys.path.insert(0, root)
     from cliffordtpu_torch import random as trandom
     from cliffordtpu_torch import serving
+    from cliffordtpu_torch.eval import (
+        adapters,
+        binding,
+        class_means,
+        knn,
+    )
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
-    from cliffordtpu_torch.nn import conv_vae, losses, mlp_vae, rope, vit_vae
+    from cliffordtpu_torch.nn import (
+        conv_vae,
+        hybrid_vae,
+        losses,
+        mlp_vae,
+        rope,
+        vit_vae,
+    )
     from cliffordtpu_torch.ops import torus as ops_torus
-    from cliffordtpu_torch.train import loop, schedules, state
+    from cliffordtpu_torch.train import checkpoint, loop, schedules, state
+    from cliffordtpu_torch.vsa import capacity
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1334,6 +1668,16 @@ def main() -> int:
                                                MLP_BATCH, d, True, gen)
         emit("kernel", kernel="torus_bwd", shape="mnist_mlp",
              **mnist["torus_bwd", d])
+    # F and D at the hybrid's shape: R = batch x tokens rows of d 256, one
+    # kappa per row (per token) read in place over the angles
+    hybrid_rows = HYBRID_BATCH * HYBRID_TOKENS
+    hybrid = {
+        "sampler_keyed": sampler_case(sampler, "keyed", hybrid_rows,
+                                      HYBRID_LATENT, True, gen),
+        "torus_bwd": torus_bwd_case(torus, sampler, ops_torus, hybrid_rows,
+                                    HYBRID_LATENT, True, gen)}
+    for name, case in hybrid.items():
+        emit("kernel", kernel=name, shape="hybrid_fashion4096", **case)
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -1437,6 +1781,18 @@ def main() -> int:
                               trandom, images, gen)
     mlp_counts = mlp_phase(
         kmods, (loop, state, mlp_vae, losses, schedules, trandom))
+    hybrid_images = torch.rand(HYBRID_BATCH, 32, 32, 1, generator=gen,
+                               device=DEVICE) * 2 - 1
+    hybrid_counts, hybrid_state = hybrid_phase(
+        kmods, ops_torus, serving, conv_vae, hybrid_vae, state, loop,
+        hybrid_images)
+    checkpoint_phase(kmods, checkpoint, hybrid_vae, state, loop,
+                     hybrid_images, root)
+    eval_counts = eval_phase(
+        kmods, (adapters, binding, capacity, class_means, knn),
+        hybrid_state.model)
+    del hybrid_state
+    torch.cuda.empty_cache()
     att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
                                           260, 8, 64, torch.bfloat16, True,
                                           gen)
@@ -1451,6 +1807,8 @@ def main() -> int:
                        for c in pair)
         if path == "image256":
             return sum(c[name] for c in image_counts[dtype])
+        if path == "hybrid_fashion4096":  # the path and the eval battery
+            return hybrid_counts.get(name, 0) + eval_counts.get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
             return mlp_counts[int(path.split(",d")[1])].get(name, 0)
         served, stepped = ((runs, trained) if path == "flagship32"
@@ -1512,6 +1870,12 @@ def main() -> int:
                     "sampler_pallas.py:356" if name == "sampler_keyed"
                     else "torus_pallas.py:154", case),
             "shape": "mnist_mlp", "R": case["R"], "d": d})
+    for name, case in hybrid.items():
+        kernels.append({
+            **entry(name, "hybrid_fashion4096", f"{name}.cu",
+                    "sampler_pallas.py:356" if name == "sampler_keyed"
+                    else "torus_pallas.py:154", case),
+            "shape": "hybrid_fashion4096", "R": case["R"], "d": case["d"]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-"""Carry JAX ``CliffordARVAE``, ``CNNVAE`` or ``MLPVAE`` parameters, or a
-gradient tree of the same layout, into the port's modules.
+"""Carry JAX ``CliffordARVAE``, ``CNNVAE``, ``HybridVAE`` or ``MLPVAE``
+parameters, or a gradient tree of the same layout, into the port's
+modules.
 
 Input is the flat dict that ``cliffordtpu/serving.py::_flatten_params``
 writes to ``params.npz`` (keys like
@@ -19,7 +20,9 @@ in JAX's NHWC order (``nn/conv_vae.py``), so the encoder's heads and the
 decoder's first Dense are plain Dense kernels here, with no permutation of
 their rows or columns.  The encoder's second head, ``encoder/Dense_1``, is
 ``log_var`` (width d) for the gaussian latent and ``kappa`` (width 1) for
-the others; the widths of ``quant_proj``, ``post_quant_proj`` and the
+the others.  ``HybridVAE``'s heads are 1x1 convolutions: ``fc_mu`` and
+``fc_logvar`` (gaussian) or ``fc_kappa`` (the others), whichever the tree
+holds.  The widths of ``quant_proj``, ``post_quant_proj`` and the
 decoder's first Dense follow the latent and are checked when the state
 dict is loaded.
 
@@ -200,6 +203,36 @@ def cnnvae_rules(flat, distribution: str = "clifford") -> List[Rule]:
     ]
 
 
+def hybrid_up_block_rules() -> List[Rule]:
+    """``HybridResUpBlock``: one GroupNorm + convolution residual after the
+    shortcut, where ``res_up_block_rules`` has two."""
+    return [*_gn("norm1", "GroupNorm_0"),
+            ("conv1.weight", "ConvTranspose_0/kernel", _conv_t),
+            *_gn("norm2", "GroupNorm_1"),
+            ("conv2.weight", "Conv_0/kernel", _conv),
+            ("shortcut.weight", "ConvTranspose_1/kernel", _conv_t),
+            *_gn("norm3", "GroupNorm_2"),
+            ("conv3.weight", "Conv_1/kernel", _conv)]
+
+
+def hybridvae_rules(flat) -> List[Rule]:
+    heads = [h for h in ("fc_mu", "fc_logvar", "fc_kappa")
+             if f"encoder/{h}/kernel" in flat]
+    return [
+        ("encoder.input_conv.weight", "encoder/input_conv/kernel", _conv),
+        *[r for i in range(_count(flat, "encoder/down")) for r in _nest(
+            res_down_block_rules(), f"encoder.down.{i}", f"encoder/down_{i}")],
+        *[r for h in heads for r in _bias(f"encoder.{h}", f"encoder/{h}",
+                                          _conv)],
+        ("decoder.input_proj.weight", "decoder/input_proj/kernel", _dense),
+        *[r for i in range(_count(flat, "decoder/up")) for r in _nest(
+            hybrid_up_block_rules(), f"decoder.up.{i}", f"decoder/up_{i}")],
+        *_gn("decoder.norm_out", "decoder/GroupNorm_0"),
+        *_bias("decoder.output_conv", "decoder/output_conv", _conv),
+        *_sigma_rules(flat),
+    ]
+
+
 def convert(flat: Dict[str, np.ndarray], rules: List[Rule]
             ) -> Dict[str, torch.Tensor]:
     """Apply ``rules`` to ``flat``; every key of ``flat`` must be used."""
@@ -230,6 +263,14 @@ def cnnvae_from_jax(flat: Dict[str, np.ndarray],
     return convert(flat, cnnvae_rules(flat, distribution))
 
 
+def hybridvae_from_jax(flat: Dict[str, np.ndarray]
+                       ) -> Dict[str, torch.Tensor]:
+    """JAX ``HybridVAE`` params (flat ``params.npz`` keys) -> a state dict
+    for ``cliffordtpu_torch.nn.hybrid_vae.HybridVAE``; a flat JAX gradient
+    tree -> the gradients of the port's parameters, by name."""
+    return convert(flat, hybridvae_rules(flat))
+
+
 def mlpvae_from_jax(flat: Dict[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """JAX ``MLPVAE`` params (flat keys ``"enc1/kernel"``, ...) -> a state
@@ -242,10 +283,18 @@ def mlpvae_from_jax(flat: Dict[str, np.ndarray]
 
 def from_jax(flat: Dict[str, np.ndarray], distribution: str = "clifford"
              ) -> Dict[str, torch.Tensor]:
-    """``mlpvae_from_jax``, ``cnnvae_from_jax`` or ``cliffordar_from_jax``,
-    by the tree's own keys."""
+    """``mlpvae_from_jax``, ``hybridvae_from_jax``, ``cnnvae_from_jax`` or
+    ``cliffordar_from_jax``, by keys that only that family's tree holds:
+    ``enc1/kernel`` (``MLPVAE``), ``encoder/input_conv/kernel``
+    (``HybridVAE``), ``encoder/ResBlock_0/Conv_0/kernel`` (``CNNVAE``),
+    ``encoder_vit/...`` (``CliffordARVAE``)."""
     if "enc1/kernel" in flat:
         return mlpvae_from_jax(flat)
-    if any(k.startswith("encoder/") for k in flat):
+    if "encoder/input_conv/kernel" in flat:
+        return hybridvae_from_jax(flat)
+    if "encoder/ResBlock_0/Conv_0/kernel" in flat:
         return cnnvae_from_jax(flat, distribution)
-    return cliffordar_from_jax(flat)
+    if any(k.startswith("encoder_vit/") for k in flat):
+        return cliffordar_from_jax(flat)
+    raise ValueError(f"a JAX tree of no ported family: "
+                     f"{sorted(flat)[:8]}")

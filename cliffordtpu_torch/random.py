@@ -28,6 +28,9 @@ jax 0.9):
 * ``permutation(key, n)`` is ``jax._src.random._shuffle`` on a range:
   ceil(3 ln n / ln(2**32 - 1)) rounds, each splitting the key, drawing
   32-bit sort keys and sorting stably by them;
+* ``randint`` is ``jax._src.random._randint`` at int32: two halves of a
+  split, 32 bits each, reduced modulo the span in wrapping uint32
+  arithmetic;
 * flax's first ``make_rng("sample")`` in a root module is
   ``fold_in(rng, 3213575472)`` (``sample_key``): the first four bytes of
   the SHA-1 of the counter 1, which ``flax.core.scope._fold_in_static``
@@ -174,6 +177,27 @@ def permutation(key: Key, n: int, device=None) -> torch.Tensor:
         order = torch.sort(random_bits(sub, (n,), device), stable=True)[1]
         x = x[order]
     return x
+
+
+def randint(key: Key, shape: Sequence[int], minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) bit for
+    bit, as an int64 tensor: the key splits in two, each half draws 32
+    bits per element, and with span = maxval - minval (1 when maxval <=
+    minval) and m = (2**16 % span)**2 % span the offset is ((hi % span) *
+    m + lo % span) % span, every product and sum wrapping in uint32 as
+    jax forms them (so m is 0 for a span above 2**16)."""
+    if not -2 ** 31 <= minval <= maxval <= 2 ** 31 - 1:
+        raise ValueError(f"[{minval}, {maxval}) must be an int32 range")
+    k_hi, k_lo = split_words(key)
+    hi = random_bits(k_hi, shape, device)
+    lo = random_bits(k_lo, shape, device)
+    span = max(maxval - minval, 1)
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span  # 0 for span > 2**16
+    a = hi % span  # < span < 2**32; a * mult wraps mod 2**32
+    prod = (a * (mult & 0xFFFF) + (((a * (mult >> 16)) & 0xFFFF) << 16)) \
+        & _MASK
+    return minval + ((prod + lo % span) & _MASK) % span
 
 
 def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,

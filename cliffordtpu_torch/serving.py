@@ -1,8 +1,9 @@
 """The three inference entry points of a model (port of
 ``cliffordtpu/serving.py:125-153``), on the card by default.
 
-``Serving`` holds one ``CliffordARVAE`` (T tokens per image) or ``CNNVAE``
-(T = 1), with any of their latents, on one device and answers:
+``Serving`` holds one ``CliffordARVAE`` or ``HybridVAE`` (T tokens per
+image, ``num_tokens``) or ``CNNVAE`` (T = 1), with any of their latents,
+on one device and answers:
 
 * ``encode_mu(x)``      images (B, H, W, C) -> means (B, T*d): the mean
                         angles of a clifford latent

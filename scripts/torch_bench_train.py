@@ -3,7 +3,7 @@
 of ``bench.py --config flagship32`` and ``--config cnn4096``.
 
     python3 scripts/torch_bench_train.py
-        [--config flagship32|cnn4096|mnist_mlp]
+        [--config flagship32|cnn4096|hybrid_fashion4096|mnist_mlp]
         [--dtype bfloat16|float32] [--sampler keyed|unfused|rng]
         [--distribution clifford|normal]
 
@@ -11,7 +11,11 @@ Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``: 32 px,
 1 channel, latent 16) or the cnn4096 ``CNNVAE`` (32 px, 1 channel, latent
 4096), seeded random weights, batch 64, AdamW at lr 1e-4 behind a
 global-norm clip of 1, beta 1, the reparameterised draw through the named
-sampler route.  ``--config mnist_mlp`` is the MNIST sweep's ``MLPVAE`` at
+sampler route.  ``--config hybrid_fashion4096`` is the Fashion runner's
+``--arch hybrid`` at the sweep's largest latent: ``HybridVAE`` (32 px, 1
+channel, channels [64, 128, 256], 64 tokens of latent 256), float32 only
+(the model has no other compute dtype), batch 256, AdamW at lr 1e-3.
+``--config mnist_mlp`` is the MNIST sweep's ``MLPVAE`` at
 d 5 (h_dim 128, float32, batch 128, Adam lr 1e-3, clip 1, binarised
 synthetic images, beta 0.01; ``--distribution`` clifford or normal with
 ``l2_normalize``), and its line also gives the throughput of
@@ -43,12 +47,15 @@ WARMUP_STEPS = 3
 MEASURE_STEPS = 30
 N_WINDOWS = 3
 LR = 1e-4
+# the Fashion runner's batch and AdamW rate (cliffordtpu/configs)
+HYBRID_BATCH, HYBRID_LR = 256, 1e-3
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="flagship32",
-                    choices=("flagship32", "cnn4096", "mnist_mlp"))
+                    choices=("flagship32", "cnn4096", "hybrid_fashion4096",
+                             "mnist_mlp"))
     ap.add_argument("--sampler", default="keyed",
                     choices=("keyed", "unfused", "rng"),
                     help="route of the reparameterised draw")
@@ -65,6 +72,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
     from cliffordtpu_torch.nn.conv_vae import CNNVAE
+    from cliffordtpu_torch.nn.hybrid_vae import HybridVAE
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
     from cliffordtpu_torch.train.loop import make_cnn_train_step
     from cliffordtpu_torch.train.state import create_train_state
@@ -78,18 +86,25 @@ def main() -> int:
     build.build_all()
     if args.config == "mnist_mlp":
         return bench_mnist(args, smi, t0)
+    batch, lr = BATCH, LR
+    if args.config == "hybrid_fashion4096":
+        args.dtype = "float32"
+        batch, lr = HYBRID_BATCH, HYBRID_LR
     dtype = getattr(torch, args.dtype)
-    if args.config == "cnn4096":
+    if args.config == "hybrid_fashion4096":
+        model = HybridVAE(latent_dim=256, in_channels=1, img_size=32,
+                          sampler=args.sampler, seed=0)
+    elif args.config == "cnn4096":
         model = CNNVAE(latent_dim=4096, in_channels=1, img_size=32,
                        sampler=args.sampler, compute_dtype=dtype, seed=0)
     else:
         model = CliffordARVAE(latent_dim=16, image_size=32, in_channels=1,
                               sampler=args.sampler, compute_dtype=dtype,
                               seed=0)
-    st = create_train_state(model, optimizer="adamw", lr=LR)
+    st = create_train_state(model, optimizer="adamw", lr=lr)
     step = make_cnn_train_step(st.model, st.optimizer)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand(BATCH, 32, 32, 1, generator=gen, device="cuda") * 2 - 1
+    x = torch.rand(batch, 32, 32, 1, generator=gen, device="cuda") * 2 - 1
     beta = torch.ones((), device="cuda")
     for i in range(WARMUP_STEPS):
         losses = step(x, (0, i), beta)
@@ -117,13 +132,15 @@ def main() -> int:
     n = N_WINDOWS * MEASURE_STEPS
     sps = statistics.median(windows)
     print(json.dumps({
-        "metric": ("cnn_vae_d4096" if args.config == "cnn4096"
-                   else "cliffordar_vae") + "_train_steps_per_sec_b64_32px",
+        "metric": {"cnn4096": "cnn_vae_d4096",
+                   "hybrid_fashion4096": "hybrid_vae_d256x64"}.get(
+                       args.config, "cliffordar_vae")
+        + f"_train_steps_per_sec_b{batch}_32px",
         "config": args.config, "sampler": args.sampler,
         "steps_per_sec": sps, "ms_per_step": 1e3 / sps,
         "windows_steps_per_sec": windows, "best_steps_per_sec": max(windows),
-        "compute_dtype": args.dtype, "batch": BATCH, "optimizer": "adamw",
-        "lr": LR, "warmup_steps": WARMUP_STEPS,
+        "compute_dtype": args.dtype, "batch": batch, "optimizer": "adamw",
+        "lr": lr, "warmup_steps": WARMUP_STEPS,
         "measure_steps": MEASURE_STEPS, "n_windows": N_WINDOWS,
         "build_and_warmup_s": setup_s,
         "params_m": sum(p.numel() for p in st.model.parameters()) / 1e6,

@@ -2,14 +2,16 @@
 """Where a train step's time goes in the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile_train.py [--out-dir profiles]
-        [--config flagship32|cnn4096|image256|mnist_mlp]
+        [--config flagship32|cnn4096|image256|hybrid_fashion4096|mnist_mlp]
         [--distribution clifford|gaussian|powerspherical|normal]
 
 Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``), with
 ``--config cnn4096`` the ``CNNVAE`` at latent 4096 (a clifford latent on
 each of its three sampler routes), or with ``--config image256`` the
 ``CliffordARVAE`` of ``default_config(256)`` (batch 4, S 260: the dense
-attention route), with the ``--distribution`` latent, seeded random
+attention route), or with ``--config hybrid_fashion4096`` the Fashion
+runner's ``HybridVAE`` at latent 256 per token (64 tokens, batch 256,
+AdamW lr 1e-3, float32 only), with the ``--distribution`` latent, seeded random
 weights, in float32 and in bfloat16 compute, takes 3 warm-up AdamW steps
 at batch 64 (lr 1e-4, clip 1), times 5 steps without the profiler, then
 traces 5 more with ``torch.profiler``.  For each dtype it prints one JSON
@@ -192,7 +194,7 @@ def main() -> int:
                          "are taken from the repository root)")
     ap.add_argument("--config", default="flagship32",
                     choices=("flagship32", "cnn4096", "image256",
-                             "mnist_mlp"))
+                             "hybrid_fashion4096", "mnist_mlp"))
     ap.add_argument("--distribution", default="clifford",
                     choices=("clifford", "gaussian", "powerspherical",
                              "normal"))
@@ -207,6 +209,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
     from cliffordtpu_torch.nn.conv_vae import CNNVAE
+    from cliffordtpu_torch.nn.hybrid_vae import HybridVAE
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
     from cliffordtpu_torch.train.loop import make_cnn_train_step
     from cliffordtpu_torch.train.state import create_train_state
@@ -223,8 +226,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.config == "mnist_mlp":
         return profile_mnist(args, out_dir, gen)
+    hybrid = args.config == "hybrid_fashion4096"
     shape = ((4, 256, 256, 3) if args.config == "image256"
-             else (BATCH, 32, 32, 1))
+             else (256 if hybrid else BATCH, 32, 32, 1))
     x = torch.rand(*shape, generator=gen, device="cuda") * 2 - 1
     beta = torch.ones((), device="cuda")
     dist = args.distribution
@@ -232,9 +236,12 @@ def main() -> int:
               if args.config == "cnn4096" and dist == "clifford"
               else (None,))
 
-    for dtype, route in ((dt, r) for dt in (torch.float32, torch.bfloat16)
-                         for r in routes):
-        if args.config == "cnn4096":
+    dtypes = (torch.float32,) if hybrid else (torch.float32, torch.bfloat16)
+    for dtype, route in ((dt, r) for dt in dtypes for r in routes):
+        if hybrid:
+            model = HybridVAE(latent_dim=256, in_channels=1, img_size=32,
+                              distribution=dist, seed=0)
+        elif args.config == "cnn4096":
             model = CNNVAE(latent_dim=4096, in_channels=1, img_size=32,
                            distribution=dist, sampler=route,
                            compute_dtype=dtype, seed=0)
@@ -246,7 +253,8 @@ def main() -> int:
             model = CliffordARVAE(latent_dim=16, image_size=32,
                                   in_channels=1, distribution=dist,
                                   compute_dtype=dtype, seed=0)
-        st = create_train_state(model, optimizer="adamw", lr=1e-4)
+        st = create_train_state(model, optimizer="adamw",
+                                lr=1e-3 if hybrid else 1e-4)
         step = make_cnn_train_step(st.model, st.optimizer)
 
         def timed_steps(first_key):

@@ -46,7 +46,14 @@ def test_importing_the_port_loads_no_jax():
             " cliffordtpu_torch.distributions.kl,"
             " cliffordtpu_torch.nn.mlp_vae, cliffordtpu_torch.nn.losses,"
             " cliffordtpu_torch.train.schedules,"
-            " cliffordtpu_torch.data.loaders;"
+            " cliffordtpu_torch.data.loaders,"
+            " cliffordtpu_torch.nn.hybrid_vae,"
+            " cliffordtpu_torch.train.checkpoint,"
+            " cliffordtpu_torch.vsa.ops, cliffordtpu_torch.vsa.capacity,"
+            " cliffordtpu_torch.eval.adapters, cliffordtpu_torch.eval.prior,"
+            " cliffordtpu_torch.eval.class_means,"
+            " cliffordtpu_torch.eval.knn, cliffordtpu_torch.eval.binding,"
+            " cliffordtpu_torch.utils;"
             " bad = sorted(m for m in set(sys.modules) - before"
             f" if m.split('.')[0] in {FORBIDDEN!r});"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -78,8 +85,32 @@ def test_the_new_modules_and_scripts_are_covered():
                  "cliffordtpu_torch/nn/mlp_vae.py",
                  "cliffordtpu_torch/nn/losses.py",
                  "cliffordtpu_torch/train/schedules.py",
-                 "cliffordtpu_torch/data/loaders.py"):
+                 "cliffordtpu_torch/data/loaders.py",
+                 "cliffordtpu_torch/nn/hybrid_vae.py",
+                 "cliffordtpu_torch/train/checkpoint.py",
+                 "cliffordtpu_torch/vsa/ops.py",
+                 "cliffordtpu_torch/vsa/capacity.py",
+                 "cliffordtpu_torch/eval/adapters.py",
+                 "cliffordtpu_torch/eval/prior.py",
+                 "cliffordtpu_torch/eval/class_means.py",
+                 "cliffordtpu_torch/eval/knn.py",
+                 "cliffordtpu_torch/eval/binding.py",
+                 "cliffordtpu_torch/utils.py"):
         assert name in names, name
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_plotting_or_sklearn_import_at_module_level(path):
+    """The card has neither scikit-learn nor matplotlib: a module imports
+    them, if at all, inside the function that a caller asks for them."""
+    top = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            top.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module.split(".")[0])
+    assert not top & {"sklearn", "matplotlib"}, sorted(top)
 
 
 def test_entry_points_without_a_device_need_cuda(monkeypatch):
