@@ -123,11 +123,31 @@ Phases, each printing one JSON line and each fatal when it fails:
             ``test_vsa_operations``, the pairwise and cross-class decodes,
             kNN (torch backend) and class means; every number finite,
             every accuracy in [0, 1], the keyed sampler launched;
+15. fid     ``cifar_fid4096``: ``scripts/cifar10_train.py``'s ``CNNVAE``
+            at its largest latent (4096, 32 px, 3 channels, seeded
+            weights) scored by ``compute_fid`` as the CNN runner calls it
+            (2048 prior draws in batches of 256 against 2048 seeded
+            labelled images of CIFAR's shape): one launch of the torus
+            forward per prior batch and nothing else; the decodes and the
+            FID against the same run with the plain embedding
+            (``FID_DECODE_BAR``, ``FID_REL_BAR``); the seed-42 surrogate
+            and InceptionV3 on a seeded random-weight npz that the phase
+            writes to a temporary directory (``$CLIFFORDTPU_INCEPTION`` set
+            for that call only; its features on two images against the
+            port's CPU run, ``INCEPTION_CPU_BAR``); the host Fréchet
+            distance at 512 and 2048 features; the trained hybrid scored
+            alike (per token at d 256: no kernel); then the device half of
+            each plot (manifold grid of 144 rows, prior grid,
+            reconstructions, interpolations, fixed-pair interpolations,
+            decoded bundles: torus forward and keyed sampler), each canvas
+            finite in [0, 1].  No figure is drawn: the card has no
+            matplotlib;
 
 then the table of all six kernels as one JSON line (the attention kernels
 also on the heads' path and at image 256; the keyed sampler and the torus
 backward also at the MNIST shapes and at the hybrid's, R 16384 rows of d
-256), the ``nvidia-smi`` line, and
+256; the torus forward and the keyed sampler at cifar_fid4096's, R 256 and
+R 200 of d 4096), the ``nvidia-smi`` line, and
 last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
@@ -142,6 +162,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1299,14 +1320,17 @@ def hybrid_model(hybrid_vae, head="clifford", seed=0, learn=False):
                                 use_learnable_beta=learn, seed=seed)
 
 
-def labelled_images(n, seed):
-    """Seeded labelled synthetic images (n, 32, 32, 1) in [-1, 1] and their
-    labels: 10 class prototypes of uniform pixels, image i is prototype
-    y_i at 0.7 plus uniform noise at 0.3, y_i uniform over the classes."""
+def labelled_images(n, seed, channels=1):
+    """Seeded labelled synthetic images (n, 32, 32, channels) in [-1, 1]
+    and their labels: 10 class prototypes of uniform pixels, image i is
+    prototype y_i at 0.7 plus uniform noise at 0.3, y_i uniform over the
+    classes."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    protos = torch.rand(10, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
+    protos = torch.rand(10, 32, 32, channels, generator=gen,
+                        device=DEVICE) * 2 - 1
     y = torch.randint(0, 10, (n,), generator=gen, device=DEVICE)
-    noise = torch.rand(n, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
+    noise = torch.rand(n, 32, 32, channels, generator=gen,
+                       device=DEVICE) * 2 - 1
     return 0.7 * protos[y] + 0.3 * noise, y.cpu().numpy()
 
 
@@ -1567,6 +1591,237 @@ def eval_phase(kmods, mods, model):
     return counts
 
 
+# scripts/cifar10_train.py's CNN at its largest latent, scored as the CNN
+# runner scores it (cnn_runner.py: compute_fid with --fid_samples 2048,
+# batch 256), on seeded labelled images of CIFAR's shape
+FID_LATENT = 4096
+FID_SAMPLES, FID_BATCH = 2048, 256
+FID_SHAPE = (32, 32, 3)
+FID_DATA_SEED = 13
+FID_GRID = 12  # the manifold grid: 144 rows of d 4096
+FID_INTERP_PAIRS, FID_INTERP_STEPS = 5, 10
+FID_BUNDLE_SAMPLES = 500
+FID_ENCODE_ROWS = 200  # plot_decoded_bundles encodes 200 images at a time
+INCEPTION_RATE_IMAGES = 512  # images timed through InceptionV3 alone
+# prior decodes with kernel C against the plain embedding: C lies within
+# 1e-5 of the plain version per coordinate (kernels phase) and the float32
+# decoder (TF32 off) carries that to about that size on [0, 1] images; the
+# FID, a distance between feature statistics of those images, within 1e-3
+# of itself
+FID_DECODE_BAR, FID_REL_BAR = 1e-4, 1e-3
+# the card's InceptionV3 features against the port's CPU run of the same
+# weights: 94 float32 layers (TF32 off) summed in another order, 1e-4 of
+# the largest feature (the CPU tests hold the port against JAX at 1e-4 and
+# measure 4e-7)
+INCEPTION_CPU_BAR = 1e-4
+
+
+def cifar_fid4096(conv_vae):
+    return conv_vae.CNNVAE(latent_dim=FID_LATENT, in_channels=3,
+                           img_size=32, distribution="clifford", seed=0)
+
+
+def random_inception_npz(path, param_spec, seed=0):
+    """InceptionV3 weights of the npz layout from a seed: He-scaled convs
+    and an identity-like BatchNorm with a ReLU gain, so input differences
+    survive all 94 layers (the recipe of tests/test_inception.py)."""
+    rng = np.random.RandomState(seed)
+    arrs = {}
+    for key, shape in param_spec().items():
+        if key.endswith("running_var"):
+            arrs[key] = np.ones(shape, np.float32)
+        elif key.endswith("running_mean"):
+            arrs[key] = np.zeros(shape, np.float32)
+        elif key.endswith("bn.weight"):
+            arrs[key] = np.full(shape, 1.4, np.float32)
+        elif key.endswith("bn.bias"):
+            arrs[key] = (rng.randn(*shape) * 0.02).astype(np.float32)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            arrs[key] = (rng.randn(*shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+    np.savez(path, **arrs)
+    return path
+
+
+@contextlib.contextmanager
+def inception_weights(path):
+    """``$CLIFFORDTPU_INCEPTION`` set to ``path`` for the calls inside, or
+    unset there when ``path`` is None."""
+    saved = os.environ.pop("CLIFFORDTPU_INCEPTION", None)
+    if path is not None:
+        os.environ["CLIFFORDTPU_INCEPTION"] = path
+    try:
+        yield
+    finally:
+        os.environ.pop("CLIFFORDTPU_INCEPTION", None)
+        if saved is not None:
+            os.environ["CLIFFORDTPU_INCEPTION"] = saved
+
+
+def canvas_ok(canvas) -> bool:
+    return bool(np.isfinite(canvas).all() and canvas.min() >= 0
+                and canvas.max() <= 1)
+
+
+def fid_phase(kmods, mods, ops_torus, conv_vae, hybrid):
+    """``cifar_fid4096`` scored on the card: ``compute_fid`` with the
+    surrogate (8 prior batches of 256 through kernel C), the same with the
+    plain embedding (decodes and FID held against C's), InceptionV3 on a
+    seeded random-weight npz (its features on two images against the
+    port's CPU run), the host Fréchet distance at 512 and 2048 features,
+    the trained hybrid scored alike (per token at d 256: no kernel), then
+    the device half of each plot.  Returns the launch counts of the main
+    path (``compute_fid`` and the plots) and the phase's numbers."""
+    adapters, fid, inception, plots = mods
+    attention, sampler, _ = kmods
+    t_phase = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    handle = adapters.ModelHandle(cifar_fid4096(conv_vae).to(DEVICE).eval())
+    x, y = labelled_images(FID_SAMPLES, FID_DATA_SEED, channels=3)
+    args = (handle, x, "clifford", FID_LATENT)
+    kw = dict(in_channels=3, n_samples=FID_SAMPLES, batch_size=FID_BATCH,
+              key=(0, 0))
+    with inception_weights(None):
+        zero_counts(*kmods)
+        res = timed("compute_fid", lambda: fid.compute_fid(*args, **kw))
+        counts = launched_since_zero(kmods)
+        n_batches = FID_SAMPLES // FID_BATCH
+        check(counts == {"torus_fwd": n_batches},
+              f"fid: compute_fid launched {counts}, expected "
+              f"{n_batches} torus_fwd (one per prior batch)")
+        check(res["fid_features"] == "random_conv"
+              and math.isfinite(res["fid"]), f"fid: {res}")
+        try:  # "inception" without an npz raises, never a surrogate
+            fid.compute_fid(*args, **{**kw, "n_samples": FID_BATCH},
+                            feature_extractor="inception")
+            check(False, "fid: inception without an npz did not raise")
+        except RuntimeError as e:
+            check("CLIFFORDTPU_INCEPTION" in str(e), f"fid: {e}")
+        fakes = timed("prior_decodes", lambda: fid.prior_decodes(
+            handle, "clifford", FID_LATENT, FID_SAMPLES, FID_BATCH, (0, 0),
+            FID_SHAPE))
+        with plain_versions(attention, sampler, ops_torus):
+            before = launch_counts(*kmods)
+            plain_fakes = timed("prior_decodes_plain", lambda: fid
+                                .prior_decodes(handle, "clifford", FID_LATENT,
+                                               FID_SAMPLES, FID_BATCH, (0, 0),
+                                               FID_SHAPE))
+            plain = fid.compute_fid(*args, **kw)
+            check(launch_counts(*kmods) == before,
+                  "fid: the plain run launched a kernel")
+    decode_err = float(np.abs(fakes - plain_fakes).max())
+    fid_rel = abs(res["fid"] - plain["fid"]) / abs(plain["fid"])
+    check(fakes.shape == (FID_SAMPLES, *FID_SHAPE) and canvas_ok(fakes),
+          "fid: prior decodes not finite images in [0, 1]")
+    check(decode_err <= FID_DECODE_BAR,
+          f"fid: decodes with C vs plain: {decode_err} > {FID_DECODE_BAR}")
+    check(fid_rel <= FID_REL_BAR,
+          f"fid: FID with C vs plain: {fid_rel} > {FID_REL_BAR} relative")
+    real01 = np.clip(x.cpu().numpy() * 0.5 + 0.5, 0, 1)
+    f_real = timed("random_conv_real", lambda: fid._get_features(
+        real01, "random_conv", device=DEVICE))
+    f_fake = fid._get_features(fakes, "random_conv", device=DEVICE)
+    stats = (f_real.mean(0), np.cov(f_real, rowvar=False), f_fake.mean(0),
+             np.cov(f_fake, rowvar=False))
+    surrogate = timed("frechet_512", lambda: fid._frechet(*stats))
+    check(abs(surrogate - res["fid"]) <= FID_REL_BAR * abs(res["fid"]),
+          f"fid: the surrogate FID {surrogate} again vs {res['fid']}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = random_inception_npz(os.path.join(tmp, "inception.npz"),
+                                   inception.param_spec)
+        with inception_weights(npz):
+            net = timed("inception_load", lambda: fid.inception_net(DEVICE))
+            inc = timed("compute_fid_inception", lambda: fid.compute_fid(
+                *args, **kw))
+            # the rate once cuDNN has chosen its algorithms for every layer
+            feats = timed("inception_rate", lambda: inception
+                          .inception_features(
+                              real01[:INCEPTION_RATE_IMAGES], net))
+        check(inc["fid_features"] == "inception"
+              and math.isfinite(inc["fid"]), f"fid inception: {inc}")
+        cpu_net = inception.InceptionV3Features(
+            inception.load_inception_params(npz), "cpu")
+        on_cpu = inception.inception_features(real01[:2], cpu_net, batch=2)
+    inc_err = float(np.abs(feats[:2] - on_cpu).max() / np.abs(on_cpu).max())
+    check(feats.shape == (INCEPTION_RATE_IMAGES, inception.FEATURE_DIM)
+          and bool(np.isfinite(feats).all()), "fid: inception features")
+    check(inc_err <= INCEPTION_CPU_BAR, f"fid: inception features on the "
+          f"card vs the CPU: {inc_err} > {INCEPTION_CPU_BAR} of the scale")
+    # the host Fréchet distance at 2048 features (two eigh of 2048 x 2048)
+    inc_stats = (feats.mean(0), np.cov(feats, rowvar=False))
+    timed("frechet_2048", lambda: fid._frechet(*inc_stats, *inc_stats))
+    del net, cpu_net, feats
+    fid._INCEPTION_CACHE.clear()
+
+    hx, _ = labelled_images(FID_SAMPLES, FID_DATA_SEED + 1)
+    hybrid_handle = adapters.ModelHandle(hybrid.eval())
+    zero_counts(*kmods)
+    hyb = timed("compute_fid_hybrid", lambda: fid.compute_fid(
+        hybrid_handle, hx, "clifford", hybrid.latent_dim, in_channels=1,
+        n_samples=FID_SAMPLES, batch_size=FID_BATCH, key=(0, 0),
+        feature_extractor="random_conv"))
+    check(math.isfinite(hyb["fid"]) and not launched_since_zero(kmods),
+          f"fid hybrid: {hyb}, launches {launched_since_zero(kmods)}")
+
+    zero_counts(*kmods)
+    pairs = plots.get_fixed_interp_pairs(x[:200], y[:200],
+                                         n_pairs=FID_INTERP_PAIRS)
+    canvases = {
+        "manifold": lambda: plots.clifford_manifold_canvas(
+            handle, FID_GRID, img_shape=FID_SHAPE),
+        "prior_samples": lambda: plots.prior_sample_canvas(
+            handle, 64, img_shape=FID_SHAPE),
+        "reconstructions": lambda: plots.reconstructions_canvas(
+            handle, x, img_shape=FID_SHAPE),
+        "interpolations": lambda: plots.interpolations_canvas(
+            handle, x, y, img_shape=FID_SHAPE),
+        "latent_interpolations": lambda: plots.latent_interpolation_canvases(
+            handle, pairs, FID_INTERP_STEPS, img_shape=FID_SHAPE),
+        "decoded_bundles": lambda: plots.decoded_bundle_images(
+            handle, x, y, FID_BUNDLE_SAMPLES)[0],
+    }
+    shapes = {}
+    for name, fn in canvases.items():
+        out = timed(f"plot_{name}", fn)
+        for label, canvas in ({f"{name}[{k}]": v for k, v in out.items()}
+                              .items() if isinstance(out, dict)
+                              else ((name, out),)):
+            check(canvas_ok(canvas), f"fid plot {label}: not finite in "
+                                     f"[0, 1]")
+            shapes[label] = list(canvas.shape)
+    plot_counts = launched_since_zero(kmods)
+    check(set(plot_counts) == {"torus_fwd", "sampler_keyed"},
+          f"fid plots: launches {plot_counts}")
+    counts = {k: counts.get(k, 0) + plot_counts.get(k, 0)
+              for k in set(counts) | set(plot_counts)}
+    del handle, hybrid_handle
+    torch.cuda.empty_cache()
+    emit("fid", config="cifar_fid4096", latent_dim=FID_LATENT,
+         n_samples=FID_SAMPLES, batch=FID_BATCH, fid_random_conv=res["fid"],
+         fid_random_conv_plain=plain["fid"], fid_rel_kernel_vs_plain=fid_rel,
+         decode_err_kernel_vs_plain=decode_err,
+         fid_inception_random_weights=inc["fid"],
+         fid_features={"surrogate": res["fid_features"],
+                       "inception": "inception (random weights)"},
+         inception_images_per_s=INCEPTION_RATE_IMAGES
+         / secs["inception_rate"], inception_card_vs_cpu=inc_err,
+         fid_hybrid=hyb["fid"], launches=counts, plot_launches=plot_counts,
+         canvases=shapes, seconds=secs,
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1579,7 +1834,10 @@ def main() -> int:
         adapters,
         binding,
         class_means,
+        fid,
+        inception,
         knn,
+        plots,
     )
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
     from cliffordtpu_torch.nn import (
@@ -1678,6 +1936,15 @@ def main() -> int:
                                     HYBRID_LATENT, True, gen)}
     for name, case in hybrid.items():
         emit("kernel", kernel=name, shape="hybrid_fashion4096", **case)
+    # C and F at cifar_fid4096's shapes: a prior batch (R 256 of d 4096) and
+    # the decoded bundles' encode batch (R 200, one kappa per row)
+    fid_cases = {
+        "torus_fwd": torus_fwd_case(torus, ops_torus, FID_BATCH, FID_LATENT,
+                                    gen),
+        "sampler_keyed": sampler_case(sampler, "keyed", FID_ENCODE_ROWS,
+                                      FID_LATENT, True, gen)}
+    for name, case in fid_cases.items():
+        emit("kernel", kernel=name, shape="cifar_fid4096", **case)
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -1791,6 +2058,8 @@ def main() -> int:
     eval_counts = eval_phase(
         kmods, (adapters, binding, capacity, class_means, knn),
         hybrid_state.model)
+    fid_counts = fid_phase(kmods, (adapters, fid, inception, plots),
+                           ops_torus, conv_vae, hybrid_state.model)
     del hybrid_state
     torch.cuda.empty_cache()
     att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
@@ -1809,6 +2078,8 @@ def main() -> int:
             return sum(c[name] for c in image_counts[dtype])
         if path == "hybrid_fashion4096":  # the path and the eval battery
             return hybrid_counts.get(name, 0) + eval_counts.get(name, 0)
+        if path == "cifar_fid4096":  # compute_fid and the plots
+            return fid_counts.get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
             return mlp_counts[int(path.split(",d")[1])].get(name, 0)
         served, stepped = ((runs, trained) if path == "flagship32"
@@ -1876,6 +2147,12 @@ def main() -> int:
                     "sampler_pallas.py:356" if name == "sampler_keyed"
                     else "torus_pallas.py:154", case),
             "shape": "hybrid_fashion4096", "R": case["R"], "d": case["d"]})
+    for name, case in fid_cases.items():
+        kernels.append({
+            **entry(name, "cifar_fid4096", f"{name}.cu",
+                    "torus_pallas.py:126" if name == "torus_fwd"
+                    else "sampler_pallas.py:356", case),
+            "shape": "cifar_fid4096", "R": case["R"], "d": case["d"]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,6 +21,11 @@ from torch import nn
 from cliffordtpu_torch import random
 
 
+def to_numpy(x) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 @dataclasses.dataclass
 class ModelHandle:
     model: nn.Module
@@ -69,6 +74,18 @@ class ModelHandle:
     def decode(self, z) -> torch.Tensor:
         """The decoder on flat (per-token) latents."""
         return self.model.decode(self._input(z))
+
+    def to_image(self, x_recon: torch.Tensor) -> torch.Tensor:
+        """Decoder output -> [0, 1] by the model family's activation:
+        sigmoid for ``MLPVAE``'s logits, (x + 1) / 2 clipped for the tanh
+        CNN decoders."""
+        if type(self.model).__name__ == "MLPVAE":
+            return torch.sigmoid(x_recon)
+        return torch.clamp(x_recon * 0.5 + 0.5, 0, 1)
+
+    def decode_images(self, z, img_shape) -> np.ndarray:
+        """decode(z) as (N, *img_shape) images in [0, 1], numpy."""
+        return to_numpy(self.to_image(self.decode(z))).reshape(-1, *img_shape)
 
     def collect_flat_z(self, x, y, key, limit: int = 200, batch: int = 100):
         """Up to ``limit`` examples as flat sampled latents, batch s (at

@@ -3,12 +3,16 @@ cliffordtpu/eval on the same weights, inputs and keys: ModelHandle over
 the tiny HybridVAE (clifford, 16 tokens of latent 4) and a tiny MLPVAE
 (clifford, d 5), prior sampling, class means, kNN (the port's "torch"
 backend against JAX's "jax" backend on the same numpy rng) and the
-numbers of the four binding experiments.  Bars: latents, means and
+numbers of the four binding experiments, with their plots drawn by both
+packages under the same file names, and the HRR / unitary baseline
+curves of the self-binding plot.  Bars: latents, means and
 decodes 5e-4 (whole stacks); prior draws 1e-5 (the normals' erfinv);
 similarities after one bind 1e-5, along the depth curves 1e-4 (FFT
 rounding grows with every bind), 1e-3 for the deconvolution's (it
 divides by each partner's spectrum); kNN predictions, accuracies and the
 nearest-mean accuracy exactly."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -153,25 +157,35 @@ def test_knn_evaluation_matches_the_jax_backend(handles):
         tknn.perform_knn_evaluation(th, x, y, x, y, (10,), backend="jax")
 
 
+def _plots(result, root):
+    """The plot paths of a battery result, relative to its output dir."""
+    return {k: (None if v is None else os.path.relpath(v, root))
+            for k, v in result.items() if "plot" in k}
+
+
 @pytest.mark.parametrize("handles", ["hybrid"], indirect=True)
 def test_binding_battery_matches_jax(handles, tmp_path):
     """The numbers of ``test_self_binding`` (both unbindings),
     ``test_vsa_operations``, ``test_pairwise_bind_bundle_decode`` and
-    ``test_cross_class_bind_unbind``; the JAX functions also draw their
-    plots into a temporary directory, the port's take none."""
+    ``test_cross_class_bind_unbind``, and their plots: both packages draw
+    into directories of their own, and the port's files bear the JAX
+    package's names."""
     _, jh, th, x, y = handles
     shape = (IMG, IMG, 1)
     k = np.asarray(KEY)
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
     for method in ("*", "†"):
-        got = tbinding.test_self_binding(th, x, y, k_self_bind=4,
-                                         unbind_method=method, n_trials=3,
-                                         key=k)
-        want = jbinding.test_self_binding(jh, x, y, str(tmp_path),
+        got = tbinding.test_self_binding(th, x, y, str(tdir), k_self_bind=4,
+                                         unbind_method=method, img_shape=shape,
+                                         n_trials=3, key=k)
+        want = jbinding.test_self_binding(jh, x, y, str(jdir),
                                           k_self_bind=4,
                                           unbind_method=method,
                                           img_shape=shape, n_trials=3,
                                           key=KEY)
         assert got["k_values"] == want["k_values"] == [1, 2, 3, 4]
+        assert _plots(got, tdir) == _plots(want, jdir)
+        assert got["recon_after_k_binds_plot_path"] is not None
         # the deconvolution divides by every partner's spectrum: each side
         # lies about 1e-4 from the float64 curve on these latents
         bar = 1e-4 if method == "*" else 1e-3
@@ -193,26 +207,56 @@ def test_binding_battery_matches_jax(handles, tmp_path):
         self_want = np.asarray(jbinding._depth_curve_jit(
             targets, jnp.repeat(targets[:, None], 4, 1), method)).mean(0)
         _close(np.array(got["self_k_sims"]), self_want, 1e-4)
-    got = tbinding.test_vsa_operations(th, x, y, n_test_pairs=10, key=k)
-    want = jbinding.test_vsa_operations(jh, x, y, str(tmp_path),
+    got = tbinding.test_vsa_operations(th, x, y, str(tdir), n_test_pairs=10,
+                                       key=k)
+    want = jbinding.test_vsa_operations(jh, x, y, str(jdir),
                                         n_test_pairs=10, key=KEY)
     assert abs(got["vsa_bind_unbind_similarity"]
                - want["vsa_bind_unbind_similarity"]) <= 1e-5
-    got = tbinding.test_pairwise_bind_bundle_decode(th, x, y, key=k)
+    assert _plots(got, tdir) == _plots(want, jdir)
+    got = tbinding.test_pairwise_bind_bundle_decode(th, x, y, str(tdir),
+                                                    img_shape=shape, key=k)
     want = jbinding.test_pairwise_bind_bundle_decode(
-        jh, x, y, str(tmp_path), img_shape=shape, key=KEY)
+        jh, x, y, str(jdir), img_shape=shape, key=KEY)
     assert abs(got["avg_unbind_similarity"]
                - want["avg_unbind_similarity"]) <= 1e-5
-    got = tbinding.test_cross_class_bind_unbind(th, x, y, class_a=1,
-                                                class_b=3, key=k)
+    assert _plots(got, tdir) == _plots(want, jdir)
+    got = tbinding.test_cross_class_bind_unbind(th, x, y, str(tdir),
+                                                class_a=1, class_b=3,
+                                                img_shape=shape, key=k)
     want = jbinding.test_cross_class_bind_unbind(
-        jh, x, y, str(tmp_path), class_a=1, class_b=3, img_shape=shape,
+        jh, x, y, str(jdir), class_a=1, class_b=3, img_shape=shape,
         key=KEY)
     for name, value in want.items():
         if isinstance(value, float):
             assert abs(got[name] - value) <= 1e-5, name
-    with pytest.raises(NotImplementedError, match="output_dir"):
-        tbinding.test_vsa_operations(th, x, y, str(tmp_path), key=k)
+    assert _plots(got, tdir) == _plots(want, jdir)
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    # without an output directory: the numbers alone, no plot
+    got = tbinding.test_vsa_operations(th, x, y, n_test_pairs=10, key=k)
+    assert got["vsa_bind_unbind_plot"] is None
+
+
+@pytest.mark.parametrize("method", ["*", "†"])
+def test_binding_baselines_match_jax(method):
+    """The HRR and random-unitary curves that the self-binding plot draws,
+    against the JAX function's inline computation (split, fold_in by the
+    name's hash, ``hrr_init`` / ``unitary_init``, the depth curve)."""
+    from cliffordtpu.utils import stable_hash
+    from cliffordtpu.vsa.ops import hrr_init, unitary_init
+
+    k_base = jax.random.split(KEY, 4)[2]
+    got = tbinding._baseline_curves(tuple(np.asarray(k_base).tolist()), 5, 32,
+                                    3, method, "cpu")
+    for bname, init_fn in (("HRR (Random)", hrr_init),
+                           ("Random Unitary", unitary_init)):
+        bkeys = jax.random.split(
+            jax.random.fold_in(k_base, stable_hash(bname) % 97), 3)
+        bvecs = jax.vmap(lambda kk: jbinding.normalize_vectors(
+            init_fn(kk, 6, 32)))(bkeys)
+        want = np.asarray(jbinding._depth_curve_jit(
+            bvecs[:, 0], bvecs[:, 1:], method))
+        _close(got[bname], want, 1e-4)
 
 
 def test_depth_curve_degenerates_where_jax_does():

@@ -53,6 +53,8 @@ def test_importing_the_port_loads_no_jax():
             " cliffordtpu_torch.eval.adapters, cliffordtpu_torch.eval.prior,"
             " cliffordtpu_torch.eval.class_means,"
             " cliffordtpu_torch.eval.knn, cliffordtpu_torch.eval.binding,"
+            " cliffordtpu_torch.eval.fid, cliffordtpu_torch.eval.inception,"
+            " cliffordtpu_torch.eval.plots, cliffordtpu_torch.eval.tables,"
             " cliffordtpu_torch.utils;"
             " bad = sorted(m for m in set(sys.modules) - before"
             f" if m.split('.')[0] in {FORBIDDEN!r});"
@@ -95,6 +97,10 @@ def test_the_new_modules_and_scripts_are_covered():
                  "cliffordtpu_torch/eval/class_means.py",
                  "cliffordtpu_torch/eval/knn.py",
                  "cliffordtpu_torch/eval/binding.py",
+                 "cliffordtpu_torch/eval/fid.py",
+                 "cliffordtpu_torch/eval/inception.py",
+                 "cliffordtpu_torch/eval/plots.py",
+                 "cliffordtpu_torch/eval/tables.py",
                  "cliffordtpu_torch/utils.py"):
         assert name in names, name
 

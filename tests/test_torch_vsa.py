@@ -4,7 +4,11 @@ random.randint / random.permutation bit for bit against jax.random at the
 battery's shapes.  Each op at d 64 and d 65 (odd: no Nyquist bin) within
 1e-6; the capacity curves from the same key and the same numpy item
 memory: every trial of these draws decides alike on both sides, so the
-accuracies agree to the float32 rounding of their mean (1e-6)."""
+accuracies agree to the float32 rounding of their mean (1e-6).  With
+``plot=True`` both packages draw the same files, the capacity plots'
+HRR and unitary baselines from the same keys."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -130,8 +134,6 @@ def test_bundle_capacity_matches_jax(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcap.test_bundle_capacity(key=np.asarray(key), **kw)
-    with pytest.raises(NotImplementedError, match="plot"):
-        tcap.test_bundle_capacity(plot=True, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("random_roles,braiding,method", [
@@ -172,3 +174,50 @@ def test_per_class_similarity_matrix_matches_jax(braid):
         assert got["n_bundles"] == want["n_bundles"]
         assert np.abs(got["avg_similarity_matrix"]
                       - want["avg_similarity_matrix"]).max() <= 1e-5
+
+
+def test_capacity_plots_match_jax(tmp_path, monkeypatch):
+    """``plot=True`` in each experiment: the curves as without it, the same
+    file names in ``save_dir``, and the baselines the capacity plots
+    recompute (from fold_in(key, 999 / 998), then stable_hash of the
+    name) equal to the JAX ones, captured where each package's plot
+    helper calls the experiment again."""
+    key = jax.random.PRNGKey(6)
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    labels = np.random.default_rng(2).integers(0, 3, 60)
+    images = np.random.default_rng(3).uniform(-1, 1, (60, 4, 4, 1))
+    runs = [("test_bundle_capacity", dict(k_range=[16], n_trials=3)),
+            ("test_binding_unbinding_pairs",
+             dict(k_range=[12], n_trials=3)),
+            ("test_per_class_bundle_capacity_k_items",
+             dict(n_classes=3, items_per_class=2, labels=labels,
+                  item_images=images))]
+    seen = {"jax": [], "port": []}
+    for side, mod in (("jax", jcap), ("port", tcap)):
+        for name in ("test_bundle_capacity", "test_binding_unbinding_pairs"):
+            real = getattr(mod, name)
+
+            def wrapped(*args, real=real, side=side, **kw):
+                out = real(*args, **kw)
+                if kw.get("plot") is False:  # a baseline of the plot
+                    seen[side].append(out)
+                return out
+
+            monkeypatch.setattr(mod, name, wrapped)
+    for name, kw in runs:
+        kw = dict(d=64, n_items=60, item_memory=MEM, plot=True, **kw)
+        want = getattr(jcap, name)(key=key, save_dir=jdir, **kw)
+        got = getattr(tcap, name)(key=np.asarray(key), save_dir=tdir,
+                                  device="cpu", **kw)
+        if "k" in want:
+            _curves_equal(got, want)
+        else:
+            assert np.abs(got["avg_similarity_matrix"]
+                          - want["avg_similarity_matrix"]).max() <= 1e-6
+    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir)) == [
+        "bundle_capacity.png", "bundle_similarity_matrix.png",
+        "role_filler_capacity.png"]
+    assert len(seen["port"]) == len(seen["jax"]) == 4
+    for got, want in zip(seen["port"], seen["jax"]):
+        _curves_equal(got, want)
+    assert min(a for r in seen["jax"] for a in r["accuracy"]) < 1.0
