@@ -142,12 +142,33 @@ Phases, each printing one JSON line and each fatal when it fails:
             decoded bundles: torus forward and keyed sampler), each canvas
             finite in [0, 1].  No figure is drawn: the card has no
             matplotlib;
+16. runner  ``run_cnn_experiments`` as a user runs it, ``CNNVAE`` at the
+            sweep's largest latent (4096) and the runners' batch 256: the
+            Fashion runner's parser on the committed MNIST shard
+            (``--dataset mnist32``, 1500 / 297 digits, 2 epochs, in
+            process, ``data_source`` "real") and the CIFAR-10 runner's on
+            its synthetic fallback (1024 / 512, 1 epoch) with
+            ``--eval_subprocess`` (the battery in the port's
+            ``eval_checkpoint`` child, on the card); matplotlib replaced by
+            a recorder (``PLOT_RECORDER``: calls ignored, every image shown
+            finite), so only ``HOST_DRAWING_STAGES`` (t-SNE, for want of
+            scikit-learn) may fail, and their device halves run here.  Per
+            run: one torus backward per train step, the keyed sampler at
+            least once per train step and test batch, the torus forward at
+            least once per prior batch of ``compute_fid``; no other
+            ``warning:`` line; the artifact set with every battery number
+            filled in; then the runner's step at batch 256 (host wall and
+            device time) and one epoch of ``train_model`` with the kernels
+            against the plain versions (best loss within
+            ``RUNNER_LOSS_REL``, cuDNN deterministic);
 
 then the table of all six kernels as one JSON line (the attention kernels
 also on the heads' path and at image 256; the keyed sampler and the torus
 backward also at the MNIST shapes and at the hybrid's, R 16384 rows of d
 256; the torus forward and the keyed sampler at cifar_fid4096's, R 256 and
-R 200 of d 4096), the ``nvidia-smi`` line, and
+R 200 of d 4096; the keyed sampler, the torus backward and the torus
+forward at runner_fashion4096's, R 256 of d 4096), the ``nvidia-smi``
+line, and
 last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
@@ -156,6 +177,7 @@ the repository beside it, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -164,6 +186,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1822,6 +1845,453 @@ def fid_phase(kmods, mods, ops_torus, conv_vae, hybrid):
     return counts
 
 
+# the runner phase: the Fashion runner's CNN at the sweep's largest latent
+# (scripts/fashion_train.py --arch cnn --latent_dims 4096, batch 256), run
+# as a user runs it, through cliffordtpu_torch.runners.cnn_runner
+RUNNER_LATENT, RUNNER_BATCH = 4096, 256
+RUNNER_FASHION_EPOCHS = 2
+# the committed shard: 1500 train and 297 test digits
+RUNNER_SHARD_TRAIN, RUNNER_SHARD_TEST = 1500, 297
+RUNNER_CIFAR_TRAIN, RUNNER_CIFAR_TEST = 1024, 512
+
+
+def runner_argv(script, epochs, *extra):
+    """A runner's command line: clifford at ``RUNNER_LATENT``, batch
+    ``RUNNER_BATCH``, one trial, no early stop; the card unless the phase
+    runs elsewhere (``DEVICE``)."""
+    return ([] if script == "cifar10" else ["--dataset", "mnist32",
+                                            "--arch", "cnn"]) + [
+        "--latent_dims", str(RUNNER_LATENT), "--distributions", "clifford",
+        "--batch_size", str(RUNNER_BATCH), "--epochs", str(epochs),
+        "--n_trials", "1", "--patience", "0", "--no_wandb", *extra] + (
+        [] if DEVICE.type == "cuda" else ["--device", str(DEVICE)])
+
+RUNNER_STEP_TIMES = 5  # timed steps of the runner's step, after a warm-up
+# the runner's one epoch with the kernels against the same epoch with the
+# plain versions, same initial weights, cuDNN deterministic: best loss
+RUNNER_LOSS_REL = 1e-4
+# stages whose host drawing half may fail on the card, and only for want
+# of these modules (matplotlib is replaced by PLOT_RECORDER, so of the
+# drawing halves only t-SNE, scikit-learn's, is left)
+HOST_DRAWING_STAGES = {"tsne": ("sklearn",)}
+# a stand-in for matplotlib that the phase puts first on the path, of its
+# own process and of the eval_checkpoint child: every call is accepted and
+# ignored, except that an image shown must be finite
+PLOT_RECORDER = {
+    "__init__.py": '''"""A stand-in for matplotlib (chip_smoke's runner phase)."""
+
+
+def use(*args, **kw):
+    pass
+''',
+    "pyplot.py": '''"""A recorder in place of pyplot: calls are accepted and ignored; an
+image shown must be finite."""
+import numpy as np
+
+
+class _Rec:
+    def __init__(self, *args, **kw):
+        pass
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self
+
+    def __call__(self, *args, **kw):
+        return self
+
+    def __getitem__(self, idx):
+        return self
+
+    def imshow(self, img, *args, **kw):
+        if not np.isfinite(np.asarray(img, np.float64)).all():
+            raise ValueError("an image shown is not finite")
+        return self
+
+
+def subplots(nrows=1, ncols=1, **kw):
+    if nrows == ncols == 1:
+        return _Rec(), _Rec()
+    axes = np.empty((nrows, ncols), object)
+    for idx in np.ndindex(axes.shape):
+        axes[idx] = _Rec()
+    return _Rec(), axes.squeeze()
+
+
+def imshow(img, *args, **kw):
+    return _Rec().imshow(img)
+
+
+def __getattr__(name):
+    return _Rec()
+''',
+    "gridspec.py": '''"""GridSpec of the pyplot recorder."""
+from matplotlib.pyplot import _Rec as GridSpec  # noqa: F401
+'''}
+
+
+@contextlib.contextmanager
+def plot_recorder(tmp):
+    """``PLOT_RECORDER`` written under ``tmp`` and put first on the path of
+    this process and, through ``$PYTHONPATH``, of its children."""
+    base = os.path.join(tmp, "plot_recorder")
+    os.makedirs(os.path.join(base, "matplotlib"))
+    for name, text in PLOT_RECORDER.items():
+        with open(os.path.join(base, "matplotlib", name), "w") as f:
+            f.write(text)
+    saved_env = os.environ.get("PYTHONPATH")
+    saved_mods = {k: sys.modules.pop(k) for k in list(sys.modules)
+                  if k.split(".")[0] == "matplotlib"}
+    sys.path.insert(0, base)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (base, saved_env) if p)
+    try:
+        yield
+    finally:
+        sys.path.remove(base)
+        for k in [k for k in sys.modules if k.split(".")[0] == "matplotlib"]:
+            del sys.modules[k]
+        sys.modules.update(saved_mods)
+        if saved_env is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = saved_env
+
+
+def stage_warnings(text):
+    """The runner's ``warning:`` lines, split into those of the host
+    drawing stages that failed for want of a listed module, and the
+    rest."""
+    allowed, other = [], []
+    for line in text.splitlines():
+        if not line.startswith("warning:"):
+            continue
+        label = line[len("warning: "):].split(" failed", 1)[0]
+        mods = HOST_DRAWING_STAGES.get(label, ())
+        if "ModuleNotFoundError" in line and any(
+                f"'{m}" in line for m in mods):
+            allowed.append(line)
+        else:
+            other.append(line)
+    return allowed, other
+
+
+def runner_artifacts_ok(outdir, dataset, source, label):
+    """The runner's artifact set under ``outdir``, every battery number
+    filled in; returns (metrics, timing)."""
+    exp_dir = os.path.join(outdir, "results",
+                           f"{dataset}-clifford-d{RUNNER_LATENT}-l1")
+    with open(os.path.join(exp_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(exp_dir, "vsa_raw.json")) as f:
+        vsa = json.load(f)
+    for curve in ("bundle_cap", "role_filler"):
+        check(bool(vsa[curve]["k"]) and all(
+            0 <= a <= 1 for a in vsa[curve]["accuracy"]),
+            f"{label}: vsa_raw {curve} empty or out of [0, 1]")
+    for sb in ("self_binding_star", "self_binding_dagger"):
+        check(bool(vsa[sb]["k_sims"]), f"{label}: vsa_raw {sb} empty")
+    for n in (100, 600, 1000):
+        acc = metrics.get(f"knn_acc_{n}")
+        check(acc is not None and math.isfinite(acc) and 0 <= acc <= 1,
+              f"{label}: knn_acc_{n} = {acc}")
+    mvc = metrics["mean_vector_cosine_acc"]
+    check(0 < mvc <= 1, f"{label}: mean_vector_cosine_acc = {mvc}")
+    check(math.isfinite(metrics.get("generation_fid", float("nan")))
+          and metrics["fid_features"] != "failed",
+          f"{label}: generation FID {metrics.get('generation_fid')} "
+          f"({metrics['fid_features']})")
+    check(math.isfinite(metrics["final_best_total_loss"]),
+          f"{label}: best loss {metrics['final_best_total_loss']}")
+    with open(os.path.join(outdir, f"{dataset}_results.csv")) as f:
+        csv_text = f.read()
+    check(f"\n{RUNNER_LATENT},clifford," in csv_text,
+          f"{label}: no {RUNNER_LATENT},clifford row in the CSV")
+    comp = os.path.join(outdir, "results", "comparisons", dataset)
+    with open(os.path.join(comp, f"dim{RUNNER_LATENT}_data.json")) as f:
+        dim = json.load(f)
+    check({"clifford", "random_hrr", "unitary"} <= set(dim),
+          f"{label}: dim{RUNNER_LATENT}_data.json holds {sorted(dim)}")
+    check(os.path.exists(os.path.join(comp, "across_dims_data.json")),
+          f"{label}: no across_dims_data.json")
+    timing_name = "fashion_train" if dataset == "mnist32" else \
+        "cifar10_train"
+    with open(os.path.join(outdir, f"{timing_name}_timing.json")) as f:
+        timing = json.load(f)
+    check(timing["data_source"] == source,
+          f"{label}: data_source {timing['data_source']}, expected {source}")
+    return metrics, timing
+
+
+def runner_phase(kmods, mods, root):
+    """``run_cnn_experiments`` as the two scripts call it, on the card:
+    the Fashion runner on the committed MNIST shard (``--dataset mnist32``,
+    in process) and the CIFAR-10 runner on its synthetic fallback with
+    ``--eval_subprocess`` (the battery in the port's ``eval_checkpoint``
+    child, on the card), both ``CNNVAE`` at latent 4096 and batch 256;
+    pyplot replaced by ``PLOT_RECORDER``.  Checks the launches of F, D and
+    C in each run, the artifacts, that no stage failed but those of
+    ``HOST_DRAWING_STAGES`` (whose device halves it runs itself), and one
+    epoch of ``train_model`` with the kernels against the plain versions.
+    Returns the launches of the two runs and the child's, and the
+    phase's numbers."""
+    from cliffordtpu_torch.data import loaders
+
+    (cnn_runner, fashion_train, cifar10_train, plots, conv_vae, loop, state,
+     trandom, ops_torus) = mods
+    attention, sampler, _ = kmods
+    t_phase = time.perf_counter()
+    stage_s, handles, children = {}, [], []
+    real_safe_eval = cnn_runner.safe_eval
+    real_handle = cnn_runner.ModelHandle
+    real_subprocess = cnn_runner.subprocess
+
+    def timed_safe_eval(label, fn, default=None):
+        t0 = time.perf_counter()
+        out = real_safe_eval(label, fn, default)
+        torch.cuda.synchronize()
+        stage_s[label] = stage_s.get(label, 0.0) + time.perf_counter() - t0
+        return out
+
+    def recorded_handle(model):
+        handles.append(real_handle(model))
+        return handles[-1]
+
+    def recorded_run(cmd, **kw):
+        t0 = time.perf_counter()
+        r = real_subprocess.run(cmd, **kw)
+        children.append((r, time.perf_counter() - t0))
+        return r
+
+    def run(script, argv, dataset, timing):
+        args = script.build_parser().parse_args(argv)
+        zero_counts(*kmods)
+        stage_s.clear()
+        buf = io.StringIO()
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                cnn_runner.run_cnn_experiments(
+                    args, dataset, timing, full_eval=dataset != "cifar10")
+        finally:
+            os.chdir(cwd)
+            sys.stdout.write(buf.getvalue())
+        torch.cuda.synchronize()
+        return (buf.getvalue(), launched_since_zero(kmods),
+                time.perf_counter() - t0, dict(stage_s))
+
+    data_dir = os.path.join(root, "tests", "data")
+    saved_data = os.environ.get("CLIFFORDTPU_DATA_DIR")
+    os.environ["CLIFFORDTPU_DATA_DIR"] = data_dir
+    cnn_runner.safe_eval = timed_safe_eval
+    cnn_runner.ModelHandle = recorded_handle
+    cnn_runner.subprocess = types.SimpleNamespace(run=recorded_run)
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp, plot_recorder(tmp):
+            fashion_dir = os.path.join(tmp, "fashion")
+            text1, counts1, wall1, stages1 = run(
+                fashion_train, runner_argv(
+                    "fashion", RUNNER_FASHION_EPOCHS, "--outdir",
+                    fashion_dir), "mnist32", "fashion_train")
+            metrics1, timing1 = runner_artifacts_ok(
+                fashion_dir, "mnist32", "real", "runner fashion")
+            # the cifar10 run is held to the synthetic fallback: CIFAR-10
+            # files in a directory the loader searches would change it
+            check(loaders._find_real("cifar10") is None,
+                  "runner: CIFAR-10 files found where the loader looks "
+                  "($CLIFFORDTPU_DATA_DIR, ./data or the loader's fixed "
+                  "data directory); this phase expects none, so that its "
+                  "cifar10 run trains on the synthetic fallback")
+            cifar_dir = os.path.join(tmp, "cifar")
+            text2, counts2, wall2, stages2 = run(
+                cifar10_train, runner_argv(
+                    "cifar10", 1, "--limit_train", str(RUNNER_CIFAR_TRAIN),
+                    "--limit_test", str(RUNNER_CIFAR_TEST),
+                    "--eval_subprocess", "--outdir", cifar_dir),
+                "cifar10", "cifar10_train")
+            metrics2, timing2 = runner_artifacts_ok(
+                cifar_dir, "cifar10", "synthetic",
+                "runner cifar10 --eval_subprocess")
+            check(len(children) == 1, f"runner: {len(children)} eval "
+                                      f"children, expected 1")
+            child, child_s = children[0]
+            check(child.returncode == 0, f"runner: eval_checkpoint child "
+                                         f"rc {child.returncode}: "
+                                         f"{child.stderr[-2000:]}")
+            launch_line = [ln for ln in child.stdout.splitlines()
+                           if ln.startswith("kernel launches: ")]
+            check(len(launch_line) == 1, "runner: the child printed no "
+                                         "kernel launches")
+            counts_child = {k: v for k, v in json.loads(
+                launch_line[0][len("kernel launches: "):]).items() if v}
+            allowed, other = stage_warnings(text1 + text2 + child.stdout)
+            check(not other, f"runner: stages failed: {other}")
+
+            # each run's launches: D once a train step, F at least once a
+            # train step and a test batch, C once a prior batch of the FID
+            steps1 = RUNNER_FASHION_EPOCHS * (RUNNER_SHARD_TRAIN
+                                              // RUNNER_BATCH)
+            test1 = RUNNER_FASHION_EPOCHS * -(-RUNNER_SHARD_TEST
+                                              // RUNNER_BATCH)
+            steps2 = RUNNER_CIFAR_TRAIN // RUNNER_BATCH
+            test2 = -(-RUNNER_CIFAR_TEST // RUNNER_BATCH)
+            # compute_fid's prior batches of 256 (the runner's batch_size)
+            fid1 = -(-min(2048, RUNNER_SHARD_TEST) // FID_BATCH)
+            fid2 = -(-min(2048, RUNNER_CIFAR_TEST) // FID_BATCH)
+            for label, counts, steps, test, fid in (
+                    ("fashion", counts1, steps1, test1, fid1),
+                    ("cifar10 parent", counts2, steps2, test2, 0),
+                    ("cifar10 child", counts_child, 0, 0, fid2)):
+                check(set(counts) <= {"sampler_keyed", "torus_bwd",
+                                      "torus_fwd"},
+                      f"runner {label}: launches {counts}")
+                check(counts.get("torus_bwd", 0) == steps,
+                      f"runner {label}: {counts.get('torus_bwd', 0)} "
+                      f"torus_bwd, expected {steps} (one a train step)")
+                least = max(1, steps + test)
+                check(counts.get("sampler_keyed", 0) >= least,
+                      f"runner {label}: {counts.get('sampler_keyed', 0)} "
+                      f"sampler_keyed, expected at least {least}")
+                check(counts.get("torus_fwd", 0) >= fid,
+                      f"runner {label}: {counts.get('torus_fwd', 0)} "
+                      f"torus_fwd, expected at least {fid}")
+
+            # the device halves of the listed stages (and of the other
+            # plots) on the trained fashion model
+            handle = handles[0]
+            ds = cnn_runner.load_dataset("mnist32")
+            x, y = ds["x_test"], ds["y_test"]
+            ekey = (0, 0)
+            pairs = plots.get_fixed_interp_pairs(x, y, n_pairs=5, seed=42)
+            halves = {
+                "reconstructions": lambda: plots.reconstructions_canvas(
+                    handle, x, img_shape=(32, 32, 1), key=ekey),
+                "tsne": lambda: plots.latent_space_points(
+                    handle, x, y, n_plot=len(x), key=ekey)[0],
+                "decoded_bundles": lambda: plots.decoded_bundle_images(
+                    handle, x, y, n_samples=len(x), key=ekey)[0],
+                "latent_interpolations": lambda: plots
+                .latent_interpolation_canvases(handle, pairs, 10,
+                                               img_shape=(32, 32, 1),
+                                               key=ekey),
+            }
+            halves_ok = {}
+            for name, fn in halves.items():
+                got = fn()
+                got = list(got.values()) if isinstance(got, dict) else [got]
+                ok = all(np.isfinite(g).all() if name == "tsne"
+                         else canvas_ok(g) for g in got)
+                check(ok, f"runner: the device half of {name} is not "
+                          f"finite (in [0, 1])")
+                halves_ok[name] = [list(np.shape(g)) for g in got]
+            del handles[:], handle
+
+            # the runner's step at batch 256: host wall and device time
+            args = fashion_train.build_parser().parse_args(
+                runner_argv("fashion", 1))
+            ds_train = torch.as_tensor(ds["x_train"][:RUNNER_BATCH],
+                                       device=DEVICE)
+            model = cnn_runner.build_model(args, "clifford", RUNNER_LATENT,
+                                           1, seed=0)
+            st = state.create_train_state(model, "adamw", lr=args.lr,
+                                          device=DEVICE)
+            step = loop.make_cnn_train_step(st.model, st.optimizer)
+            beta = torch.full((), 0.1, device=DEVICE)
+            ms = []
+            for i in range(RUNNER_STEP_TIMES + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(ds_train, trandom.sample_key((0, i)), beta)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            busy = cuda_ms(lambda: step(ds_train, (0, 99), beta), reps=5,
+                           inner=3)
+            del st, model, step
+            out["step"] = dict(wall_ms=statistics.median(ms[1:]),
+                               wall_ms_min=min(ms[1:]), first_ms=ms[0],
+                               busy_ms=busy)
+
+            # one epoch of the runner's training with the kernels and with
+            # the plain versions, the same initial weights
+            args = fashion_train.build_parser().parse_args(
+                runner_argv("fashion", 1))
+            args.cur_lr = args.lr
+            run_key = (0, 2024)
+            init = cnn_runner.build_model(args, "clifford", RUNNER_LATENT, 1,
+                                          seed=7).state_dict()
+            bests = {}
+            saved_det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                for label in ("kernels", "plain"):
+                    model = cnn_runner.build_model(args, "clifford",
+                                                   RUNNER_LATENT, 1)
+                    model.load_state_dict(init)
+                    with contextlib.ExitStack() as stack:
+                        if label == "plain":
+                            stack.enter_context(plain_versions(
+                                attention, sampler, ops_torus))
+                        zero_counts(*kmods)
+                        with contextlib.redirect_stdout(io.StringIO()):
+                            _, bests[label], _ = cnn_runner.train_model(
+                                args, model, ds["x_train"], ds["x_test"],
+                                run_key)
+                        launched = launched_since_zero(kmods)
+                    check(bool(launched) == (label == "kernels"),
+                          f"runner train_model {label}: launches {launched}")
+                    del model
+            finally:
+                torch.backends.cudnn.deterministic = saved_det
+            loss_rel = abs(bests["kernels"] - bests["plain"]) \
+                / abs(bests["plain"])
+            check(loss_rel <= RUNNER_LOSS_REL,
+                  f"runner: one epoch with the kernels vs plain: best loss "
+                  f"{bests} apart by {loss_rel} > {RUNNER_LOSS_REL}")
+    finally:
+        cnn_runner.safe_eval = real_safe_eval
+        cnn_runner.ModelHandle = real_handle
+        cnn_runner.subprocess = real_subprocess
+        if saved_data is None:
+            os.environ.pop("CLIFFORDTPU_DATA_DIR", None)
+        else:
+            os.environ["CLIFFORDTPU_DATA_DIR"] = saved_data
+        torch.cuda.empty_cache()
+
+    epochs = [float(ln.rsplit("(", 1)[1].rstrip("s)"))
+              for ln in text1.splitlines() if ln.startswith("epoch ")]
+    emit("runner_host_stages", host_drawing_stages={
+        k: list(v) for k, v in HOST_DRAWING_STAGES.items()},
+        failed_as_listed=allowed, pyplot="recorder (PLOT_RECORDER)",
+        device_halves=halves_ok)
+    emit("runner_step", config="runner_fashion4096", batch=RUNNER_BATCH,
+         latent_dim=RUNNER_LATENT, **out["step"])
+    emit("runner_epochs", fashion_epoch_s=epochs,
+         fashion_train_s=[v["train_time_s"] for k, v in timing1.items()
+                          if isinstance(v, dict)],
+         cifar10_train_s=[v["train_time_s"] for k, v in timing2.items()
+                          if isinstance(v, dict)])
+    emit("runner_battery", fashion_stage_s=stages1,
+         fashion_eval_s=[v["eval_time_s"] for v in timing1.values()
+                         if isinstance(v, dict)],
+         cifar10_subprocess_eval_s=child_s,
+         cifar10_eval_s=[v["eval_time_s"] for v in timing2.values()
+                         if isinstance(v, dict)])
+    counts = {k: counts1.get(k, 0) + counts2.get(k, 0)
+              + counts_child.get(k, 0)
+              for k in set(counts1) | set(counts2) | set(counts_child)}
+    emit("runner", config="runner_fashion4096", latent_dim=RUNNER_LATENT,
+         batch=RUNNER_BATCH, fashion_wall_s=wall1, cifar10_wall_s=wall2,
+         launches={"fashion": counts1, "cifar10": counts2,
+                   "cifar10_child": counts_child},
+         train_model_best={**bests, "rel": loss_rel},
+         fashion_metrics=metrics1, cifar10_metrics=metrics2,
+         phase_s=time.perf_counter() - t_phase)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1849,6 +2319,8 @@ def main() -> int:
         vit_vae,
     )
     from cliffordtpu_torch.ops import torus as ops_torus
+    from cliffordtpu_torch.runners import cnn_runner
+    from cliffordtpu_torch.scripts import cifar10_train, fashion_train
     from cliffordtpu_torch.train import checkpoint, loop, schedules, state
     from cliffordtpu_torch.vsa import capacity
 
@@ -1945,6 +2417,18 @@ def main() -> int:
                                       FID_LATENT, True, gen)}
     for name, case in fid_cases.items():
         emit("kernel", kernel=name, shape="cifar_fid4096", **case)
+    # F, D and C at the runner's shape: a batch of 256 rows of d 4096, one
+    # kappa per row (the train step, the battery's encodes, the prior
+    # batches of compute_fid)
+    runner_cases = {
+        "sampler_keyed": sampler_case(sampler, "keyed", RUNNER_BATCH,
+                                      RUNNER_LATENT, True, gen),
+        "torus_bwd": torus_bwd_case(torus, sampler, ops_torus, RUNNER_BATCH,
+                                    RUNNER_LATENT, True, gen),
+        "torus_fwd": torus_fwd_case(torus, ops_torus, RUNNER_BATCH,
+                                    RUNNER_LATENT, gen)}
+    for name, case in runner_cases.items():
+        emit("kernel", kernel=name, shape="runner_fashion4096", **case)
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -2062,6 +2546,9 @@ def main() -> int:
                            ops_torus, conv_vae, hybrid_state.model)
     del hybrid_state
     torch.cuda.empty_cache()
+    runner_counts = runner_phase(
+        kmods, (cnn_runner, fashion_train, cifar10_train, plots, conv_vae,
+                loop, state, trandom, ops_torus), root)
     att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
                                           260, 8, 64, torch.bfloat16, True,
                                           gen)
@@ -2080,6 +2567,8 @@ def main() -> int:
             return hybrid_counts.get(name, 0) + eval_counts.get(name, 0)
         if path == "cifar_fid4096":  # compute_fid and the plots
             return fid_counts.get(name, 0)
+        if path == "runner_fashion4096":  # both runs and the eval child
+            return runner_counts.get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
             return mlp_counts[int(path.split(",d")[1])].get(name, 0)
         served, stepped = ((runs, trained) if path == "flagship32"
@@ -2153,6 +2642,13 @@ def main() -> int:
                     "torus_pallas.py:126" if name == "torus_fwd"
                     else "sampler_pallas.py:356", case),
             "shape": "cifar_fid4096", "R": case["R"], "d": case["d"]})
+    for name, case in runner_cases.items():
+        kernels.append({
+            **entry(name, "runner_fashion4096", f"{name}.cu", {
+                "torus_fwd": "torus_pallas.py:126",
+                "torus_bwd": "torus_pallas.py:154",
+                "sampler_keyed": "sampler_pallas.py:356"}[name], case),
+            "shape": "runner_fashion4096", "R": case["R"], "d": case["d"]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

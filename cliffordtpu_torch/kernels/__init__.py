@@ -3,3 +3,15 @@ version, a wrapper and a launch count (port of ``cliffordtpu/kernels``).
 
 Sources live in ``cliffordtpu_torch/csrc``; ``build.py`` compiles them.
 """
+
+
+def launch_counts() -> dict:
+    """The launches of each kernel in this process so far, as its wrapper
+    counts them (the attention forward's dense-route calls apart)."""
+    from cliffordtpu_torch.kernels import attention, sampler, torus
+
+    return {"attention_fwd": attention.launches,
+            "attention_bwd": attention.bwd_launches,
+            "torus_fwd": torus.fwd_launches, "torus_bwd": torus.launches,
+            "sampler_keyed": sampler.launches,
+            "sampler_rng": sampler.rng_launches}

@@ -55,7 +55,12 @@ def test_importing_the_port_loads_no_jax():
             " cliffordtpu_torch.eval.knn, cliffordtpu_torch.eval.binding,"
             " cliffordtpu_torch.eval.fid, cliffordtpu_torch.eval.inception,"
             " cliffordtpu_torch.eval.plots, cliffordtpu_torch.eval.tables,"
-            " cliffordtpu_torch.utils;"
+            " cliffordtpu_torch.utils, cliffordtpu_torch.utils.artifacts,"
+            " cliffordtpu_torch.data, cliffordtpu_torch.runners.safety,"
+            " cliffordtpu_torch.runners.cnn_runner,"
+            " cliffordtpu_torch.scripts.fashion_train,"
+            " cliffordtpu_torch.scripts.cifar10_train,"
+            " cliffordtpu_torch.scripts.eval_checkpoint;"
             " bad = sorted(m for m in set(sys.modules) - before"
             f" if m.split('.')[0] in {FORBIDDEN!r});"
             " print(bad); sys.exit(1 if bad else 0)")
@@ -101,7 +106,13 @@ def test_the_new_modules_and_scripts_are_covered():
                  "cliffordtpu_torch/eval/inception.py",
                  "cliffordtpu_torch/eval/plots.py",
                  "cliffordtpu_torch/eval/tables.py",
-                 "cliffordtpu_torch/utils.py"):
+                 "cliffordtpu_torch/utils/__init__.py",
+                 "cliffordtpu_torch/utils/artifacts.py",
+                 "cliffordtpu_torch/runners/safety.py",
+                 "cliffordtpu_torch/runners/cnn_runner.py",
+                 "cliffordtpu_torch/scripts/fashion_train.py",
+                 "cliffordtpu_torch/scripts/cifar10_train.py",
+                 "cliffordtpu_torch/scripts/eval_checkpoint.py"):
         assert name in names, name
 
 
