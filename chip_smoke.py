@@ -160,15 +160,40 @@ Phases, each printing one JSON line and each fatal when it fails:
             filled in; then the runner's step at batch 256 (host wall and
             device time) and one epoch of ``train_model`` with the kernels
             against the plain versions (best loss within
-            ``RUNNER_LOSS_REL``, cuDNN deterministic);
+            ``RUNNER_LOSS_REL``, cuDNN deterministic); then the Fashion
+            runner's other arms, ``--arch hybrid`` and ``--arch vit`` at
+            latent 128, one epoch each on the shard with the battery in
+            process: the artifacts, one torus backward a train step, the
+            keyed sampler at least once a train step and test batch, and
+            for the ViT 12 attention backward launches a step and no dense
+            attention call (S 68 fits the kernels);
+17. mnist_runners  ``cliffordtpu_torch.scripts.mnist_clifpws`` and
+            ``mnist_vmf`` as a user runs them, on the committed shard (1350
+            / 150 / 297 digits), 2 lanes of ``fit_trials`` a cell: every
+            family at d 5 and 256 (3 epochs, the battery on trial 1, trial
+            2 the table feed only); the clifford cell at d 5 with
+            ``--eval_subprocess`` (the child on the card, ``--table_only``
+            for trial 2); the vMF runner at d 5 (every trial's battery).
+            The per-trial dumps (kNN accuracies in steps of 1/297, finite
+            losses, the curves filled or empty as gated), the CSV with
+            every family at both d, the sidecar and the across-dims table;
+            one torus backward a clifford lane step and the keyed sampler
+            once a lane step and at least once an encoded eval batch,
+            nothing for the other families; no other ``warning:`` line;
+            one epoch of ``fit_trials`` with the kernels against the plain
+            versions (best validation losses within
+            ``MNIST_RUNNER_LOSS_REL``);
 
 then the table of all six kernels as one JSON line (the attention kernels
 also on the heads' path and at image 256; the keyed sampler and the torus
 backward also at the MNIST shapes and at the hybrid's, R 16384 rows of d
 256; the torus forward and the keyed sampler at cifar_fid4096's, R 256 and
 R 200 of d 4096; the keyed sampler, the torus backward and the torus
-forward at runner_fashion4096's, R 256 of d 4096), the ``nvidia-smi``
-line, and
+forward at runner_fashion4096's, R 256 of d 4096; the attention kernels
+at the ViT arm's B 256 and the keyed sampler and torus backward at the
+hybrid arm's R 16384 of d 8; the keyed sampler and the torus backward at
+R 128, d 5 and 256, with the MNIST runners' launches), the
+``nvidia-smi`` line, and
 last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, it exits non-zero before printing any result.
@@ -1866,6 +1891,27 @@ def runner_argv(script, epochs, *extra):
         "--n_trials", "1", "--patience", "0", "--no_wandb", *extra] + (
         [] if DEVICE.type == "cuda" else ["--device", str(DEVICE)])
 
+# the Fashion runner's other arms, one epoch each on the shard at latent
+# 128, the battery in process: the hybrid (64 tokens of 8) and the ViT
+# (flagship32's blocks, S 68: kernels A and B)
+RUNNER_ARMS, ARM_LATENT = ("hybrid", "vit"), 128
+
+
+def arm_argv(arch, outdir):
+    return ["--dataset", "mnist32", "--arch", arch, "--latent_dims",
+            str(ARM_LATENT), "--distributions", "clifford", "--epochs", "1",
+            "--batch_size", str(RUNNER_BATCH), "--n_trials", "1",
+            "--require_real", "--limit_test", str(RUNNER_SHARD_TEST),
+            "--no_wandb", "--outdir", outdir] + (
+        [] if DEVICE.type == "cuda" else ["--device", str(DEVICE)])
+
+
+def epoch_seconds(text):
+    """The epoch times a CNN runner printed."""
+    return [float(ln.rsplit("(", 1)[1].rstrip("s)"))
+            for ln in text.splitlines() if ln.startswith("epoch ")]
+
+
 RUNNER_STEP_TIMES = 5  # timed steps of the runner's step, after a warm-up
 # the runner's one epoch with the kernels against the same epoch with the
 # plain versions, same initial weights, cuDNN deterministic: best loss
@@ -1977,11 +2023,13 @@ def stage_warnings(text):
     return allowed, other
 
 
-def runner_artifacts_ok(outdir, dataset, source, label):
-    """The runner's artifact set under ``outdir``, every battery number
-    filled in; returns (metrics, timing)."""
+def runner_artifacts_ok(outdir, dataset, source, label, latent=None):
+    """The runner's artifact set under ``outdir`` at ``latent`` (by default
+    ``RUNNER_LATENT``), every battery number filled in; returns (metrics,
+    timing)."""
+    latent = latent or RUNNER_LATENT
     exp_dir = os.path.join(outdir, "results",
-                           f"{dataset}-clifford-d{RUNNER_LATENT}-l1")
+                           f"{dataset}-clifford-d{latent}-l1")
     with open(os.path.join(exp_dir, "metrics.json")) as f:
         metrics = json.load(f)
     with open(os.path.join(exp_dir, "vsa_raw.json")) as f:
@@ -2006,13 +2054,13 @@ def runner_artifacts_ok(outdir, dataset, source, label):
           f"{label}: best loss {metrics['final_best_total_loss']}")
     with open(os.path.join(outdir, f"{dataset}_results.csv")) as f:
         csv_text = f.read()
-    check(f"\n{RUNNER_LATENT},clifford," in csv_text,
-          f"{label}: no {RUNNER_LATENT},clifford row in the CSV")
+    check(f"\n{latent},clifford," in csv_text,
+          f"{label}: no {latent},clifford row in the CSV")
     comp = os.path.join(outdir, "results", "comparisons", dataset)
-    with open(os.path.join(comp, f"dim{RUNNER_LATENT}_data.json")) as f:
+    with open(os.path.join(comp, f"dim{latent}_data.json")) as f:
         dim = json.load(f)
     check({"clifford", "random_hrr", "unitary"} <= set(dim),
-          f"{label}: dim{RUNNER_LATENT}_data.json holds {sorted(dim)}")
+          f"{label}: dim{latent}_data.json holds {sorted(dim)}")
     check(os.path.exists(os.path.join(comp, "across_dims_data.json")),
           f"{label}: no across_dims_data.json")
     timing_name = "fashion_train" if dataset == "mnist32" else \
@@ -2088,7 +2136,7 @@ def runner_phase(kmods, mods, root):
     cnn_runner.safe_eval = timed_safe_eval
     cnn_runner.ModelHandle = recorded_handle
     cnn_runner.subprocess = types.SimpleNamespace(run=recorded_run)
-    out = {}
+    out, arms = {}, {}
     try:
         with tempfile.TemporaryDirectory() as tmp, plot_recorder(tmp):
             fashion_dir = os.path.join(tmp, "fashion")
@@ -2189,6 +2237,44 @@ def runner_phase(kmods, mods, root):
                 halves_ok[name] = [list(np.shape(g)) for g in got]
             del handles[:], handle
 
+            # the other arms: the hybrid (F, D) and the ViT (A, B, F, D)
+            steps = RUNNER_SHARD_TRAIN // RUNNER_BATCH
+            tests = -(-RUNNER_SHARD_TEST // RUNNER_BATCH)
+            for arch in RUNNER_ARMS:
+                adir = os.path.join(tmp, arch)
+                text, counts, wall, stages = run(
+                    fashion_train, arm_argv(arch, adir), "mnist32",
+                    "fashion_train")
+                del handles[:]
+                metrics, _ = runner_artifacts_ok(
+                    adir, "mnist32", "real", f"runner {arch}",
+                    latent=ARM_LATENT)
+                arm_allowed, arm_other = stage_warnings(text)
+                check(not arm_other, f"runner {arch}: stages failed: "
+                                     f"{arm_other}")
+                allowed += arm_allowed
+                attn = {"attention_fwd", "attention_bwd"}
+                check(set(counts) <= {"sampler_keyed", "torus_bwd",
+                                      "torus_fwd"}
+                      | (attn if arch == "vit" else set()),
+                      f"runner {arch}: launches {counts} (a dense "
+                      f"attention call or another kernel)")
+                check(counts.get("torus_bwd", 0) == steps
+                      and counts.get("sampler_keyed", 0) >= steps + tests,
+                      f"runner {arch}: launches {counts}, expected "
+                      f"{steps} torus_bwd and at least {steps + tests} "
+                      f"sampler_keyed")
+                if arch == "vit":
+                    per = PER_STEP["attention_bwd"]
+                    check(counts.get("attention_bwd", 0) == per * steps
+                          and counts.get("attention_fwd", 0)
+                          >= PER_STEP["attention_fwd"] * steps,
+                          f"runner vit: launches {counts}, expected "
+                          f"{per * steps} attention_bwd")
+                arms[arch] = dict(launches=counts, wall_s=wall,
+                                  epoch_s=epoch_seconds(text),
+                                  stage_s=stages, metrics=metrics)
+
             # the runner's step at batch 256: host wall and device time
             args = fashion_train.build_parser().parse_args(
                 runner_argv("fashion", 1))
@@ -2260,8 +2346,7 @@ def runner_phase(kmods, mods, root):
             os.environ["CLIFFORDTPU_DATA_DIR"] = saved_data
         torch.cuda.empty_cache()
 
-    epochs = [float(ln.rsplit("(", 1)[1].rstrip("s)"))
-              for ln in text1.splitlines() if ln.startswith("epoch ")]
+    epochs = epoch_seconds(text1)
     emit("runner_host_stages", host_drawing_stages={
         k: list(v) for k, v in HOST_DRAWING_STAGES.items()},
         failed_as_listed=allowed, pyplot="recorder (PLOT_RECORDER)",
@@ -2289,7 +2374,367 @@ def runner_phase(kmods, mods, root):
          train_model_best={**bests, "rel": loss_rel},
          fashion_metrics=metrics1, cifar10_metrics=metrics2,
          phase_s=time.perf_counter() - t_phase)
-    return counts
+    for arch, arm in arms.items():
+        emit("runner_arm", arch=arch, config=f"runner_{arch}{ARM_LATENT}",
+             latent_dim=ARM_LATENT, batch=RUNNER_BATCH, **arm)
+    return counts, {arch: arm["launches"] for arch, arm in arms.items()}
+
+
+# the mnist_runners phase: both MNIST runners as a user runs them, on the
+# committed shard (1500 train digits: 1350 to train, 150 to validate; 297
+# test digits), through cliffordtpu_torch/scripts/mnist_{clifpws,vmf}.py
+MNIST_RUNNER_DIMS = (5, 256)  # the sweep's widest latent at h_dim 128
+MNIST_RUNNER_LANES = 2
+MNIST_RUNNER_EPOCHS = {"clifpws": 3, "clifpws_subprocess": 2, "vmf": 3}
+# the digits the runs take: the whole shard (a CPU rehearsal takes fewer)
+MNIST_TRAIN, MNIST_TEST = RUNNER_SHARD_TRAIN, RUNNER_SHARD_TEST
+# one epoch of fit_trials on the clifford cell at d 5 with the kernels
+# against the same epoch with the plain versions: best validation loss
+MNIST_RUNNER_LOSS_REL = 1e-4
+MNIST_FAMILY_DIRS = {"normal": "gaussian", "normal_nol2": "gaussian_nol2",
+                     "powerspherical": "powerspherical",
+                     "clifford": "clifford"}
+
+
+def mnist_runner_runs():
+    """(label, script name, argv) of the phase's three runs."""
+    lanes = ["--n_runs", str(MNIST_RUNNER_LANES), "--vmap_trials",
+             "--no_wandb"] + mnist_runner_extra()
+    return [
+        ("clifpws", "mnist_clifpws",
+         ["--d_dims", *map(str, MNIST_RUNNER_DIMS), "--epochs",
+          str(MNIST_RUNNER_EPOCHS["clifpws"]), "--warmup_epochs", "1",
+          "--full_eval_runs", "1", "--require_real"] + lanes),
+        ("clifpws_subprocess", "mnist_clifpws",
+         ["--d_dims", str(MNIST_RUNNER_DIMS[0]), "--epochs",
+          str(MNIST_RUNNER_EPOCHS["clifpws_subprocess"]),
+          "--full_eval_runs", "1", "--eval_subprocess",
+          "--distributions", "clifford"] + lanes),
+        ("vmf", "mnist_vmf",
+         ["--d_dims", str(MNIST_RUNNER_DIMS[0]), "--epochs",
+          str(MNIST_RUNNER_EPOCHS["vmf"])] + lanes),
+    ]
+
+
+def mnist_trial_ok(outdir, dist_dir, d, trial, heavy, label):
+    """One trial's dumps: kNN accuracies in steps of one test digit, the
+    curves filled in on a heavy trial and empty beyond ``--full_eval_runs``,
+    the losses and the mean-vector cosine finite.  Returns the metrics."""
+    tdir = os.path.join(outdir, "results",
+                        f"mnist-{dist_dir}-d{d}-l1-trial{trial}")
+    check(os.path.isdir(tdir), f"{label}: no {tdir}")
+    with open(os.path.join(tdir, "metrics.json")) as f:
+        metrics = json.load(f)
+    with open(os.path.join(tdir, "vsa_raw.json")) as f:
+        vsa = json.load(f)
+    accs = {k: v for k, v in metrics.items() if k.startswith("knn_acc_")}
+    check(len(accs) == 3 and all(
+        abs(a * MNIST_TEST - round(a * MNIST_TEST)) < 1e-6
+        for a in accs.values()),
+        f"{label} {dist_dir} d{d} trial {trial}: kNN accuracies {accs} are "
+        f"not multiples of 1/{MNIST_TEST}")
+    for k in ("test/ll", "final_val_loss", "mean_vector_cosine_acc"):
+        check(math.isfinite(metrics[k]),
+              f"{label} {dist_dir} d{d} trial {trial}: {k} {metrics[k]}")
+    curves = [vsa["bundle_cap"]["k"], vsa["role_filler"]["k"],
+              vsa["self_binding_star"]["k_sims"],
+              vsa["self_binding_dagger"]["k_sims"]]
+    if heavy:
+        check(all(curves), f"{label} {dist_dir} d{d} trial {trial}: an "
+                           f"empty curve in vsa_raw")
+    else:
+        check(not vsa["bundle_cap"]["k"],
+              f"{label} {dist_dir} d{d} trial {trial}: beyond "
+              f"--full_eval_runs the battery must be skipped")
+    return metrics
+
+
+def mnist_runners_phase(kmods, mods, root):
+    """``mnist_clifpws`` and ``mnist_vmf`` as a user runs them, on the card,
+    on the committed shard: every family at d 5 and 256 in process; the
+    clifford cell at d 5 with ``--eval_subprocess`` (the battery in the
+    port's ``eval_checkpoint`` child, on the card; trial 2 takes
+    ``--table_only``); the vMF runner at d 5 in process; pyplot replaced
+    by ``PLOT_RECORDER``.  Checks the artifacts, F and D on every clifford
+    lane (D once a lane step, F once a lane step and at least once an
+    encoded eval batch), nothing launched by the other families, that no
+    stage failed but those of ``HOST_DRAWING_STAGES``, and one epoch of
+    ``fit_trials`` with the kernels against the plain versions.  Returns
+    the launches per d of the in-process clifford cells."""
+    (cnn_runner, mnist_runner, mnist_clifpws, mnist_vmf, mlp_vae,
+     ops_torus) = mods
+    attention, sampler, _ = kmods
+    t_phase = time.perf_counter()
+    stage_s, children, fits, per_d = {}, [], [], {}
+    real = dict(clif_eval=mnist_clifpws.safe_eval,
+                vmf_eval=mnist_vmf.safe_eval,
+                subprocess=cnn_runner.subprocess,
+                fit_trials=mnist_runner.fit_trials,
+                merge=mnist_clifpws.merge_json_write)
+
+    def timed_safe_eval(label, fn, default=None):
+        t0 = time.perf_counter()
+        out = real["clif_eval"](label, fn, default)
+        torch.cuda.synchronize()
+        stage_s[label] = stage_s.get(label, 0.0) + time.perf_counter() - t0
+        return out
+
+    def recorded_run(cmd, **kw):
+        t0 = time.perf_counter()
+        r = real["subprocess"].run(cmd, **kw)
+        children.append((r, time.perf_counter() - t0))
+        return r
+
+    def timed_fit_trials(states, keys, x_train, *a, log_fn=None, **kw):
+        stamps = [time.perf_counter()]
+
+        def log(epoch, m):  # after the epoch's one copy to the host
+            stamps.append(time.perf_counter())
+            if log_fn:
+                log_fn(epoch, m)
+
+        out = real["fit_trials"](states, keys, x_train, *a, log_fn=log, **kw)
+        lm = states.model
+        lane_steps = (lm.lanes * (len(x_train) // kw["batch_size"])
+                      * (len(stamps) - 1))
+        fits.append(dict(
+            dist=lm.distribution, z_dim=lm.z_dim, lanes=lm.lanes,
+            epoch_s=[b - a for a, b in zip(stamps, stamps[1:])],
+            trial_steps_per_s=lane_steps / (stamps[-1] - stamps[0])))
+        return out
+
+    def recording_merge(path, data):
+        # the sidecar is written once a d, after all of that d's cells
+        if path == mnist_clifpws.SIDECAR:
+            d = int(next(iter(data)).split("|")[0])
+            per_d[d] = launched_since_zero(kmods)
+            zero_counts(*kmods)
+        return real["merge"](path, data)
+
+    def run(label, script, argv):
+        args = script.build_parser().parse_args(argv)
+        zero_counts(*kmods)
+        stage_s.clear()
+        del fits[:]
+        buf = io.StringIO()
+        cwd = os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                script.run(args)
+        finally:
+            os.chdir(cwd)
+            sys.stdout.write(buf.getvalue())
+        torch.cuda.synchronize()
+        return dict(text=buf.getvalue(), launches=launched_since_zero(kmods),
+                    wall_s=time.perf_counter() - t0, stage_s=dict(stage_s),
+                    fits=list(fits))
+
+    data_dir = os.path.join(root, "tests", "data")
+    saved_data = os.environ.get("CLIFFORDTPU_DATA_DIR")
+    os.environ["CLIFFORDTPU_DATA_DIR"] = data_dir
+    mnist_clifpws.safe_eval = mnist_vmf.safe_eval = timed_safe_eval
+    cnn_runner.subprocess = types.SimpleNamespace(run=recorded_run)
+    mnist_runner.fit_trials = timed_fit_trials
+    mnist_clifpws.merge_json_write = recording_merge
+    runs, allowed = {}, []
+    scripts = {"mnist_clifpws": mnist_clifpws, "mnist_vmf": mnist_vmf}
+    try:
+        with tempfile.TemporaryDirectory() as tmp, plot_recorder(tmp):
+            for label, name, argv in mnist_runner_runs():
+                outdir = os.path.join(tmp, label)
+                per_d.clear()
+                runs[label] = run(label, scripts[name],
+                                  argv + ["--outdir", outdir])
+                runs[label]["per_d"] = dict(per_d)
+                runs[label]["outdir"] = outdir
+            child_text = ""
+            for r, _ in children:
+                check(r.returncode == 0, f"mnist_runners: eval_checkpoint "
+                                         f"child rc {r.returncode}: "
+                                         f"{r.stderr[-2000:]}")
+                child_text += r.stdout
+            ok, other = stage_warnings(
+                "".join(r["text"] for r in runs.values()) + child_text)
+            check(not other, f"mnist_runners: stages failed: {other}")
+            allowed += ok
+
+            # run 1: every family at both d, in process
+            r1 = runs["clifpws"]
+            with open(os.path.join(r1["outdir"],
+                                   mnist_clifpws.TIMING)) as f:
+                timing1 = json.load(f)
+            check(timing1["data_source"] == "real",
+                  f"mnist_clifpws: data_source {timing1['data_source']}")
+            metrics = {}
+            for d in MNIST_RUNNER_DIMS:
+                for dist, dist_dir in MNIST_FAMILY_DIRS.items():
+                    for t in range(1, MNIST_RUNNER_LANES + 1):
+                        metrics[dist, d, t] = mnist_trial_ok(
+                            r1["outdir"], dist_dir, d, t, t == 1,
+                            "mnist_clifpws")
+            with open(os.path.join(r1["outdir"],
+                                   "mnist_vae_results.csv")) as f:
+                csv_rows = [ln.split(",") for ln in f.read().splitlines()]
+            header = csv_rows[0]
+            groups = [g.upper() for g in mnist_clifpws.DISTRIBUTIONS]
+            check([row[0] for row in csv_rows[1:]]
+                  == [str(d) for d in MNIST_RUNNER_DIMS]
+                  and all(f"{g}_{m}" in header for g in groups
+                          for m in ("acc_1000", "mvc", "ll"))
+                  and all("N/A" not in row for row in csv_rows[1:]),
+                  f"mnist_clifpws: mnist_vae_results.csv {csv_rows}")
+            for name in ("mnist_vae_trial_metrics.json",
+                         "results/comparisons/mnist/mnist_results.csv",
+                         "results/comparisons/mnist/mnist_results.tex",
+                         "results/comparisons/mnist/mnist_results_stats.csv"):
+                check(os.path.exists(os.path.join(r1["outdir"], name)),
+                      f"mnist_clifpws: no {name}")
+
+            # run 2: the clifford cell with the battery in the child
+            r2 = runs["clifpws_subprocess"]
+            with open(os.path.join(r2["outdir"],
+                                   mnist_clifpws.TIMING)) as f:
+                check(json.load(f)["data_source"] == "real",
+                      "mnist_clifpws --eval_subprocess: not the shard")
+            for t in range(1, MNIST_RUNNER_LANES + 1):
+                mnist_trial_ok(r2["outdir"], "clifford",
+                               MNIST_RUNNER_DIMS[0], t, t == 1,
+                               "mnist_clifpws --eval_subprocess")
+            check(len(children) == MNIST_RUNNER_LANES,
+                  f"mnist_runners: {len(children)} eval children, "
+                  f"expected {MNIST_RUNNER_LANES}")
+            child_counts = []
+            for r, _ in children:
+                line = [ln for ln in r.stdout.splitlines()
+                        if ln.startswith("kernel launches: ")]
+                check(len(line) == 1, "mnist_runners: a child printed no "
+                                      "kernel launches")
+                child_counts.append({k: v for k, v in json.loads(
+                    line[0][len("kernel launches: "):]).items() if v})
+
+            # run 3: the vMF runner, every trial's battery in process
+            r3 = runs["vmf"]
+            for t in range(1, MNIST_RUNNER_LANES + 1):
+                mnist_trial_ok(r3["outdir"], "vmf", MNIST_RUNNER_DIMS[0], t,
+                               True, "mnist_vmf")
+            with open(os.path.join(r3["outdir"],
+                                   "mnist_vmf_results.csv")) as f:
+                vmf_csv = f.read().splitlines()
+            check(len(vmf_csv) == 2 and vmf_csv[1].startswith(
+                f"{MNIST_RUNNER_DIMS[0]},") and "N/A" not in vmf_csv[1],
+                f"mnist_vmf: mnist_vmf_results.csv {vmf_csv}")
+
+            # F and D on every clifford lane, and nowhere else
+            steps = {}
+            for label, r in runs.items():
+                for fit in r["fits"]:
+                    check(fit["lanes"] == MNIST_RUNNER_LANES,
+                          f"{label}: fit_trials over {fit['lanes']} lanes")
+            n_fit = int(0.9 * MNIST_TRAIN)
+            n_val, n_test = MNIST_TRAIN - n_fit, MNIST_TEST
+            for label, bs, test_bs in (("clifpws", 128, 512),
+                                       ("clifpws_subprocess", 128, 512)):
+                lane_steps = (MNIST_RUNNER_LANES * MNIST_RUNNER_EPOCHS[label]
+                              * (n_fit // bs))
+                val = (MNIST_RUNNER_LANES * MNIST_RUNNER_EPOCHS[label]
+                       * -(-n_val // bs))
+                tests = MNIST_RUNNER_LANES * -(-n_test // test_bs)
+                steps[label] = lane_steps
+                for d, counts in runs[label]["per_d"].items():
+                    check(set(counts) <= {"sampler_keyed", "torus_bwd"}
+                          and counts.get("torus_bwd", 0) == lane_steps
+                          and counts.get("sampler_keyed", 0)
+                          >= lane_steps + val + tests,
+                          f"{label} d{d}: launches {counts}, expected "
+                          f"{lane_steps} torus_bwd and at least "
+                          f"{lane_steps + val + tests} sampler_keyed")
+            check(runs["vmf"]["launches"] == {},
+                  f"mnist_vmf: launches {runs['vmf']['launches']}")
+            # the heavy child encodes sampled latents (F); the table
+            # feed's kNN and class means read posterior means (none)
+            check(child_counts[0].get("sampler_keyed", 0) > 0 and all(
+                set(c) <= {"sampler_keyed"} for c in child_counts),
+                f"mnist_runners: the children launched {child_counts}")
+
+            # one epoch of fit_trials, kernels against plain versions
+            args = mnist_clifpws.build_parser().parse_args(
+                ["--epochs", "1"] + mnist_runner_extra())
+            data = mnist_runner.load_mnist(args, require_real=True)
+            keys = [mnist_clifpws.run_key(0, MNIST_RUNNER_DIMS[0], r,
+                                          "clifford")
+                    for r in range(MNIST_RUNNER_LANES)]
+            bests, held = {}, {}
+            saved_det = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                for label in ("kernels", "plain"):
+                    with contextlib.ExitStack() as stack:
+                        if label == "plain":
+                            stack.enter_context(plain_versions(
+                                attention, sampler, ops_torus))
+                        zero_counts(*kmods)
+                        with contextlib.redirect_stdout(io.StringIO()):
+                            _, hists, _ = mnist_runner.train_lanes(
+                                args, lambda seed: mlp_vae.MLPVAE(
+                                    128, MNIST_RUNNER_DIMS[0], "clifford",
+                                    seed=seed), keys, data,
+                                types.SimpleNamespace(use=False), DEVICE)
+                        held[label] = launched_since_zero(kmods)
+                    bests[label] = [h["best_val"] for h in hists]
+            finally:
+                torch.backends.cudnn.deterministic = saved_det
+            check(bool(held["kernels"]) and not held["plain"],
+                  f"mnist_runners fit_trials: launches {held}")
+            fit_rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(bests["kernels"], bests["plain"]))
+            check(fit_rel <= MNIST_RUNNER_LOSS_REL,
+                  f"mnist_runners: fit_trials with the kernels vs plain: "
+                  f"best validation losses {bests} apart by {fit_rel}")
+    finally:
+        mnist_clifpws.safe_eval = real["clif_eval"]
+        mnist_vmf.safe_eval = real["vmf_eval"]
+        cnn_runner.subprocess = real["subprocess"]
+        mnist_runner.fit_trials = real["fit_trials"]
+        mnist_clifpws.merge_json_write = real["merge"]
+        if saved_data is None:
+            os.environ.pop("CLIFFORDTPU_DATA_DIR", None)
+        else:
+            os.environ["CLIFFORDTPU_DATA_DIR"] = saved_data
+        torch.cuda.empty_cache()
+
+    rates = {f"{f['dist']},z{f['z_dim']}": f["trial_steps_per_s"]
+             for f in runs["clifpws"]["fits"]}
+    emit("mnist_runners_fit_trials", lanes=MNIST_RUNNER_LANES,
+         trial_steps_per_s={str(d): rates[f"clifford,z{d}"]
+                            for d in MNIST_RUNNER_DIMS},
+         every_cell_trial_steps_per_s=rates,
+         epoch_s={label: {f"{f['dist']},z{f['z_dim']}": f["epoch_s"]
+                          for f in r["fits"]} for label, r in runs.items()})
+    emit("mnist_runners_battery",
+         stage_s={label: r["stage_s"] for label, r in runs.items()},
+         child_s=[secs for _, secs in children],
+         failed_as_listed=allowed, pyplot="recorder (PLOT_RECORDER)")
+    emit("mnist_runners",
+         run_s={label: r["wall_s"] for label, r in runs.items()},
+         launches={label: {str(d): c for d, c in r["per_d"].items()}
+                   or r["launches"] for label, r in runs.items()},
+         child_launches=child_counts, lane_steps=steps,
+         fit_trials_best_val={**bests, "rel": fit_rel},
+         metrics_d5_trial1={dist: metrics[dist, MNIST_RUNNER_DIMS[0], 1]
+                            for dist in MNIST_FAMILY_DIRS},
+         phase_s=time.perf_counter() - t_phase)
+    return runs["clifpws"]["per_d"]
+
+
+def mnist_runner_extra():
+    """The flags of every run beyond the phase's own: the device and the
+    digits' limits where the phase runs elsewhere or on fewer digits."""
+    return ([] if DEVICE.type == "cuda" else ["--device", str(DEVICE)]) + (
+        [] if (MNIST_TRAIN, MNIST_TEST) == (RUNNER_SHARD_TRAIN,
+                                            RUNNER_SHARD_TEST)
+        else ["--limit_train", str(MNIST_TRAIN), "--limit_test",
+              str(MNIST_TEST)])
 
 
 def main() -> int:
@@ -2319,8 +2764,13 @@ def main() -> int:
         vit_vae,
     )
     from cliffordtpu_torch.ops import torus as ops_torus
-    from cliffordtpu_torch.runners import cnn_runner
-    from cliffordtpu_torch.scripts import cifar10_train, fashion_train
+    from cliffordtpu_torch.runners import cnn_runner, mnist_runner
+    from cliffordtpu_torch.scripts import (
+        cifar10_train,
+        fashion_train,
+        mnist_clifpws,
+        mnist_vmf,
+    )
     from cliffordtpu_torch.train import checkpoint, loop, schedules, state
     from cliffordtpu_torch.vsa import capacity
 
@@ -2429,6 +2879,24 @@ def main() -> int:
                                     RUNNER_LATENT, gen)}
     for name, case in runner_cases.items():
         emit("kernel", kernel=name, shape="runner_fashion4096", **case)
+    # the runner's other arms at latent 128, batch 256: the ViT's attention
+    # (float32, S 68, 8 heads of 64) and the hybrid's F and D (R = batch x
+    # 64 tokens of d 8, one kappa per token)
+    arm_cases = {
+        ("attention_fwd", "runner_vit128"): attention_case(
+            attention, rope, RUNNER_BATCH, 68, 8, 64, torch.float32, True,
+            gen),
+        ("attention_bwd", "runner_vit128"): attention_bwd_case(
+            attention, rope, RUNNER_BATCH, 68, 8, 64, torch.float32, True,
+            gen),
+        ("sampler_keyed", "runner_hybrid128"): sampler_case(
+            sampler, "keyed", RUNNER_BATCH * HYBRID_TOKENS,
+            max(4, ARM_LATENT // 16), True, gen),
+        ("torus_bwd", "runner_hybrid128"): torus_bwd_case(
+            torus, sampler, ops_torus, RUNNER_BATCH * HYBRID_TOKENS,
+            max(4, ARM_LATENT // 16), True, gen)}
+    for (name, shape), case in arm_cases.items():
+        emit("kernel", kernel=name, shape=shape, **case)
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -2546,9 +3014,17 @@ def main() -> int:
                            ops_torus, conv_vae, hybrid_state.model)
     del hybrid_state
     torch.cuda.empty_cache()
-    runner_counts = runner_phase(
+    runner_counts, arm_counts = runner_phase(
         kmods, (cnn_runner, fashion_train, cifar10_train, plots, conv_vae,
                 loop, state, trandom, ops_torus), root)
+    mnist_runner_counts = mnist_runners_phase(
+        kmods, (cnn_runner, mnist_runner, mnist_clifpws, mnist_vmf, mlp_vae,
+                ops_torus), root)
+    emit("mnist_runner_kernels", shape="mnist_mlp", R=MLP_BATCH,
+         cases={f"{name},d{d}": {k: mnist[name, d][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for name in ("sampler_keyed", "torus_bwd")
+             for d in MNIST_RUNNER_DIMS})
     att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
                                           260, 8, 64, torch.bfloat16, True,
                                           gen)
@@ -2569,6 +3045,10 @@ def main() -> int:
             return fid_counts.get(name, 0)
         if path == "runner_fashion4096":  # both runs and the eval child
             return runner_counts.get(name, 0)
+        if path in ("runner_hybrid128", "runner_vit128"):
+            return arm_counts[path[len("runner_"):-len("128")]].get(name, 0)
+        if path.startswith("mnist_runner"):  # "mnist_runner,d<d>"
+            return mnist_runner_counts[int(path.split(",d")[1])].get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
             return mlp_counts[int(path.split(",d")[1])].get(name, 0)
         served, stepped = ((runs, trained) if path == "flagship32"
@@ -2649,6 +3129,22 @@ def main() -> int:
                 "torus_bwd": "torus_pallas.py:154",
                 "sampler_keyed": "sampler_pallas.py:356"}[name], case),
             "shape": "runner_fashion4096", "R": case["R"], "d": case["d"]})
+    for (name, path), case in arm_cases.items():
+        kernels.append({
+            **entry(name, path, f"{name}.cu", {
+                "attention_fwd": att_tpu, "attention_bwd": att_b_tpu,
+                "torus_bwd": "torus_pallas.py:154",
+                "sampler_keyed": "sampler_pallas.py:356"}[name], case,
+                "float32" if name.startswith("attention") else None),
+            "shape": path, **{k: case[k] for k in ("B", "S", "H", "hd", "R",
+                                                   "d") if k in case}})
+    for name in ("sampler_keyed", "torus_bwd"):
+        for d in MNIST_RUNNER_DIMS:
+            kernels.append({
+                **entry(name, f"mnist_runner,d{d}", f"{name}.cu",
+                        "sampler_pallas.py:356" if name == "sampler_keyed"
+                        else "torus_pallas.py:154", mnist[name, d]),
+                "shape": "mnist_mlp", "R": MLP_BATCH, "d": d})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

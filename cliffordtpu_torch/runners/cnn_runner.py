@@ -137,12 +137,15 @@ def refuse_unported(args) -> None:
             "fused_proj / scan_layers)")
 
 
-def _run_subprocess_eval(args, state, output_dir, dataset_name,
-                         handle_latent_dim):
-    """Save the checkpoint, run the port's ``eval_checkpoint`` in a child
-    process (on the same device as this run: the card unless ``--device``
-    names another), read its metrics / vsa_raw back.  Returns (ok,
-    metrics, vsa)."""
+EVAL_MODULE = "cliffordtpu_torch.scripts.eval_checkpoint"
+
+
+def run_eval_child(state, output_dir, argv, keep_ckpt: bool = False):
+    """Save the checkpoint into ``output_dir``, run the port's
+    ``eval_checkpoint`` with ``argv`` in a child process (on the device
+    ``argv`` names: the card unless it passes ``--device``), read its
+    metrics / vsa_raw back.  Shared by the CNN and the MNIST runners.
+    Returns (ok, metrics, vsa)."""
     try:
         save_checkpoint(output_dir, state, step=0)
         root = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -150,26 +153,8 @@ def _run_subprocess_eval(args, state, output_dir, dataset_name,
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (root, env.get("PYTHONPATH")) if p)
-        cmd = [
-            sys.executable, "-m", "cliffordtpu_torch.scripts.eval_checkpoint",
-            "--ckpt", output_dir,
-            "--arch", getattr(args, "arch", "cnn"),
-            "--distribution", args._actual_dist,
-            "--latent_dim", str(handle_latent_dim),
-            "--dataset", dataset_name,
-            "--outdir", output_dir,
-            "--vsa_trials", str(args.vsa_trials),
-            "--fid_samples", str(args.fid_samples),
-        ]
-        if getattr(args, "device", None) is not None:
-            cmd += ["--device", str(args.device)]
-        if getattr(args, "_actual_l2", False):
-            cmd += ["--l2_normalize"]
-        if args.limit_train:
-            cmd += ["--limit_train", str(args.limit_train)]
-        if args.limit_test:
-            cmd += ["--limit_test", str(args.limit_test)]
-        r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+        r = subprocess.run([sys.executable, "-m", EVAL_MODULE, *argv],
+                           env=env, capture_output=True, text=True,
                            timeout=7200)
         if r.returncode != 0:
             print(f"warning: subprocess eval failed rc={r.returncode}:\n"
@@ -179,12 +164,37 @@ def _run_subprocess_eval(args, state, output_dir, dataset_name,
             metrics = json.load(fh)
         with open(os.path.join(output_dir, "vsa_raw.json")) as fh:
             vsa = json.load(fh)
-        if not args.keep_ckpts:
+        if not keep_ckpt:
             delete_checkpoint(output_dir)
         return True, metrics, vsa
     except Exception as e:
         print(f"warning: subprocess eval errored: {e!r}")
         return False, {}, {}
+
+
+def _run_subprocess_eval(args, state, output_dir, dataset_name,
+                         handle_latent_dim):
+    """The battery in the port's ``eval_checkpoint`` (``run_eval_child``)
+    with the CNN runner's arguments."""
+    argv = [
+        "--ckpt", output_dir,
+        "--arch", getattr(args, "arch", "cnn"),
+        "--distribution", args._actual_dist,
+        "--latent_dim", str(handle_latent_dim),
+        "--dataset", dataset_name,
+        "--outdir", output_dir,
+        "--vsa_trials", str(args.vsa_trials),
+        "--fid_samples", str(args.fid_samples),
+    ]
+    if getattr(args, "device", None) is not None:
+        argv += ["--device", str(args.device)]
+    if getattr(args, "_actual_l2", False):
+        argv += ["--l2_normalize"]
+    if args.limit_train:
+        argv += ["--limit_train", str(args.limit_train)]
+    if args.limit_test:
+        argv += ["--limit_test", str(args.limit_test)]
+    return run_eval_child(state, output_dir, argv, keep_ckpt=args.keep_ckpts)
 
 
 def build_model(args, dist_name: str, latent_dim: int, in_channels: int,

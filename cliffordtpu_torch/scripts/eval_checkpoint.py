@@ -161,6 +161,10 @@ def main(argv=None):
     else:
         x_train, x_test = ds["x_train"], ds["x_test"]
     y_train, y_test = ds["y_train"], ds["y_test"]
+    # image-shaped test set: compute_fid and the per-class test's image
+    # panel take images; the mlp arch keeps x_test flat for the rest
+    x_test_img = x_test.reshape(len(x_test), args.img_size, args.img_size,
+                                in_channels)
     class_names = CLASS_NAMES.get(args.dataset)
 
     outdir = ensure_dir(args.outdir)
@@ -225,8 +229,8 @@ def main(argv=None):
         n_trials=per_class_trials,
         plot=not args.skip_plots, save_dir=outdir, item_memory=item_memory,
         labels=item_labels,
-        item_images=(x_test[:n_mem] * 2 - 1 if use_means
-                     else x_test[:n_mem]),
+        item_images=(x_test_img[:n_mem] * 2 - 1 if use_means
+                     else x_test_img[:n_mem]),
         class_names=class_names, key=key))
     heavy("pairwise", lambda: test_pairwise_bind_bundle_decode(
         handle, x_test[:500], y_test[:500], outdir, img_shape=img_shape,
@@ -242,10 +246,6 @@ def main(argv=None):
         handle, x_test, y_test,
         compute_class_means(handle, x_train[:5000], y_train[:5000], key=key),
         key=key)[0], default=0.0)
-    # compute_fid consumes image-shaped batches; the mlp arch keeps x_test
-    # flat for the rest of the battery
-    x_test_img = x_test.reshape(len(x_test), args.img_size, args.img_size,
-                                in_channels)
     fid_res = heavy("fid", lambda: compute_fid(
         handle, x_test_img, handle.distribution, handle.latent_dim,
         in_channels=in_channels,

@@ -2,6 +2,7 @@
 silent move to the CPU."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -58,6 +59,9 @@ def test_importing_the_port_loads_no_jax():
             " cliffordtpu_torch.utils, cliffordtpu_torch.utils.artifacts,"
             " cliffordtpu_torch.data, cliffordtpu_torch.runners.safety,"
             " cliffordtpu_torch.runners.cnn_runner,"
+            " cliffordtpu_torch.runners.mnist_runner,"
+            " cliffordtpu_torch.scripts.mnist_clifpws,"
+            " cliffordtpu_torch.scripts.mnist_vmf,"
             " cliffordtpu_torch.scripts.fashion_train,"
             " cliffordtpu_torch.scripts.cifar10_train,"
             " cliffordtpu_torch.scripts.eval_checkpoint;"
@@ -110,6 +114,9 @@ def test_the_new_modules_and_scripts_are_covered():
                  "cliffordtpu_torch/utils/artifacts.py",
                  "cliffordtpu_torch/runners/safety.py",
                  "cliffordtpu_torch/runners/cnn_runner.py",
+                 "cliffordtpu_torch/runners/mnist_runner.py",
+                 "cliffordtpu_torch/scripts/mnist_clifpws.py",
+                 "cliffordtpu_torch/scripts/mnist_vmf.py",
                  "cliffordtpu_torch/scripts/fashion_train.py",
                  "cliffordtpu_torch/scripts/cifar10_train.py",
                  "cliffordtpu_torch/scripts/eval_checkpoint.py"):
@@ -130,10 +137,11 @@ def test_no_plotting_or_sklearn_import_at_module_level(path):
     assert not top & {"sklearn", "matplotlib"}, sorted(top)
 
 
-def test_entry_points_without_a_device_need_cuda(monkeypatch):
+def test_entry_points_without_a_device_need_cuda(monkeypatch, tmp_path):
     """With no GPU, an entry point not told device='cpu' raises instead of
-    moving to the CPU."""
+    moving to the CPU; the MNIST runners before they change directory."""
     from cliffordtpu_torch import resolve_device
+    from cliffordtpu_torch.scripts import mnist_clifpws, mnist_vmf
     from cliffordtpu_torch.nn.conv_vae import CNNVAE
     from cliffordtpu_torch.serving import CliffordARServing, Serving
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
@@ -155,6 +163,12 @@ def test_entry_points_without_a_device_need_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+    cwd = os.getcwd()
+    for script in (mnist_clifpws, mnist_vmf):
+        args = script.build_parser().parse_args(["--outdir", str(tmp_path)])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            script.run(args)
+        assert os.getcwd() == cwd
 
 
 def test_kernel_sources_name_what_they_replace():
