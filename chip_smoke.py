@@ -39,7 +39,7 @@ Phases, each printing one JSON line and each fatal when it fails:
             the float32 outputs must match the same requests with the
             plain versions swapped in explicitly (<= 5e-4), and the
             bfloat16 outputs the float32 ones within ``BF16_BARS``;
-5. train    the same model takes ``TRAIN_STEPS`` AdamW steps (lr 1e-4,
+5. train    the same model takes ``TRAIN_STEPS`` AdamW steps (lr 1e-5,
             global-norm clip 1) on one fixed batch of 64 through
             ``create_train_state`` / ``make_cnn_train_step``, in float32
             and in bfloat16 compute, after one warm-up step.  Every step
@@ -227,6 +227,15 @@ REQUESTS = 6  # per entry point and dtype; the first is the warm-up
 # rad, 0.0098, 0.052), far below what a wrong cast or dtype would give
 BF16_BARS = {"encode_mu": 0.25, "encode_z": 0.05, "decode": 0.25}
 TRAIN_STEPS = 10  # timed, after one warm-up step
+# flagship32's train lr.  At 1e-4, with no warm-up, this 12-block ViT's
+# one-batch losses swing by a third from step to step (the JAX package's
+# own AdamW steps from the same initial params swing alike), and the
+# card's bfloat16 steps are not bit-reproducible, so whether the last loss
+# lay below the first was chance: three bfloat16 runs of one tree on an
+# H100 ended at 659, 703 and 881 from 861.  At 1e-5 the losses fall step
+# after step, with at most a small rise, by a third in ten steps, so a
+# last loss above the first points at the step again.
+TRAIN_LR = 1e-5
 PER_STEP = {"attention_fwd": 12, "attention_bwd": 12, "torus_fwd": 0,
             "torus_bwd": 1, "sampler_keyed": 1, "sampler_rng": 0}
 CNN_LATENT = 4096
@@ -2737,6 +2746,293 @@ def mnist_runner_extra():
               str(MNIST_TEST)])
 
 
+# the sweep phase: the port's process-isolated sweep driver
+# (cliffordtpu_torch/scripts/sweep.py) as a user runs it, on the shard:
+# the Fashion runner's cnn arm, clifford at d 128, each trial one child
+# process on the card; then a second invocation that must skip every
+# trial, and trial 1 again in process (with a gaussian run beside it,
+# whose checkpoint the figures phase reads)
+SWEEP_LATENT, SWEEP_TRIALS, SWEEP_EPOCHS = 128, 2, 2
+SWEEP_VSA_TRIALS, SWEEP_FID_SAMPLES = 2, 256
+# the shelled trial against the same trial in process: best loss
+SWEEP_LOSS_REL = 1e-4
+
+
+def sweep_passthrough():
+    """The runner flags after the sweep's ``--``."""
+    return ["--arch", "cnn", "--epochs", str(SWEEP_EPOCHS), "--batch_size",
+            str(RUNNER_BATCH), "--vsa_trials", str(SWEEP_VSA_TRIALS),
+            "--fid_samples", str(SWEEP_FID_SAMPLES), "--patience", "0",
+            "--keep_ckpts", "--require_real"]
+
+
+@contextlib.contextmanager
+def fresh_process_tf32():
+    """PyTorch's TF32 settings of a fresh process, as the sweep's runner
+    children have them (``main`` turns TF32 off for its comparisons):
+    float32 matmuls at full precision, cuDNN convolutions in TF32."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def run_sweep(outdir, root):
+    """One invocation of the sweep entry point in a process of its own;
+    returns (its output, seconds)."""
+    cmd = [sys.executable, "-m", "cliffordtpu_torch.scripts.sweep",
+           "--runner", "fashion_train", "--dataset", "mnist32", "--outdir",
+           outdir, "--distributions", "clifford", "--latent_dims",
+           str(SWEEP_LATENT), "--n_trials", str(SWEEP_TRIALS),
+           "--trial_timeout", "600"] + (
+        [] if DEVICE.type == "cuda" else ["--device", str(DEVICE)]) + [
+        "--"] + sweep_passthrough()
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                       timeout=1200)
+    sys.stdout.write(r.stdout)
+    check(r.returncode == 0, f"sweep: rc {r.returncode}: "
+                             f"{(r.stdout + r.stderr)[-3000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def sweep_phase(kmods, mods, root, work):
+    """``python -m cliffordtpu_torch.scripts.sweep`` on the shard: two
+    trials, each a runner child on the card that prints its launches as
+    its last line; the summary, the aggregated CSV and the across-dims
+    table; a second invocation launches no child; trial 1 in process
+    equals the shelled one.  pyplot is ``PLOT_RECORDER`` (in the
+    children through ``$PYTHONPATH``).  Returns the launches (children and
+    the in-process run), the two checkpoints and the phase's numbers."""
+    cnn_runner, fashion_train = mods
+    t_phase = time.perf_counter()
+    steps = SWEEP_EPOCHS * (RUNNER_SHARD_TRAIN // RUNNER_BATCH)
+    tests = SWEEP_EPOCHS * -(-RUNNER_SHARD_TEST // RUNNER_BATCH)
+    outdir = os.path.join(work, "sweep")
+    saved_data = os.environ.get("CLIFFORDTPU_DATA_DIR")
+    os.environ["CLIFFORDTPU_DATA_DIR"] = os.path.join(root, "tests", "data")
+    try:
+        with plot_recorder(os.path.join(work, "sweep_recorder")):
+            text1, wall1 = run_sweep(outdir, root)
+            with open(os.path.join(outdir, "sweep_summary.json")) as f:
+                summary = json.load(f)
+            check((summary["n_ok"], summary["n_failed"]) == (SWEEP_TRIALS, 0),
+                  f"sweep: summary {summary}")
+            exps = [f"mnist32-clifford-d{SWEEP_LATENT}-l1-trial{t}"
+                    for t in range(1, SWEEP_TRIALS + 1)]
+            children, trials = {}, {}
+            for t in summary["trials"]:
+                with open(t["log"]) as f:
+                    lines = f.read().splitlines()
+                check(bool(lines) and lines[-1].startswith(
+                    "kernel launches: "), f"sweep: {t['exp']}: no kernel "
+                                          f"launches line")
+                counts = {k: v for k, v in json.loads(
+                    lines[-1][len("kernel launches: "):]).items() if v}
+                allowed, other = stage_warnings("\n".join(lines))
+                check(not other, f"sweep {t['exp']}: stages failed: {other}")
+                check(set(counts) == {"sampler_keyed", "torus_bwd"}
+                      and counts["torus_bwd"] == steps
+                      and counts["sampler_keyed"] >= steps + tests,
+                      f"sweep {t['exp']}: launches {counts}, expected "
+                      f"{steps} torus_bwd and at least {steps + tests} "
+                      f"sampler_keyed")
+                children[t["exp"]] = counts
+                with open(os.path.join(outdir, "results", t["exp"],
+                                       "metrics.json")) as f:
+                    trials[t["exp"]] = json.load(f)
+            check(sorted(children) == exps, f"sweep: trials {sorted(children)}")
+            with open(os.path.join(outdir, "mnist32_results.csv")) as f:
+                csv_text = f.read()
+            check(f"\n{SWEEP_LATENT},clifford," in csv_text
+                  and "±" in csv_text, f"sweep: CSV {csv_text!r}")
+            comp = os.path.join(outdir, "results", "comparisons", "mnist32")
+            check(os.path.exists(os.path.join(comp, "mnist32_results.tex")),
+                  "sweep: no across-dims table")
+            with open(os.path.join(outdir, "fashion_train_timing.json")) as f:
+                timing = json.load(f)
+            check(set(exps) <= set(timing), f"sweep: timing keys {timing}")
+
+            # the same command again: both trials skipped, no child
+            text2, wall2 = run_sweep(outdir, root)
+            with open(os.path.join(outdir, "sweep_summary.json")) as f:
+                again = json.load(f)
+            check(again["n_skipped"] == SWEEP_TRIALS and again["n_ok"] == 0
+                  and "[run ]" not in text2,
+                  f"sweep: the second invocation ran a trial: {again}")
+
+            # trial 1 in process, with the sweep child's arguments, and a
+            # gaussian run beside it (its checkpoint for the figures)
+            args = fashion_train.build_parser().parse_args(
+                ["--dataset", "mnist32", "--outdir",
+                 os.path.join(work, "inproc"), "--distributions",
+                 "clifford", "gaussian", "--latent_dims", str(SWEEP_LATENT),
+                 "--n_trials", "1", "--start_trial", "1", "--seed", "0",
+                 "--no_wandb", "--force_trial_suffix"]
+                + sweep_passthrough() + (
+                    [] if DEVICE.type == "cuda" else ["--device",
+                                                      str(DEVICE)]))
+            zero_counts(*kmods)
+            buf = io.StringIO()
+            cwd = os.getcwd()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf), fresh_process_tf32():
+                    cnn_runner.run_cnn_experiments(args, "mnist32",
+                                                   "fashion_train",
+                                                   full_eval=True)
+            finally:
+                os.chdir(cwd)
+            torch.cuda.synchronize()
+            wall3 = time.perf_counter() - t0
+            inproc = launched_since_zero(kmods)
+            _, other = stage_warnings(buf.getvalue())
+            check(not other, f"sweep in process: stages failed: {other}")
+            check(set(inproc) == {"sampler_keyed", "torus_bwd"}
+                  and inproc["torus_bwd"] == steps,
+                  f"sweep in process: launches {inproc}, expected {steps} "
+                  f"torus_bwd (clifford only)")
+            with open(os.path.join(work, "inproc", "results", exps[0],
+                                   "metrics.json")) as f:
+                m_in = json.load(f)
+    finally:
+        if saved_data is None:
+            os.environ.pop("CLIFFORDTPU_DATA_DIR", None)
+        else:
+            os.environ["CLIFFORDTPU_DATA_DIR"] = saved_data
+        torch.cuda.empty_cache()
+    shelled = trials[exps[0]]["final_best_total_loss"]
+    loss_rel = abs(shelled - m_in["final_best_total_loss"]) / abs(shelled)
+    check(loss_rel <= SWEEP_LOSS_REL,
+          f"sweep: shelled trial 1 best loss {shelled} vs in process "
+          f"{m_in['final_best_total_loss']}: {loss_rel} > {SWEEP_LOSS_REL}")
+    ckpts = {"clifford": os.path.join(outdir, "results", exps[0]),
+             "gaussian": os.path.join(
+                 work, "inproc", "results",
+                 f"mnist32-gaussian-d{SWEEP_LATENT}-l1-trial1")}
+    for dist, path in ckpts.items():
+        check(os.path.exists(os.path.join(path, "best_model.ckpt")),
+              f"sweep: no {dist} checkpoint under {path}")
+    counts = dict(inproc)
+    for c in children.values():
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+    emit("sweep", config=f"sweep_cnn{SWEEP_LATENT}", trials=SWEEP_TRIALS,
+         epochs=SWEEP_EPOCHS, batch=RUNNER_BATCH,
+         launches={"children": children, "in_process": inproc},
+         trial_s={t["exp"]: t["seconds"] for t in summary["trials"]},
+         sweep_s=wall1, resume_s=wall2, in_process_s=wall3,
+         best_loss={"shelled": shelled,
+                    "in_process": m_in["final_best_total_loss"],
+                    "rel": loss_rel,
+                    "exact": shelled == m_in["final_best_total_loss"]},
+         metrics={k: {m: v[m] for m in ("knn_acc_1000",
+                                        "mean_vector_cosine_acc",
+                                        "generation_fid")}
+                  for k, v in trials.items()},
+         phase_s=time.perf_counter() - t_phase)
+    return counts, ckpts
+
+
+# the figures phase: the figure scripts' device work on the card under
+# PLOT_RECORDER: the three heatmaps at reduced dims, sample_viz (one keyed
+# draw of 4000 rows at d 4: kernel F), the pairwise bind / bundle figure
+# on the sweep phase's two checkpoints, and eval_battery_timing at the
+# reference's config
+FIG_DIMS, FIG_ITEMS, FIG_TRIALS, FIG_DEPTH = [64, 256], 1000, 4, 20
+
+
+def figures_phase(kmods, mods, ckpts, work):
+    """The figure entry points on the card; checks every matrix, F's one
+    launch in ``sample_viz`` and none elsewhere but the clifford model's
+    encodes.  Returns ``sample_viz``'s launches."""
+    (bundle_heatmap, rolefiller_heatmap, binding_depth_heatmap, sample_viz,
+     paper_bind_bundle_figure, eval_battery_timing) = mods
+    t_phase = time.perf_counter()
+    dev = [] if DEVICE.type == "cuda" else ["--device", str(DEVICE)]
+    out, launches, seconds = {}, {}, {}
+    with plot_recorder(os.path.join(work, "figures_recorder")):
+        for name, mod in (("bundle", bundle_heatmap),
+                          ("rolefiller", rolefiller_heatmap),
+                          ("depth", binding_depth_heatmap)):
+            args = mod.build_parser().parse_args(
+                ["--dims", *map(str, FIG_DIMS), "--n_trials",
+                 str(FIG_TRIALS)] + (["--max_depth", str(FIG_DEPTH)]
+                                     if name == "depth" else
+                                     ["--n_items", str(FIG_ITEMS)]) + dev)
+            zero_counts(*kmods)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = mod.compute(args)
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - t0
+            launches[name] = launched_since_zero(kmods)
+            mats = res[0] if name == "depth" else res
+            lo = -1.0 - 1e-5 if name == "depth" else 0.0
+            for init, mat in mats.items():
+                vals = mat[~np.isnan(mat)]
+                check(mat.shape[0] == len(FIG_DIMS) and vals.size > 0
+                      and bool(((vals >= lo) & (vals <= 1 + 1e-5)).all()),
+                      f"figures {name} {init}: matrix {mat}")
+            out[name] = {init: np.round(mat, 4).tolist()
+                         for init, mat in mats.items()}
+            check(not launches[name], f"figures {name}: launches "
+                                      f"{launches[name]}")
+
+        zero_counts(*kmods)
+        t0 = time.perf_counter()
+        sample_viz.main(["--out", os.path.join(work, "sample_viz.png")]
+                        + dev)
+        torch.cuda.synchronize()
+        seconds["sample_viz"] = time.perf_counter() - t0
+        launches["sample_viz"] = launched_since_zero(kmods)
+        check(launches["sample_viz"] == {"sampler_keyed": 1},
+              f"figures sample_viz: launches {launches['sample_viz']}, "
+              f"expected one sampler_keyed")
+        pts = sample_viz.column_points((0, 0), 5.0, 4, DEVICE)
+        check(all(p.shape == (sample_viz.N_SAMPLES, 3)
+                  and np.isfinite(p).all() for p in pts.values()),
+              "figures sample_viz: points not finite")
+
+        zero_counts(*kmods)
+        t0 = time.perf_counter()
+        panels = paper_bind_bundle_figure.main(
+            ["--clifford_ckpt", ckpts["clifford"], "--gaussian_ckpt",
+             ckpts["gaussian"], "--latent_dim", str(SWEEP_LATENT),
+             "--output", os.path.join(work, "bind_bundle.png")] + dev)
+        torch.cuda.synchronize()
+        seconds["paper_bind_bundle_figure"] = time.perf_counter() - t0
+        launches["paper_bind_bundle_figure"] = launched_since_zero(kmods)
+        sims = {label: sim for label, _, sim in panels}
+        check(all(math.isfinite(v) and -1 <= v <= 1 for v in sims.values())
+              and set(launches["paper_bind_bundle_figure"])
+              == {"sampler_keyed"},
+              f"figures paper_bind_bundle_figure: sims {sims}, launches "
+              f"{launches['paper_bind_bundle_figure']}")
+
+        zero_counts(*kmods)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_battery_timing.main(["--device", str(DEVICE)])
+        line = buf.getvalue().strip().splitlines()[-1]
+        print(line, flush=True)
+        battery = json.loads(line)
+        check(battery["backend"] == DEVICE.type
+              and battery["battery_warm_s"] > 0,
+              f"figures eval_battery_timing: {battery}")
+        launches["eval_battery_timing"] = launched_since_zero(kmods)
+    emit("figures", dims=FIG_DIMS, n_items=FIG_ITEMS, n_trials=FIG_TRIALS,
+         max_depth=FIG_DEPTH, matrices=out, launches=launches,
+         seconds=seconds, pairwise_unbind_sim=sims,
+         eval_battery_timing=battery, phase_s=time.perf_counter() - t_phase)
+    return launches["sample_viz"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2766,10 +3062,16 @@ def main() -> int:
     from cliffordtpu_torch.ops import torus as ops_torus
     from cliffordtpu_torch.runners import cnn_runner, mnist_runner
     from cliffordtpu_torch.scripts import (
+        binding_depth_heatmap,
+        bundle_heatmap,
         cifar10_train,
+        eval_battery_timing,
         fashion_train,
         mnist_clifpws,
         mnist_vmf,
+        paper_bind_bundle_figure,
+        rolefiller_heatmap,
+        sample_viz,
     )
     from cliffordtpu_torch.train import checkpoint, loop, schedules, state
     from cliffordtpu_torch.vsa import capacity
@@ -2897,6 +3199,19 @@ def main() -> int:
             max(4, ARM_LATENT // 16), True, gen)}
     for (name, shape), case in arm_cases.items():
         emit("kernel", kernel=name, shape=shape, **case)
+    # F and D at the sweep phase's trials (CNNVAE d 128, batch 256, one
+    # kappa per row), and F at sample_viz's draw (4000 rows of d 4, a kappa
+    # per angle)
+    sweep_cases = {
+        "sampler_keyed": sampler_case(sampler, "keyed", RUNNER_BATCH,
+                                      SWEEP_LATENT, True, gen),
+        "torus_bwd": torus_bwd_case(torus, sampler, ops_torus, RUNNER_BATCH,
+                                    SWEEP_LATENT, True, gen)}
+    for name, case in sweep_cases.items():
+        emit("kernel", kernel=name, shape=f"sweep_cnn{SWEEP_LATENT}", **case)
+    viz_case = sampler_case(sampler, "keyed", sample_viz.N_SAMPLES, 4, False,
+                            gen)
+    emit("kernel", kernel="sampler_keyed", shape="sample_viz", **viz_case)
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -2917,7 +3232,7 @@ def main() -> int:
     for label, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         st = state.create_train_state(flagship(vit_vae, dtype),
-                                      optimizer="adamw", lr=1e-4,
+                                      optimizer="adamw", lr=TRAIN_LR,
                                       device=DEVICE)
         per_step = {k: v for k, v in PER_STEP.items() if v}
         history, ms, counts = train(
@@ -2925,7 +3240,7 @@ def main() -> int:
             per_step, TRAIN_STEPS, images, f"flagship32 {label}")
         trained[label] = counts
         emit("train", compute_dtype=label, batch=BATCH, steps=TRAIN_STEPS,
-             optimizer="adamw", lr=1e-4, launches=counts,
+             optimizer="adamw", lr=TRAIN_LR, launches=counts,
              per_step_launches=per_step,
              median_ms_per_step=statistics.median(ms[1:]),
              min_ms_per_step=min(ms[1:]), first_ms=ms[0],
@@ -3020,6 +3335,14 @@ def main() -> int:
     mnist_runner_counts = mnist_runners_phase(
         kmods, (cnn_runner, mnist_runner, mnist_clifpws, mnist_vmf, mlp_vae,
                 ops_torus), root)
+    with tempfile.TemporaryDirectory() as work:
+        sweep_counts, ckpts = sweep_phase(kmods, (cnn_runner, fashion_train),
+                                          root, work)
+        viz_counts = figures_phase(
+            kmods, (bundle_heatmap, rolefiller_heatmap,
+                    binding_depth_heatmap, sample_viz,
+                    paper_bind_bundle_figure, eval_battery_timing),
+            ckpts, work)
     emit("mnist_runner_kernels", shape="mnist_mlp", R=MLP_BATCH,
          cases={f"{name},d{d}": {k: mnist[name, d][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -3047,6 +3370,10 @@ def main() -> int:
             return runner_counts.get(name, 0)
         if path in ("runner_hybrid128", "runner_vit128"):
             return arm_counts[path[len("runner_"):-len("128")]].get(name, 0)
+        if path == f"sweep_cnn{SWEEP_LATENT}":  # the children and in process
+            return sweep_counts.get(name, 0)
+        if path == "sample_viz":
+            return viz_counts.get(name, 0)
         if path.startswith("mnist_runner"):  # "mnist_runner,d<d>"
             return mnist_runner_counts[int(path.split(",d")[1])].get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
@@ -3145,6 +3472,17 @@ def main() -> int:
                         "sampler_pallas.py:356" if name == "sampler_keyed"
                         else "torus_pallas.py:154", mnist[name, d]),
                 "shape": "mnist_mlp", "R": MLP_BATCH, "d": d})
+    for name, case in sweep_cases.items():
+        kernels.append({
+            **entry(name, f"sweep_cnn{SWEEP_LATENT}", f"{name}.cu",
+                    "sampler_pallas.py:356" if name == "sampler_keyed"
+                    else "torus_pallas.py:154", case),
+            "shape": f"sweep_cnn{SWEEP_LATENT}", "R": case["R"],
+            "d": case["d"]})
+    kernels.append({
+        **entry("sampler_keyed", "sample_viz", "sampler_keyed.cu",
+                "sampler_pallas.py:356", viz_case),
+        "shape": "sample_viz", "R": viz_case["R"], "d": viz_case["d"]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -70,6 +70,7 @@ from cliffordtpu_torch.eval.tables import (
     plot_across_dims_comparison,
     plot_cross_dist_comparison_dim,
 )
+from cliffordtpu_torch.kernels import launch_counts
 from cliffordtpu_torch.nn.conv_vae import CNNVAE
 from cliffordtpu_torch.nn.hybrid_vae import HybridVAE
 from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
@@ -118,6 +119,10 @@ from cliffordtpu_torch.vsa.ops import (
 BC_K_RANGE = list(range(5, 51, 5))
 RF_K_RANGE = list(range(2, 21, 2))
 LOSS_KEYS = ("total_loss", "recon_loss", "kld_loss", "grad_norm")
+# the across-dims table's keys and the metrics.json keys they read
+ACROSS_KEYS = (("knn_100", "knn_acc_100"), ("knn_600", "knn_acc_600"),
+               ("knn_1000", "knn_acc_1000"), ("f1_100", "knn_f1_100"),
+               ("f1_600", "knn_f1_600"), ("f1_1000", "knn_f1_1000"))
 CSV_METRICS = ("knn_acc_100", "knn_acc_600", "knn_acc_1000", "knn_f1_100",
                "knn_f1_600", "knn_f1_1000", "mvc")
 
@@ -319,6 +324,65 @@ def train_model(args, model, x_train, x_test, run_key, logger=None):
     return state, best, eval_step
 
 
+def trial_entry(m: Dict) -> Dict:
+    """One trial's ``metrics.json`` as its record in the trial sidecar
+    (what ``results_rows`` reads): a missing metric 0, a missing FID or
+    best loss NaN."""
+    fid = m.get("generation_fid", float("nan"))
+    return {
+        **{mk: m.get(mk, 0.0) for _, mk in ACROSS_KEYS},
+        "mvc": m.get("mean_vector_cosine_acc", 0.0),
+        "fid": float("nan") if fid is None else fid,
+        "best_loss": m.get("final_best_total_loss", float("nan")),
+    }
+
+
+K_SELF_BIND = 50
+
+
+def _self_bind_curve(z: torch.Tensor) -> List[float]:
+    sims = []
+    cur = z
+    for m in range(1, K_SELF_BIND + 1):
+        cur = vsa_bind(cur, z)
+        rec = cur
+        for _ in range(m):
+            rec = vsa_unbind(rec, z, method="*")
+        sims.append(float(similarity(rec, z)))
+    return sims
+
+
+def reference_curves(root_key, dim: int, vsa_trials: int, device) -> Dict:
+    """The random-HRR and unitary entries of one dim's cross-dist
+    comparison (``fashion_train.py:1288-1371``): 1000 items and a
+    self-binding vector of each, from ``fold_in(root_key, dim)``."""
+    ckey = random.fold_in_words(root_key, dim)
+    out = {}
+    for name, items, z in [
+        ("random_hrr",
+         random.normal(ckey, (1000, dim), device),
+         random.normal(random.fold_in_words(ckey, 1), (dim,), device)),
+        ("unitary",
+         vsa_unitary_init(random.fold_in_words(ckey, 2), 1000, dim,
+                          device=device),
+         vsa_unitary_init(random.fold_in_words(ckey, 3), 1, dim,
+                          device=device)[0]),
+    ]:
+        items = normalize_vectors(items)
+        out[name] = {
+            "bundle_cap": vsa_bundle_capacity(
+                d=dim, n_items=1000, k_range=BC_K_RANGE,
+                n_trials=vsa_trials, item_memory=items, key=ckey),
+            "role_filler": vsa_binding_unbinding(
+                d=dim, n_items=1000, k_range=RF_K_RANGE,
+                n_trials=vsa_trials, unbind_method="*",
+                item_memory=items, bind_with_random=True, key=ckey),
+            "self_binding_k_sims": _self_bind_curve(normalize_vectors(z)),
+            "self_binding_k_values": list(range(1, K_SELF_BIND + 1)),
+        }
+    return out
+
+
 def results_rows(all_trials: Dict) -> List[Dict]:
     """The rows of ``{dataset}_results.csv``: per (d, dist) the mean ± std
     over trials of each metric in percent, the FID and the best loss."""
@@ -368,7 +432,22 @@ def format_table(rows: List[Dict]) -> str:
 
 def run_cnn_experiments(args, dataset_name: str, timing_name: str,
                         full_eval: bool = True):
-    """Main sweep loop shared by the fashion and cifar10 runners."""
+    """Main sweep loop shared by the fashion and cifar10 runners, under
+    cuDNN's deterministic algorithms (the caller's setting restored
+    after): a trial then gives the same numbers in every process, so a
+    trial the sweep driver shells equals the same trial in process, as
+    on XLA; without them two runs on the card part (1.8e-3 in best loss
+    after two epochs at lr 1e-3 on an H100)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _run_experiments(args, dataset_name, timing_name, full_eval)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _run_experiments(args, dataset_name: str, timing_name: str,
+                     full_eval: bool):
     refuse_unported(args)
     script_start_time = time.time()
     timing_results: Dict = {}
@@ -782,12 +861,7 @@ def run_cnn_experiments(args, dataset_name: str, timing_name: str,
                             and not math.isnan(gen_fid) else float("nan")),
                     "best_loss": best,
                 })
-                for kk, mk in [("knn_100", "knn_acc_100"),
-                               ("knn_600", "knn_acc_600"),
-                               ("knn_1000", "knn_acc_1000"),
-                               ("f1_100", "knn_f1_100"),
-                               ("f1_600", "knn_f1_600"),
-                               ("f1_1000", "knn_f1_1000")]:
+                for kk, mk in ACROSS_KEYS:
                     across_dim_results[dist_name][kk].append(
                         knn_metrics.get(mk, 0.0))
                 across_dim_results[dist_name]["mean_cosine"].append(
@@ -796,54 +870,8 @@ def run_cnn_experiments(args, dataset_name: str, timing_name: str,
 
         # per-dim reference curves + cross-dist comparison (:1288-1371)
         try:
-            ckey = random.fold_in_words(root_key, latent_dim)
-            ref_items = normalize_vectors(
-                random.normal(ckey, (1000, latent_dim), device))
-            ref_bc = vsa_bundle_capacity(
-                d=latent_dim, n_items=1000, k_range=BC_K_RANGE,
-                n_trials=args.vsa_trials, item_memory=ref_items, key=ckey)
-            ref_rf = vsa_binding_unbinding(
-                d=latent_dim, n_items=1000, k_range=RF_K_RANGE,
-                n_trials=args.vsa_trials, unbind_method="*",
-                item_memory=ref_items, bind_with_random=True, key=ckey)
-            k_max = 50
-
-            def _self_bind_curve(z):
-                sims = []
-                cur = z
-                for m in range(1, k_max + 1):
-                    cur = vsa_bind(cur, z)
-                    rec = cur
-                    for _ in range(m):
-                        rec = vsa_unbind(rec, z, method="*")
-                    sims.append(float(similarity(rec, z)))
-                return sims
-
-            z_ref = normalize_vectors(random.normal(
-                random.fold_in_words(ckey, 1), (latent_dim,), device))
-            dim_results["random_hrr"] = {
-                "bundle_cap": ref_bc, "role_filler": ref_rf,
-                "self_binding_k_sims": _self_bind_curve(z_ref),
-                "self_binding_k_values": list(range(1, k_max + 1)),
-            }
-            uni_items = normalize_vectors(vsa_unitary_init(
-                random.fold_in_words(ckey, 2), 1000, latent_dim,
-                device=device))
-            uni_bc = vsa_bundle_capacity(
-                d=latent_dim, n_items=1000, k_range=BC_K_RANGE,
-                n_trials=args.vsa_trials, item_memory=uni_items, key=ckey)
-            uni_rf = vsa_binding_unbinding(
-                d=latent_dim, n_items=1000, k_range=RF_K_RANGE,
-                n_trials=args.vsa_trials, unbind_method="*",
-                item_memory=uni_items, bind_with_random=True, key=ckey)
-            z_uni = normalize_vectors(vsa_unitary_init(
-                random.fold_in_words(ckey, 3), 1, latent_dim,
-                device=device)[0])
-            dim_results["unitary"] = {
-                "bundle_cap": uni_bc, "role_filler": uni_rf,
-                "self_binding_k_sims": _self_bind_curve(z_uni),
-                "self_binding_k_values": list(range(1, k_max + 1)),
-            }
+            dim_results.update(reference_curves(
+                root_key, latent_dim, args.vsa_trials, device))
             comp_dir = ensure_dir(f"results/comparisons/{dataset_name}")
             # merge-on-write sidecar so per-family invocations aggregate
             dim_merged = _merge_json_write(
@@ -895,3 +923,6 @@ def run_cnn_experiments(args, dataset_name: str, timing_name: str,
     _merge_json_write(f"{timing_name}_timing.json", timing_results)
     print(f"\ntotal script execution time: "
           f"{timing_results['total_script_time_s']:.2f}s")
+    # the launches of this process, as eval_checkpoint prints its own (a
+    # sweep's trial logs end with them)
+    print(f"kernel launches: {json.dumps(launch_counts())}")

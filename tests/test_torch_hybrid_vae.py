@@ -364,3 +364,33 @@ def test_from_jax_routes_each_family():
                    for k in flat) == (family == "hybrid")
     with pytest.raises(ValueError, match="family"):
         param_import.from_jax({"head/kernel": np.zeros((2, 2), np.float32)})
+
+
+def test_initial_weights_have_flax_spread():
+    """The CNN runners' hybrid arm (latent 128 // 16 per token, 32 px) at
+    initialisation: every tensor's spread within 5% of flax's and its mean
+    within 0.02 (two seeds each), so trials of the two packages start from
+    one distribution; the values differ."""
+    jmodel = jhybrid.HybridVAE(latent_dim=8, in_channels=1,
+                               distribution="clifford", img_size=32)
+    x = jnp.zeros((2, 32, 32, 1))
+    init = jax.jit(jmodel.init)
+    want, got = {}, {}
+    for seed in range(2):
+        rng = jax.random.PRNGKey(seed)
+        flat = param_import.from_jax(_flatten_params(jax.device_get(
+            init({"params": rng, "sample": rng}, x)["params"])), "clifford")
+        port = hybrid_vae.HybridVAE(latent_dim=8, in_channels=1,
+                                    distribution="clifford", img_size=32,
+                                    seed=seed).state_dict()
+        assert port.keys() == flat.keys()
+        for k in port:
+            want.setdefault(k, []).append(np.asarray(flat[k], np.float64))
+            got.setdefault(k, []).append(port[k].double().numpy())
+    for k in want:
+        w, g = np.concatenate(want[k], None), np.concatenate(got[k], None)
+        assert abs(g.mean() - w.mean()) <= 0.02, k
+        if w.std() == 0:
+            assert g.std() == 0, k
+        else:
+            assert abs(g.std() / w.std() - 1) <= 0.05, k
