@@ -184,6 +184,29 @@ Phases, each printing one JSON line and each fatal when it fails:
             versions (best validation losses within
             ``MNIST_RUNNER_LOSS_REL``);
 
+then the ``sweep`` and ``figures`` phases (``sweep_phase``,
+``figures_phase``), then:
+
+18. export  flagship32 (float32 and bfloat16 compute) and cnn4096
+            exported for "cuda" by ``serving.export_serving`` into a
+            temporary directory (params.npz float32, and for flagship32
+            float32 and cnn4096 also bfloat16 and int8), loaded by a
+            child process (``chip_smoke.py --export-child``) that imports
+            no ``cliffordtpu_torch.nn`` module; requests at batch 1, 8 and
+            64 through one program per function, held against in-process
+            ``Serving`` on the same weights and keys (``EXPORT_BAR``;
+            bfloat16 ``EXPORT_BF16_BAR``); the launches inside the loaded
+            programs per request (flagship32 A 4 / 4 / 8 and F 0 / 1 / 0,
+            cnn4096 F 0 / 1 / 0); the storage modes within
+            ``EXPORT_QUANT``; every program under ``EXPORT_PT2_SHARE`` of
+            params.npz; the batch-64 request times of bundle and
+            ``Serving``;
+19. native_data  the native data engine built on the card's host; the
+            committed digit shard written as idx files (plain and gz) and
+            read back natively and in Python; ``iterate_batches``'
+            stream at batch 256 through the C++ batcher against the numpy
+            path, keyed and not; ms per epoch of both;
+
 then the table of all six kernels as one JSON line (the attention kernels
 also on the heads' path and at image 256; the keyed sampler and the torus
 backward also at the MNIST shapes and at the hybrid's, R 16384 rows of d
@@ -192,7 +215,8 @@ R 200 of d 4096; the keyed sampler, the torus backward and the torus
 forward at runner_fashion4096's, R 256 of d 4096; the attention kernels
 at the ViT arm's B 256 and the keyed sampler and torus backward at the
 hybrid arm's R 16384 of d 8; the keyed sampler and the torus backward at
-R 128, d 5 and 256, with the MNIST runners' launches), the
+R 128, d 5 and 256, with the MNIST runners' launches; A and F inside
+the loaded bundles' programs), the
 ``nvidia-smi`` line, and
 last
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -202,11 +226,13 @@ the repository beside it, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import json
 import math
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3033,6 +3059,325 @@ def figures_phase(kmods, mods, ckpts, work):
     return launches["sample_viz"]
 
 
+EXPORT_BATCHES = (1, 8, 64)  # requests through one program per function
+EXPORT_REQUESTS = 10  # timed batch-64 requests per function, after one
+EXPORT_BAR = 1e-5  # float32 bundle vs in-process Serving, relative
+EXPORT_BF16_BAR = 1e-2  # bfloat16 compute: the same ops, another process
+# storage modes of params.npz against the float32 bundle: the largest
+# encode_mu error relative to its largest magnitude, and how much
+# params.npz must shrink (the JAX package's bars, tests/test_export.py)
+EXPORT_QUANT = {"bfloat16": (5e-3, 1.6), "int8": (5e-2, 2.5)}
+EXPORT_PT2_SHARE = 0.05  # each program below this share of params.npz
+EXPORT_SEED = 17
+EXPORT_FLAGSHIP = {"encode_mu": {"attention_fwd": 4},
+                   "encode_z": {"attention_fwd": 4, "sampler_keyed": 1},
+                   "decode": {"attention_fwd": 8}}
+EXPORT_CNN = {"encode_mu": {}, "encode_z": {"sampler_keyed": 1},
+              "decode": {}}
+
+
+def export_child(spec_path: str) -> int:
+    """The loading side of the export phase, in a process of its own that
+    imports the kernels' operators and ``serving`` and no model code: load
+    each bundle on the card, answer the requests of ``spec_path`` at every
+    batch through one program per function, count the launches per
+    request, time the batch-64 requests; write the answers to an npz and
+    print one JSON line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from cliffordtpu_torch import kernels, serving
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    inputs = np.load(spec["inputs"])
+    device = torch.device(spec["device"])
+    out, report = {}, {}
+    for name, d in spec["bundles"].items():
+        t0 = time.perf_counter()
+        ld = serving.load_serving(d, device)
+        load_s = time.perf_counter() - t0
+        launches, ms = {}, {}
+        for b in spec["batches"]:
+            x = inputs["x"][:b]
+            for fn in ("encode_mu", "encode_z", "decode"):
+                before = kernels.launch_counts()
+                if fn == "encode_mu":
+                    y = ld.encode_mu(x)
+                elif fn == "encode_z":
+                    y = ld.encode_z((0, b), x)
+                else:
+                    y = ld.decode(out[f"{name}/encode_z/{b}"])
+                out[f"{name}/{fn}/{b}"] = y.float().cpu().numpy()
+                launches[f"{fn}/{b}"] = moved_counts(
+                    before, kernels.launch_counts())
+        x = inputs["x"]
+        z = torch.as_tensor(out[f"{name}/encode_z/{x.shape[0]}"],
+                            device=device)
+        calls = (("encode_mu", lambda: ld.encode_mu(x)),
+                 ("encode_z", lambda: ld.encode_z((0, 1), x)),
+                 ("decode", lambda: ld.decode(z)))
+        for fn, call in calls:
+            ms[fn] = request_ms(call, device)
+        # the same requests without the programs' per-call input checks
+        # (``validate_inputs``), to see what those checks cost; kept on
+        # for every other request
+        unchecked = {}
+        for fn, call in calls:
+            program = ld._programs[fn]
+            if hasattr(program, "validate_inputs"):
+                program.validate_inputs = False
+                unchecked[fn] = request_ms(call, device)
+                program.validate_inputs = True
+        report[name] = {"load_s": load_s, "launches": launches,
+                        "batch64_ms": ms, "batch64_unchecked_ms": unchecked}
+    np.savez(spec["outputs"], **out)
+    print(json.dumps({"bundles": report, "model_modules": [
+        m for m in sys.modules if m.startswith("cliffordtpu_torch.nn")]}),
+        flush=True)
+    return 0
+
+
+def request_ms(call, device) -> float:
+    """Median host wall time of one request with its results on the card
+    (synchronised), after one warm-up request."""
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    call()
+    times = []
+    for _ in range(EXPORT_REQUESTS):
+        sync()
+        t0 = time.perf_counter()
+        call()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rel_err(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def export_phase(mods, root, work):
+    """flagship32 (float32 and bfloat16 compute) and cnn4096 exported for
+    "cuda", loaded in a child process with no model code, held against
+    in-process ``Serving`` on the same weights and keys at batch 1, 8 and
+    64; the storage modes of params.npz; the programs' sizes; batch-64
+    request times of both.  Returns the child's launches per bundle."""
+    serving, vit_vae, conv_vae, trandom = mods
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(EXPORT_SEED)
+    images = (torch.rand(max(EXPORT_BATCHES), 32, 32, 1, generator=gen,
+                         device=DEVICE) * 2 - 1).cpu().numpy()
+    inputs = os.path.join(work, "export_inputs.npz")
+    np.savez(inputs, x=images)
+    models = {
+        "flagship32_f32": (flagship(vit_vae, torch.float32), EXPORT_FLAGSHIP),
+        "flagship32_bf16": (flagship(vit_vae, torch.bfloat16),
+                            EXPORT_FLAGSHIP),
+        "cnn4096_f32": (cnn4096(conv_vae, torch.float32), EXPORT_CNN)}
+    bundles, export_s, sizes = {}, {}, {}
+    storage = [(name, mode) for name in ("flagship32_f32", "cnn4096_f32")
+               for mode in EXPORT_QUANT]
+    for name, mode in [(n, "float32") for n in models] + storage:
+        label = name if mode == "float32" else f"{name}:{mode}"
+        d = os.path.join(work, label.replace(":", "_"))
+        t0 = time.perf_counter()
+        res = serving.export_serving(models[name][0], None, (32, 32, 1),
+                                     out_dir=d, platforms=(DEVICE.type,),
+                                     params_dtype=mode)
+        export_s[label] = time.perf_counter() - t0
+        check(all(f["batch"] == "symbolic"
+                  for f in res["manifest"]["functions"].values()),
+              f"export {label}: a function took a pinned batch")
+        sizes[label] = {f: os.path.getsize(os.path.join(d, f))
+                        for f in sorted(os.listdir(d))}
+        bundles[label] = d
+    spec = os.path.join(work, "export_spec.json")
+    outputs = os.path.join(work, "export_outputs.npz")
+    with open(spec, "w") as f:
+        json.dump({"bundles": bundles, "inputs": inputs, "outputs": outputs,
+                   "batches": list(EXPORT_BATCHES), "device": str(DEVICE)},
+                  f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py"),
+         "--export-child", spec], capture_output=True, text=True, env=env,
+        timeout=900)
+    child_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"export child failed:\n"
+                                f"{proc.stderr[-4000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(child["model_modules"] == [],
+          f"export child imported model code: {child['model_modules']}")
+    got = np.load(outputs)
+
+    errs, served_ms, launches = {}, {}, {}
+    for name, (model, expected) in models.items():
+        srv = serving.Serving(model, device=DEVICE)
+        bar = EXPORT_BF16_BAR if name.endswith("bf16") else EXPORT_BAR
+        errs[name] = {}
+        for b in EXPORT_BATCHES:
+            x = images[:b]
+            z = got[f"{name}/encode_z/{b}"]
+            want = {"encode_mu": srv.encode_mu(x),
+                    "encode_z": srv.encode_z(trandom.sample_key((0, b)), x),
+                    "decode": srv.decode(z)}
+            for fn, w in want.items():
+                e = rel_err(got[f"{name}/{fn}/{b}"], w.float().cpu().numpy())
+                errs[name][f"{fn}/{b}"] = e
+                check(e <= bar, f"export {name} {fn} batch {b}: bundle vs "
+                                f"Serving {e} > {bar}")
+                moved = child["bundles"][name]["launches"][f"{fn}/{b}"]
+                check(moved == expected[fn],
+                      f"export {name} {fn} batch {b}: the loaded program "
+                      f"launched {moved}, expected {expected[fn]}")
+        x = images
+        z = torch.as_tensor(got[f"{name}/encode_z/{x.shape[0]}"],
+                            device=DEVICE)
+        served_ms[name] = {
+            "encode_mu": request_ms(lambda: srv.encode_mu(x), DEVICE),
+            "encode_z": request_ms(
+                lambda: srv.encode_z(trandom.sample_key((0, 1)), x), DEVICE),
+            "decode": request_ms(lambda: srv.decode(z), DEVICE)}
+        total = {}
+        for moved in child["bundles"][name]["launches"].values():
+            for k, v in moved.items():
+                total[k] = total.get(k, 0) + v
+        launches[name] = total
+        del srv
+    check(sum(c.get("attention_fwd", 0) for c in launches.values()) > 0
+          and sum(c.get("sampler_keyed", 0) for c in launches.values()) > 0,
+          f"export: the loaded programs launched {launches}")
+
+    quant = {}
+    for name, mode in storage:
+        max_err, shrink = EXPORT_QUANT[mode]
+        label = f"{name}:{mode}"
+        e = max(rel_err(got[f"{label}/encode_mu/{b}"],
+                        got[f"{name}/encode_mu/{b}"])
+                for b in EXPORT_BATCHES)
+        ratio = (sizes[name]["params.npz"] / sizes[label]["params.npz"])
+        quant[label] = {"encode_mu_rel_err": e, "shrink": ratio}
+        check(e < max_err and ratio > shrink,
+              f"export {label}: encode_mu error {e} (< {max_err}), "
+              f"params.npz {ratio}x smaller (> {shrink})")
+    share = {label: {f: s / files["params.npz"] for f, s in files.items()
+                     if f.endswith(".pt2")}
+             for label, files in sizes.items()}
+    for label, files in share.items():
+        check(max(files.values()) < EXPORT_PT2_SHARE,
+              f"export {label}: a program holds {max(files.values())} of "
+              f"params.npz's size: the weights are baked in")
+    emit("export", batches=EXPORT_BATCHES, bar=EXPORT_BAR,
+         bf16_bar=EXPORT_BF16_BAR, export_s=export_s, child_s=child_s,
+         load_s={k: v["load_s"] for k, v in child["bundles"].items()},
+         sizes=sizes, pt2_share_of_params=share,
+         bundle_vs_serving_rel_err=errs, storage_modes=quant,
+         launches=launches,
+         bundle_batch64_ms={k: v["batch64_ms"]
+                            for k, v in child["bundles"].items()
+                            if k in models},
+         bundle_batch64_unchecked_ms={
+             k: v["batch64_unchecked_ms"]
+             for k, v in child["bundles"].items() if k in models},
+         serving_batch64_ms=served_ms,
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+NATIVE_BATCH = 256
+NATIVE_EPOCHS = 5  # timed epochs per engine, after one
+
+
+def epoch_ms(batches) -> float:
+    """Median wall time of one epoch drawn from ``batches()``."""
+    for _ in batches():
+        pass
+    times = []
+    for _ in range(NATIVE_EPOCHS):
+        t0 = time.perf_counter()
+        for _ in batches():
+            pass
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def native_data_phase(root, work):
+    """The native data engine built on the card's host; the committed digit
+    shard written as idx files, read back natively and in Python; the
+    batch stream at batch 256 against the numpy path, keyed and not; the
+    ms per epoch of both."""
+    from cliffordtpu_torch.data import loaders, native
+    from cliffordtpu_torch.native import build as native_build
+
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    build_s = time.perf_counter() - t0
+    shard = np.load(os.path.join(root, "tests", "data", "mnist",
+                                 "mnist.npz"))
+    saved = os.environ.get("CLIFFORDTPU_DATA_ENGINE")
+
+    def engine(mode):
+        os.environ["CLIFFORDTPU_DATA_ENGINE"] = mode
+
+    try:
+        reads = {}
+        for split in ("x_train", "y_train", "x_test", "y_test"):
+            arr = shard[split].astype(np.uint8)
+            for gz in (False, True):
+                path = os.path.join(work, split + (".gz" if gz else ""))
+                header = struct.pack(">HBB", 0, 8, arr.ndim) + struct.pack(
+                    ">" + "I" * arr.ndim, *arr.shape)
+                with (gzip.open if gz else open)(path, "wb") as f:
+                    f.write(header + arr.tobytes())
+                engine("python")
+                plain = loaders._read_idx(path)
+                engine("native")
+                fast = native.read_idx(path)
+                reads[os.path.basename(path)] = bool(
+                    np.array_equal(fast, arr) and np.array_equal(plain, arr))
+        check(all(reads.values()), f"native_data: idx reads {reads}")
+        x = (shard["x_train"].reshape(len(shard["x_train"]), -1)
+             .astype(np.float32) / 255.0)
+        y = shard["y_train"].astype(np.int64)
+        same, ms = {}, {}
+        for keyed in (False, True):
+            key = (0, 3) if keyed else None
+            label = "keyed" if keyed else "unkeyed"
+
+            def numpy_path():
+                engine("python")
+                return loaders.iterate_batches(x, y, NATIVE_BATCH, key=key)
+
+            def native_path():
+                engine("native")
+                return loaders.iterate_batches(x, y, NATIVE_BATCH, key=key)
+
+            want, got_ = list(numpy_path()), list(native_path())
+            same[label] = len(got_) == len(want) and all(
+                np.array_equal(a, c) and np.array_equal(b, e)
+                for (a, b), (c, e) in zip(got_, want))
+            ms[label] = {"numpy": epoch_ms(numpy_path),
+                         "native": epoch_ms(native_path)}
+        check(all(same.values()), f"native_data: streams equal {same}")
+    finally:
+        if saved is None:
+            os.environ.pop("CLIFFORDTPU_DATA_ENGINE", None)
+        else:
+            os.environ["CLIFFORDTPU_DATA_ENGINE"] = saved
+    emit("native_data", library=os.path.basename(lib), build_s=build_s,
+         idx_reads_equal=reads, batch=NATIVE_BATCH, rows=len(x),
+         streams_equal=same, epoch_ms=ms, cpu_count=os.cpu_count())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3056,9 +3401,9 @@ def main() -> int:
         hybrid_vae,
         losses,
         mlp_vae,
-        rope,
         vit_vae,
     )
+    from cliffordtpu_torch.ops import rope
     from cliffordtpu_torch.ops import torus as ops_torus
     from cliffordtpu_torch.runners import cnn_runner, mnist_runner
     from cliffordtpu_torch.scripts import (
@@ -3343,6 +3688,11 @@ def main() -> int:
                     binding_depth_heatmap, sample_viz,
                     paper_bind_bundle_figure, eval_battery_timing),
             ckpts, work)
+    with tempfile.TemporaryDirectory() as work:
+        export_counts = export_phase((serving, vit_vae, conv_vae, trandom),
+                                     root, work)
+    with tempfile.TemporaryDirectory() as work:
+        native_data_phase(root, work)
     emit("mnist_runner_kernels", shape="mnist_mlp", R=MLP_BATCH,
          cases={f"{name},d{d}": {k: mnist[name, d][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -3374,6 +3724,11 @@ def main() -> int:
             return sweep_counts.get(name, 0)
         if path == "sample_viz":
             return viz_counts.get(name, 0)
+        if path.startswith("export_"):  # the loaded programs' launches
+            suffix = {"float32": "_f32", "bfloat16": "_bf16", None: ""}[dtype]
+            return sum(c.get(name, 0) for label, c in export_counts.items()
+                       if label.startswith(path[len("export_"):])
+                       and label.endswith(suffix))
         if path.startswith("mnist_runner"):  # "mnist_runner,d<d>"
             return mnist_runner_counts[int(path.split(",d")[1])].get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
@@ -3483,6 +3838,18 @@ def main() -> int:
         **entry("sampler_keyed", "sample_viz", "sampler_keyed.cu",
                 "sampler_pallas.py:356", viz_case),
         "shape": "sample_viz", "R": viz_case["R"], "d": viz_case["d"]})
+    # the kernels inside the exported programs, loaded without model code
+    kernels += [
+        {**entry("attention_fwd", "export_flagship32", att_src, att_tpu,
+                 att["f32"], "float32"), "shape": "flagship32 bundle"},
+        {**entry("attention_fwd", "export_flagship32", att_src, att_tpu,
+                 att["bf16"], "bfloat16"), "shape": "flagship32 bundle"},
+        {**entry("sampler_keyed", "export_flagship32", "sampler_keyed.cu",
+                 "sampler_pallas.py:356", smp["keyed", "flagship32"]),
+         "shape": "flagship32 bundle"},
+        {**entry("sampler_keyed", "export_cnn4096", "sampler_keyed.cu",
+                 "sampler_pallas.py:356", smp["keyed", "cnn4096"]),
+         "shape": "cnn4096 bundle"}]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3494,4 +3861,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--export-child"]:
+        sys.exit(export_child(sys.argv[2]))
     sys.exit(main())

@@ -16,8 +16,9 @@ The fallback (``_synthesize``) is the JAX package's numpy code, so it
 gives the same bytes.  The 28 -> 32 resize is ``F.interpolate`` with
 half-pixel bilinear sampling, which equals ``jax.image.resize(...,
 "bilinear")`` when upsampling, edges included.  ``iterate_batches`` is
-the numpy path of the JAX function (the C++ batch engine is not ported),
-shuffled by the bit-exact ``random.permutation``.
+shuffled by the bit-exact ``random.permutation``.  Both ``_read_idx`` and
+``iterate_batches`` go through the native data engine (``data/native.py``)
+unless ``CLIFFORDTPU_DATA_ENGINE=python``, as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -59,6 +60,10 @@ _IDX_NAMES = {
 
 
 def _read_idx(path: str) -> np.ndarray:
+    from cliffordtpu_torch.data import native
+
+    if native.available():
+        return native.read_idx(path)  # ValueError on corrupt, like below
     opener = gzip.open if path.endswith(".gz") else open
     try:
         with opener(path, "rb") as f:
@@ -280,7 +285,20 @@ def iterate_batches(
     drop_remainder: bool = False,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Minibatches of host arrays, in the order of ``permutation(key, n)``
-    when keyed (the JAX function's stream, bit for bit), else in order."""
+    when keyed (the JAX function's stream, bit for bit), else in order.
+    float32 images with int64 labels go through the native engine's
+    prefetching batcher where ``native.prefetch_enabled()``; the stream is
+    the same."""
+    if (isinstance(x, np.ndarray) and x.dtype == np.float32
+            and isinstance(y, np.ndarray) and y.dtype == np.int64):
+        from cliffordtpu_torch.data import native
+
+        if native.prefetch_enabled():
+            with native.NativeBatchIterator(
+                    x, y, batch_size, key=key,
+                    drop_remainder=drop_remainder) as it:
+                yield from it
+            return
     n = x.shape[0]
     idx = np.arange(n)
     if key is not None:

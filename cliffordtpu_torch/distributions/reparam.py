@@ -1,5 +1,7 @@
 """Posterior and prior construction and sampling, every latent family
-(port of ``cliffordtpu/nn/reparam.py``).
+(port of ``cliffordtpu/nn/reparam.py``), and ``draw_flat``, the serving
+draw.  It lives beside the distributions, not the models, so that a loaded
+serving bundle draws without importing ``cliffordtpu_torch.nn``.
 """
 
 from __future__ import annotations
@@ -62,3 +64,20 @@ def sample_latent(key, distribution: str, q_z, l2_normalize: bool = False,
     if distribution in ("normal", "gaussian") and l2_normalize:
         z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
     return z
+
+
+def draw_flat(key, mu, param2, distribution: str, latent_dim: int,
+              l2_normalize: bool = False, sampler: Optional[str] = None,
+              scale: float = 1.0) -> torch.Tensor:
+    """A model's ``get_flat_latent`` after its encoder heads: the posterior
+    of the heads (mu (B, [T,] d) and ``param2``; a per-token clifford
+    concentration (B, T) broadcast over the circles), one draw with the
+    sampling ``key``, times ``scale`` (sqrt(d) for ``CliffordARVAE``'s
+    powerspherical head), flattened to (B, T*k)."""
+    if distribution == "clifford" and param2.dim() < mu.dim():
+        param2 = param2[..., None]
+    q_z, _ = reparameterize(distribution, mu, param2, latent_dim)
+    z = sample_latent(key, distribution, q_z, l2_normalize, sampler)
+    if scale != 1.0:
+        z = z * scale
+    return z.reshape(z.shape[0], -1)

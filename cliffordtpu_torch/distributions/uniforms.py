@@ -5,7 +5,7 @@ conventions, and the Clifford torus.
 * ``HypersphericalUniform(dim=d)``: S^(d-1) in R^d, the PowerSpherical
   prior;
 * ``VMFHypersphericalUniform(dim=d)``: S^d in R^(d+1), the vMF prior;
-  callers pass ``z_dim - 1`` (``nn/reparam.py``);
+  callers pass ``z_dim - 1`` (``distributions/reparam.py``);
 * ``CliffordTorusUniform(dim=d)``: the torus (S^1)^d in R^(2d).
 
 Samplers take a key and draw from the keyed threefry stream.

@@ -2,7 +2,11 @@
 version, a wrapper and a launch count (port of ``cliffordtpu/kernels``).
 
 Sources live in ``cliffordtpu_torch/csrc``; ``build.py`` compiles them.
+Importing the package registers the operators of ``ops.py`` (the kernels
+and the latent draw as ``torch.export`` sees them).
 """
+
+from cliffordtpu_torch.kernels import ops  # noqa: F401  (registers the ops)
 
 
 def launch_counts() -> dict:

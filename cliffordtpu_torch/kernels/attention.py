@@ -3,9 +3,11 @@
 custom VJP (``_attn_bwd``).
 
 ``fused_attention`` runs ``attention_plain`` for CPU tensors; any device
-other than CUDA or the CPU raises.  For CUDA tensors it takes one of two
-routes, chosen before anything runs from the shape, the dtype and whether
-a gradient is needed (``kernel_fits``):
+other than CUDA or the CPU raises.  Without a gradient it reaches both
+through the registered operator ``attention_fwd`` (``kernels/ops.py``),
+which ``torch.export`` records in a serving program.  For CUDA tensors
+it takes one of two routes, chosen before anything runs from the shape,
+the dtype and whether a gradient is needed (``kernel_fits``):
 
 * the kernels: ``csrc/attention_fwd.cu``, and under autograd a
   ``torch.autograd.Function`` whose backward launches
@@ -38,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from cliffordtpu_torch.kernels import build
-from cliffordtpu_torch.nn.rope import apply_rotary_half
+from cliffordtpu_torch.ops.rope import apply_rotary_half
 
 # kernel launches since the counts were last set to 0
 launches = 0  # forward kernel
@@ -258,7 +260,7 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, cos, sin):
         ctx.save_for_backward(q, k, v, cos, sin)
-        return _launch_fwd(q, k, v, cos, sin)
+        return _fwd_op(q, k, v, cos, sin)
 
     @staticmethod
     def backward(ctx, d_out):
@@ -311,11 +313,24 @@ def fused_attention(q, k, v, cos: Optional[torch.Tensor] = None,
     q, k and v.  On CUDA, the kernels where ``kernel_fits``, else
     ``attention_dense`` (see the module docstring)."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, cos, sin)
+        if _needs_grad(q, k, v):
+            return attention_plain(q, k, v, cos, sin)
+        return _fwd_op(q, k, v, cos, sin)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q.device}")
     return _routed(q, k, v, cos, sin)
+
+
+def _needs_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+
+def _fwd_op(q, k, v, cos, sin) -> torch.Tensor:
+    """The registered forward operator (``kernels/ops.py``), which a traced
+    program records: kernel A on CUDA, ``attention_plain`` on the CPU."""
+    return torch.ops.cliffordtpu_torch.attention_fwd(q, k, v, cos, sin)
 
 
 def _routed(q, k, v, cos, sin) -> torch.Tensor:
@@ -324,8 +339,7 @@ def _routed(q, k, v, cos, sin) -> torch.Tensor:
     runs; under autograd it serves both directions."""
     global dense_calls
     _check_inputs(q, k, v, cos, sin)
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
+    needs_grad = _needs_grad(q, k, v)
     S = q.shape[1]
     if not kernel_fits(S, q.shape[3], q.dtype, backward=needs_grad):
         dense_calls += 1
@@ -334,4 +348,4 @@ def _routed(q, k, v, cos, sin) -> torch.Tensor:
         cos, sin = cos[:S].contiguous(), sin[:S].contiguous()
     if needs_grad:
         return _FusedAttention.apply(q, k, v, cos, sin)
-    return _launch_fwd(q, k, v, cos, sin)
+    return _fwd_op(q, k, v, cos, sin)

@@ -30,9 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
+from cliffordtpu_torch.distributions.reparam import (
+    reparameterize,
+    sample_latent,
+)
 from cliffordtpu_torch.nn.layers import Conv, ConvT, Linear, reset_parameters
 from cliffordtpu_torch.nn.mlp_vae import l2_normalize
-from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
 
 HEADS = ("clifford", "gaussian", "powerspherical")
 

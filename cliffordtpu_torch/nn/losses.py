@@ -14,7 +14,7 @@ import torch
 
 from cliffordtpu_torch import random
 from cliffordtpu_torch.distributions.kl import kl_divergence
-from cliffordtpu_torch.nn.reparam import reparameterize
+from cliffordtpu_torch.distributions.reparam import reparameterize
 
 
 def bce_with_logits(logits, targets):

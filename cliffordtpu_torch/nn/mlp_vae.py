@@ -27,8 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cliffordtpu_torch.distributions.reparam import (
+    reparameterize,
+    sample_latent,
+)
 from cliffordtpu_torch.nn.layers import reset_parameters
-from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
 
 DISTRIBUTIONS = ("normal", "powerspherical", "vmf", "clifford")
 LAYERS = ("enc1", "enc2", "fc_mean", "fc_var", "fc_scale", "dec1", "dec2",

@@ -37,7 +37,7 @@ basis.  Every key of the input must be used, so a tree of another layout
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +63,12 @@ def _conv_t(a):
 
 # (port name, jax name, transform) under a common prefix
 Rule = Tuple[str, str, Callable]
+
+# each transform as data, (flip, order): port = flip(jax, flip).transpose(
+# order), order None for the identity; a serving bundle's manifest carries
+# them, so its loader maps params.npz onto the programs without this module
+_LAYOUTS = {_same: ((), None), _dense: ((), (1, 0)),
+            _conv: ((), (3, 2, 0, 1)), _conv_t: ((0, 1), (2, 3, 0, 1))}
 
 
 def _gn(port: str, jax: str) -> List[Rule]:
@@ -298,3 +304,83 @@ def from_jax(flat: Dict[str, np.ndarray], distribution: str = "clifford"
         return cliffordar_from_jax(flat)
     raise ValueError(f"a JAX tree of no ported family: "
                      f"{sorted(flat)[:8]}")
+
+
+# port prefix of a numbered block -> the JAX prefix that ``_count`` counts
+_BLOCK_PREFIXES = (
+    ("encoder_vit.down.", "encoder_vit/ResDownBlock"),
+    ("encoder_vit.layers.", "encoder_vit/TransformerBlock"),
+    ("decoder_vit.layers.", "decoder_vit/TransformerBlock"),
+    ("decoder_vit.up.", "decoder_vit/ResUpBlock"),
+    ("encoder.blocks.", "encoder/ResBlock"),
+    ("decoder.blocks.", "decoder/ResUpBlock"),
+    ("encoder.down.", "encoder/down"),
+    ("decoder.up.", "decoder/up"),
+)
+
+
+class _EveryKey(frozenset):
+    """A stand-in for a JAX tree when only the port's is known: it holds
+    every key, so each optional piece's rules are made (and then kept only
+    where the port has the parameter), and it iterates over the numbered
+    blocks' prefixes, so ``_count`` counts the port's blocks."""
+
+    def __contains__(self, key) -> bool:
+        return True
+
+
+def _port_rules(names, distribution: str) -> List[Rule]:
+    """The rules of the family whose parameters are ``names``, each kept
+    only where the port has that parameter."""
+    names = set(names)
+    probe = _EveryKey(f"{jax}_{name[len(port):].split('.')[0]}/"
+                      for name in names for port, jax in _BLOCK_PREFIXES
+                      if name.startswith(port))
+    if "enc1.weight" in names:
+        rules = [r for name in LAYERS for r in _bias(name, name, _dense)]
+    elif "encoder.input_conv.weight" in names:
+        rules = hybridvae_rules(probe)
+    elif "encoder.blocks.0.conv.weight" in names:
+        rules = cnnvae_rules(probe, distribution)
+    elif any(n.startswith("encoder_vit.") for n in names):
+        rules = cliffordar_rules(probe)
+    else:
+        raise ValueError(f"a port model of no known family: "
+                         f"{sorted(names)[:8]}")
+    rules = [r for r in rules if r[0] in names]
+    unused = names - {p for p, _, _ in rules}
+    if unused:
+        raise ValueError(f"port params with no JAX counterpart: "
+                         f"{sorted(unused)[:8]}")
+    return rules
+
+
+def layout(model) -> List[Tuple[str, str, List[int], Optional[List[int]]]]:
+    """(port name, JAX key, flip, order) for every parameter of a port
+    model, in the order of ``named_parameters``: its tensor is
+    ``np.flip(jax, flip).transpose(order)`` (order None: as it is) of the
+    JAX flat key."""
+    names = [n for n, _ in model.named_parameters()]
+    rules = {p: (j, f) for p, j, f in _port_rules(names, model.distribution)}
+    out = []
+    for port in names:
+        jax, f = rules[port]
+        flip, order = _LAYOUTS[f]
+        out.append((port, jax, list(flip),
+                    None if order is None else list(order)))
+    return out
+
+
+def to_jax(model) -> Dict[str, np.ndarray]:
+    """The inverse of ``from_jax``: a port model's parameters as the flat
+    float32 dict of the JAX model's tree (``params.npz`` keys)."""
+    params = dict(model.named_parameters())
+    out = {}
+    for port, jax, flip, order in layout(model):
+        a = params[port].detach().cpu().float().numpy()
+        if order is not None:
+            a = a.transpose(np.argsort(order))
+        if flip:
+            a = np.flip(a, tuple(flip))
+        out[jax] = np.ascontiguousarray(a)
+    return out

@@ -38,14 +38,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from cliffordtpu_torch.distributions.kl import kl_divergence
+from cliffordtpu_torch.distributions.reparam import (
+    reparameterize,
+    sample_latent,
+)
 from cliffordtpu_torch.kernels import attention as attention_kernel
 from cliffordtpu_torch.nn.layers import Conv as _Conv
 from cliffordtpu_torch.nn.layers import ConvT as _ConvT
 from cliffordtpu_torch.nn.layers import Linear as _Linear
 from cliffordtpu_torch.nn.layers import reset_parameters
 from cliffordtpu_torch.nn.mlp_vae import l2_normalize
-from cliffordtpu_torch.nn.reparam import reparameterize, sample_latent
-from cliffordtpu_torch.nn.rope import apply_rotary_half, rope_2d_cos_sin
+from cliffordtpu_torch.ops.rope import apply_rotary_half, rope_2d_cos_sin
 
 # the per-token latents of the model (``CNNVAE``'s ``HEADS`` and vmf)
 HEADS = ("clifford", "gaussian", "powerspherical", "vmf")
@@ -384,8 +387,15 @@ class CliffordARVAE(nn.Module):
         z = sample_latent(key, self.distribution, q_z, self.l2_normalize,
                           sampler or self.sampler)
         if self.distribution == "powerspherical":
-            z = z * (self.latent_dim ** 0.5)
+            z = z * self.draw_scale
         return z, q_z, p_z
+
+    @property
+    def draw_scale(self) -> float:
+        """The factor of every draw: sqrt(d) for the powerspherical head,
+        else 1."""
+        return (self.latent_dim ** 0.5 if self.distribution == "powerspherical"
+                else 1.0)
 
     def decode(self, z):
         """(B, T, k) or flat (B, T*k) latents -> image (B, H, W, C), k =

@@ -1,5 +1,7 @@
 """2-D rotary position embeddings (port of ``cliffordtpu/nn/vit_vae.py``
-``rope_2d_cos_sin`` and ``apply_rotary_half``).
+``rope_2d_cos_sin`` and ``apply_rotary_half``), shared by the models and
+the attention kernel's plain version; outside ``nn`` so that the kernels
+import no model code.
 
 The head basis is JAX's half-split one: pair i is (x[i], x[i + hd/2]).  The
 port's q and k weights are JAX's as they are, so no permutation is needed.

@@ -63,7 +63,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     from cliffordtpu_torch.kernels import attention, build, sampler, torus
-    from cliffordtpu_torch.nn import rope
+    from cliffordtpu_torch.ops import rope
     from cliffordtpu_torch.ops import torus as ops_torus
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,7 +13,7 @@ from cliffordtpu.kernels import attention_pallas as ap
 from cliffordtpu.nn.vit_vae import apply_rotary_half as jax_rotary_half
 from cliffordtpu.nn.vit_vae import rope_2d_cos_sin as jax_rope
 from cliffordtpu_torch.kernels import attention
-from cliffordtpu_torch.nn.rope import apply_rotary_half, rope_2d_cos_sin
+from cliffordtpu_torch.ops.rope import apply_rotary_half, rope_2d_cos_sin
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -15,7 +15,7 @@ from jax.experimental.pallas import tpu as pltpu
 from cliffordtpu.kernels import attention_pallas as ap
 from cliffordtpu.nn.vit_vae import apply_rotary_half as jax_rotary_half
 from cliffordtpu_torch.kernels import attention
-from cliffordtpu_torch.nn.rope import apply_rotary_half
+from cliffordtpu_torch.ops.rope import apply_rotary_half
 
 torch.set_num_threads(1)
 

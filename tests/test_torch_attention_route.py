@@ -20,7 +20,7 @@ import torch
 
 from cliffordtpu.nn.vit_vae import apply_rotary_half as jax_rotary_half
 from cliffordtpu_torch.kernels import attention
-from cliffordtpu_torch.nn.rope import rope_2d_cos_sin
+from cliffordtpu_torch.ops.rope import rope_2d_cos_sin
 
 torch.set_num_threads(1)
 
@@ -62,8 +62,9 @@ def _tables(S, hd):
 
 @pytest.fixture
 def stubbed(monkeypatch):
-    """Launch functions that record the route and run the plain versions;
-    the counts start at 0."""
+    """Launch functions that record the route and run the plain versions
+    (the forward stands in for the registered operator too, which reaches
+    the plain version for CPU tensors); the counts start at 0."""
     seen = []
 
     def fwd(q, k, v, cos, sin):
@@ -75,6 +76,7 @@ def stubbed(monkeypatch):
         return attention.attention_bwd_plain(q, k, v, cos, sin, d_out)
 
     monkeypatch.setattr(attention, "_launch_fwd", fwd)
+    monkeypatch.setattr(attention, "_fwd_op", fwd)
     monkeypatch.setattr(attention, "_launch_bwd", bwd)
     monkeypatch.setattr(attention, "dense_calls", 0)
     return seen
@@ -127,6 +129,7 @@ def test_kernel_errors_still_raise_and_inputs_are_checked(stubbed,
         raise RuntimeError("attention_fwd kernel failed: CUDA error 1")
 
     monkeypatch.setattr(attention, "_launch_fwd", broken)
+    monkeypatch.setattr(attention, "_fwd_op", broken)
     q, k, v = _qkv(1, 68, 2, 64, 0)
     with pytest.raises(RuntimeError, match="CUDA error"):
         attention._routed(q, k, v, None, None)

@@ -33,7 +33,8 @@ from cliffordtpu_torch.distributions import normal as tnormal
 from cliffordtpu_torch.distributions import power_spherical as tps
 from cliffordtpu_torch.distributions import uniforms as tuni
 from cliffordtpu_torch.distributions import von_mises_fisher as tvmf
-from cliffordtpu_torch.nn import conv_vae, param_import, reparam, vit_vae
+from cliffordtpu_torch.distributions import reparam
+from cliffordtpu_torch.nn import conv_vae, param_import, vit_vae
 
 torch.set_num_threads(1)
 torch.backends.cuda.matmul.allow_tf32 = False

@@ -15,7 +15,7 @@ from cliffordtpu_torch.distributions.clifford_torus import (
 )
 from cliffordtpu_torch.distributions.uniforms import CliffordTorusUniform
 from cliffordtpu_torch.nn import conv_vae, vit_vae
-from cliffordtpu_torch.nn.reparam import reparameterize
+from cliffordtpu_torch.distributions.reparam import reparameterize
 
 torch.set_num_threads(1)
 

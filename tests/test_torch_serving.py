@@ -10,7 +10,12 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
-from cliffordtpu.serving import _flatten_params, serving_fns
+from cliffordtpu.serving import (
+    _dequantize_flat,
+    _flatten_params,
+    _quantize_flat,
+    serving_fns,
+)
 from cliffordtpu_torch import serving
 from cliffordtpu_torch.kernels import attention, sampler
 from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
@@ -105,12 +110,20 @@ def test_load_params_npz_round_trip(jax_model, port, images, tmp_path):
 
 
 def test_quantized_npz_and_foreign_trees_are_refused(jax_model, tmp_path):
+    """A quantized params.npz that the JAX package wrote loads and equals
+    JAX's own dequantization (its refusal is gone since the storage modes
+    are ported); a tree with a key of no port parameter is refused."""
     _, params = jax_model
     flat = _flatten_params(jax.device_get(params))
-    np.savez(tmp_path / "q.npz", **{"quant_proj/kernel::int8":
-                                    np.zeros((2, 2), np.int8)})
-    with pytest.raises(NotImplementedError):
-        serving.load_params_npz(tmp_path / "q.npz")
+    for mode in ("bfloat16", "int8"):
+        stored = _quantize_flat(flat, mode)
+        np.savez(tmp_path / "q.npz", **stored)
+        got = serving.load_params_npz(tmp_path / "q.npz")
+        want = _dequantize_flat(stored)
+        assert got.keys() == want.keys() == flat.keys()
+        for k in want:
+            assert got[k].dtype == np.float32
+            np.testing.assert_array_equal(got[k], np.asarray(want[k]))
     with pytest.raises(ValueError):
         serving.CliffordARServing(
             _tiny_port(), params={**flat, "extra/kernel": np.zeros(1)},
