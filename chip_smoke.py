@@ -332,16 +332,28 @@ def check(ok: bool, what: str):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
+def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
+                   packed=False):
+    """Kernel A against its plain version; ``packed``: q, k, v the views
+    of one (B, S, H, 3, hd) projection (``fused_proj``), read in place."""
     dev = DEVICE
-    q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev)
-               .to(dtype) for _ in range(3))
+    if packed:
+        qkv = torch.randn(B, S, H, 3, hd, generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.unbind(3)
+    else:
+        q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev)
+                   .to(dtype) for _ in range(3))
     cos = sin = None
     if use_rope:
         c, s = rope.rope_2d_cos_sin(32, math.isqrt(S - 4), hd,
                                     cls_token_num=4)
         cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(s).to(dev)
-    got = attention.fused_attention(q, k, v, cos, sin)
+    def call():
+        if packed:
+            return attention.fused_attention_qkv(qkv, cos, sin)
+        return attention.fused_attention(q, k, v, cos, sin)
+
+    got = call()
     want = attention.attention_plain(q, k, v, cos, sin)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -361,21 +373,30 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
     elt = q.element_size()
     nbytes = 4 * q.numel() * elt + (0 if cos is None else 2 * cos.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 4.0 * B * H * S * S * hd, dtype)
-    kernel = cuda_ms(lambda: attention.fused_attention(q, k, v, cos, sin))
+    kernel = cuda_ms(call)
     plain = cuda_ms(lambda: attention.attention_plain(q, k, v, cos, sin))
     library = cuda_ms(lambda: sdpa(qh, kh, vh))
     # a checkout from before the tensor-core form had the CUDA-core one only
     form = getattr(attention, "fwd_form", lambda dt: "simt")(dtype)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
-        rope=use_rope, form=form, max_abs_err=err, ms=kernel, plain_ms=plain,
+        rope=use_rope, form=form, layout="packed" if packed else "contiguous",
+        max_abs_err=err, ms=kernel, plain_ms=plain,
         library_ms=library, bound_ms=b_ms, bound_by=b_by)
 
 
-def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
+def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
+                       packed=False):
+    """Kernel B against its plain version; ``packed``: q, k, v the views of
+    one (B, S, H, 3, hd) projection, the gradient one packed dqkv."""
     dev = DEVICE
-    q, k, v, d_out = (torch.randn(B, S, H, hd, generator=gen, device=dev)
-                      .to(dtype) for _ in range(4))
+    if packed:
+        qkv = torch.randn(B, S, H, 3, hd, generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.unbind(3)
+        d_out = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+    else:
+        q, k, v, d_out = (torch.randn(B, S, H, hd, generator=gen, device=dev)
+                          .to(dtype) for _ in range(4))
     cos = sin = None
     if use_rope:
         c, s = rope.rope_2d_cos_sin(32, math.isqrt(S - 4), hd,
@@ -393,10 +414,19 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
         check(bool(torch.isfinite(a).all()) and errs[name] <= bar,
               f"attention_bwd {dtype} S={S} {name}: err {errs[name]} > {bar}")
     # through autograd, as the model reaches the kernel
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     before = attention.bwd_launches
-    auto = torch.autograd.grad(
-        attention.fused_attention(qg, kg, vg, cos, sin), (qg, kg, vg), d_out)
+    if packed:
+        check(got[0]._base is not None and got[0].stride() == q.stride(),
+              "the packed backward did not write one packed gradient")
+        qkvg = qkv.clone().requires_grad_()
+        auto = torch.autograd.grad(
+            attention.fused_attention_qkv(qkvg, cos, sin), qkvg,
+            d_out)[0].unbind(3)
+    else:
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        auto = torch.autograd.grad(
+            attention.fused_attention(qg, kg, vg, cos, sin), (qg, kg, vg),
+            d_out)
     check(attention.bwd_launches == before + 1,
           "autograd of fused_attention did not launch the backward kernel")
     check(all(torch.equal(a, b) for a, b in zip(auto, got)),
@@ -425,7 +455,8 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen):
     form = getattr(attention, "bwd_form", lambda dt: "scalar")(dtype)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
-        rope=use_rope, form=form, max_abs_err=max(errs.values()), errors=errs,
+        rope=use_rope, form=form, layout="packed" if packed else "contiguous",
+        max_abs_err=max(errs.values()), errors=errs,
         scales=scales, ms=kernel, plain_ms=plain, library_ms=library,
         bound_ms=b_ms, bound_by=b_by)
 
@@ -592,9 +623,12 @@ def torus_bwd_case(torus, sampler, ops_torus, R, d, epilogue, gen):
                 dense_bound_ms=dense)
 
 
-def sampler_case(sampler, route, R, d, per_row_kappa, gen):
+def sampler_case(sampler, route, R, d, per_row_kappa, gen, row0=0):
     """A fused sampler + embedding kernel ("keyed" or "rng") against its
-    plain version: u and v bit for bit, theta and x to 1e-5."""
+    plain version: u and v bit for bit, theta and x to 1e-5.  With
+    ``row0`` > 0 the R rows are rows row0.. of a global draw of row0 + R
+    (a data-parallel rank's), and u and v are also those rows of the
+    global draw, bit for bit."""
     dev = DEVICE
     fused = getattr(sampler, f"sample_embed_{route}")
     plain = getattr(sampler, f"sample_embed_{route}_plain")
@@ -602,8 +636,19 @@ def sampler_case(sampler, route, R, d, per_row_kappa, gen):
     kshape = (R, 1) if per_row_kappa else (R, d)
     kappa = torch.rand(kshape, generator=gen, device=dev) * 10 + 0.03
     key = (0, 1234 + R + d)
-    got = fused(key, loc, kappa)
-    want = plain(key, loc, kappa)
+    # (a checkout from before the row base takes no ``rows``)
+    kw = {"rows": (row0, row0 + R)} if row0 else {}
+    got = fused(key, loc, kappa, **kw)
+    want = plain(key, loc, kappa, **kw)
+    if row0:
+        lead = torch.zeros(row0, d, device=dev)
+        whole = fused(key, torch.cat([lead, loc]), torch.cat(
+            [torch.ones(row0, kappa.shape[1], device=dev), kappa]))
+        for i in (2, 3):
+            check(torch.equal(whole[i][row0:], got[i]),
+                  f"sampler {route} rows {row0}.. are not those rows of the "
+                  f"global draw")
+        del whole
     torch.cuda.synchronize()
     names = ("x", "theta", "u", "v")
     errs = {n: (a - b).abs().max().item() for n, a, b in zip(names, got, want)}
@@ -625,10 +670,10 @@ def sampler_case(sampler, route, R, d, per_row_kappa, gen):
     form = getattr(sampler, "rng_form", lambda d_: "table")(d) \
         if route == "rng" else "table"
     return dict(
-        route=route, R=R, d=d, per_row_kappa=per_row_kappa, form=form,
-        max_abs_err=errs["x"], errors=errs,
-        ms=cuda_ms(lambda: fused(key, loc, kappa)),
-        plain_ms=cuda_ms(lambda: plain(key, loc, kappa), reps=5),
+        route=route, R=R, d=d, row0=row0, per_row_kappa=per_row_kappa,
+        form=form, max_abs_err=errs["x"], errors=errs,
+        ms=cuda_ms(lambda: fused(key, loc, kappa, **kw)),
+        plain_ms=cuda_ms(lambda: plain(key, loc, kappa, **kw), reps=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, dense_bound_ms=dense)
 
 
@@ -3125,7 +3170,7 @@ def export_child(spec_path: str) -> int:
         # for every other request
         unchecked = {}
         for fn, call in calls:
-            program = ld._programs[fn]
+            program = ld._program(fn, ld.device)
             if hasattr(program, "validate_inputs"):
                 program.validate_inputs = False
                 unchecked[fn] = request_ms(call, device)
@@ -3378,6 +3423,647 @@ def native_data_phase(root, work):
          streams_equal=same, epoch_ms=ms, cpu_count=os.cpu_count())
 
 
+# the parallel phase: parallel/ on the card (a world of 1 under NCCL, two
+# ranks sharing the card under gloo), flagship32 in the ViT's fused and
+# stacked layouts, --mesh through the Fashion runner, and a data-parallel
+# bundle of cnn4096
+PARALLEL_BATCH = 256  # runner_fashion4096: CNNVAE(4096, 1), batch 256
+PARALLEL_STEPS = 3
+PARALLEL_LR = 1e-3  # AdamW, clip 1: the runner's step
+PARALLEL_SEED = 23
+PARALLEL_WORLD1_BAR = 1e-6  # world 1 vs the single-device step, relative
+PARALLEL_RANKS_BAR = 1e-5  # two ranks' losses (half batches) vs the same
+# two ranks' parameters after the steps, held by their update against the
+# single device's: over all parameters (L2), and leaf by leaf (the worst
+# leaf).  A first Adam step moves a weight by lr * g / (|g| + eps), so a
+# weight whose gradient is near rounding moves by up to lr either way
+# when half-batch convolutions round it otherwise (1.4e-3 and 3.5e-3
+# measured on an H100).  Each run also plants the faults these bars are
+# for, from the same init, and fails unless the update bars catch every
+# one: "rows", every rank drawing rows 0..B/n of the draw (L2 0.97);
+# "unreduced", no gradient all-reduced (0.84); "one_leaf", one small leaf
+# (PARALLEL_FAULT_LEAF) left out of the all-reduce (L2 5.1e-2, worst
+# leaf 8.9e-2)
+PARALLEL_RANKS_UPDATE_BAR = 1e-2
+PARALLEL_RANKS_LEAF_BAR = 2e-2
+PARALLEL_FAULTS = ("rows", "unreduced", "one_leaf")
+PARALLEL_FAULT_LEAF = "encoder.kappa.weight"
+PARALLEL_CHILD_TIMEOUT = 600
+LAYOUTS = {"split": (False, False), "fused": (True, False),
+           "scan": (False, True), "fused_scan": (True, True)}
+LAYOUT_F32_BAR = 5e-4  # the full-stack bar, relative to the largest value
+LAYOUT_REQUESTS = {"encode_mu": {"attention_fwd": 4},
+                   "encode_z": {"attention_fwd": 4, "sampler_keyed": 1},
+                   "decode": {"attention_fwd": 8}}
+LAYOUT_STEPS = 3  # timed steps per layout, after the first
+DP_BUNDLE = 2
+DP_BUNDLE_BATCHES = (8, 64)
+# replicas vs Serving, relative to the largest value: a replica's
+# convolutions run at half the batch and cuDNN may take other algorithms
+# there (1.8e-6 measured at batch 64); a replica that drew other rows of
+# the draw would be off by O(1)
+DP_BUNDLE_BAR = 1e-5
+GEMM_OPS = ("mm", "addmm", "bmm", "baddbmm")
+
+
+def parallel_model(conv_vae, route="keyed"):
+    return conv_vae.CNNVAE(latent_dim=CNN_LATENT, in_channels=1, img_size=32,
+                           sampler=route, seed=0)
+
+
+def parallel_images(device):
+    gen = torch.Generator(device=device).manual_seed(PARALLEL_SEED)
+    return torch.rand(PARALLEL_BATCH, 32, 32, 1, generator=gen,
+                      device=device) * 2 - 1
+
+
+def l2_rel(got, want) -> float:
+    """||got - want|| / ||want|| over two dicts of tensors."""
+    num = sum((got[n].double() - want[n].double()).pow(2).sum().item()
+              for n in want)
+    den = sum(want[n].double().pow(2).sum().item() for n in want)
+    return math.sqrt(num / den)
+
+
+def max_rel(got, want) -> float:
+    """The largest difference over the largest reference value."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def parallel_child(spec_path: str) -> int:
+    """One process of the parallel phase (``chip_smoke.py
+    --parallel-child SPEC``): part "world1" takes ``PARALLEL_STEPS`` steps
+    of runner_fashion4096 on the single-device step, then under
+    ``make_sharded_cnn_train_step`` in "replicated" (DDP) and "fsdp"
+    (FSDP2) mode from the same init, in a group of one rank (NCCL); part
+    "ranks" is one of two ranks that share the card (gloo, DDP): its u, v
+    from F against rows r0:r0+128 of the whole batch's draw, the same
+    steps on its 128 rows, and one step of the Philox route (E at row0
+    128 on rank 1), then the planted faults of ``PARALLEL_FAULTS`` from
+    the same init.  Writes its numbers to the spec's JSON per rank."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    import torch.distributed as dist
+
+    from cliffordtpu_torch import parallel, random
+    from cliffordtpu_torch.kernels import attention, sampler, torus
+    from cliffordtpu_torch.nn import conv_vae
+    from cliffordtpu_torch.parallel import sharding
+    from cliffordtpu_torch.train import loop, state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    with open(spec_path) as f:
+        spec = json.load(f)
+    kmods = (attention, sampler, torus)
+    device = parallel.init_distributed("cuda")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = parallel_images(device)
+    keys = [random.sample_key(random.fold_in_words((0, 0), i))
+            for i in range(PARALLEL_STEPS)]
+    beta = torch.ones((), device=device)
+    out = {"rank": rank, "world": world, "backend": dist.get_backend()}
+
+    def run(step, xs):
+        hist, ms = [], []
+        for key in keys:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = step(xs, key, beta)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append({k: float(losses[k]) for k in (
+                "total_loss", "recon_loss", "kld_loss", "grad_norm")})
+        return hist, ms
+
+    def whole(model):
+        return {n: (p.full_tensor() if hasattr(p, "full_tensor") else p)
+                .detach().float().cpu() for n, p in model.named_parameters()}
+
+    def fresh(route="keyed"):
+        return state.create_train_state(parallel_model(conv_vae, route),
+                                        "adamw", PARALLEL_LR, device=device)
+
+    if spec["part"] == "world1":
+        st = fresh()
+        zero_counts(*kmods)
+        out["single"], out["single_ms"] = run(
+            loop.make_cnn_train_step(st.model, st.optimizer), x)
+        out["single_launches"] = launched_since_zero(kmods)
+        single = whole(st.model)
+        torch.save(single, spec["single_params"])
+        del st
+        for mode in ("replicated", "fsdp"):
+            mesh = parallel.create_mesh((1, 1), "cuda")
+            st = parallel.shard_state(fresh(), mesh, mode)
+            step = parallel.make_sharded_cnn_train_step(st.sharded,
+                                                        st.optimizer, mesh)
+            zero_counts(*kmods)
+            out[mode], out[f"{mode}_ms"] = run(step, x)
+            out[f"{mode}_launches"] = launched_since_zero(kmods)
+            out[f"{mode}_param_l2_rel"] = l2_rel(whole(st.model), single)
+            del st, step
+            torch.cuda.empty_cache()
+    else:
+        mesh = parallel.create_mesh((world, 1), "cuda")
+        r0, r1 = parallel.global_batch_rows(mesh, PARALLEL_BATCH)
+        out["rows"] = [r0, r1]
+        st = fresh()
+        with torch.no_grad():  # the draw of the first step, before it
+            mu, kap = st.model.encode(x)
+            whole_draw = sampler.sample_embed_keyed(keys[0], mu, kap)
+            mine = sampler.sample_embed_keyed(keys[0], mu[r0:r1],
+                                              kap[r0:r1],
+                                              rows=(r0, PARALLEL_BATCH))
+            out["draw_rows_equal"] = all(
+                torch.equal(whole_draw[i][r0:r1], mine[i]) for i in (2, 3))
+            del whole_draw, mine, mu, kap
+        st = parallel.shard_state(st, mesh, "replicated")
+        step = parallel.make_sharded_cnn_train_step(st.sharded, st.optimizer,
+                                                    mesh)
+        zero_counts(*kmods)
+        out["steps"], out["ms"] = run(step, x[r0:r1])
+        out["launches"] = launched_since_zero(kmods)
+        if rank == 0:
+            torch.save(whole(st.model), spec["ranks_params"])
+        del st, step
+        st = parallel.shard_state(fresh("rng"), mesh, "replicated")
+        step = parallel.make_sharded_cnn_train_step(st.sharded, st.optimizer,
+                                                    mesh)
+        zero_counts(*kmods)
+        rng_losses = step(x[r0:r1], keys[0], beta)
+        torch.cuda.synchronize()
+        out["rng_launches"] = launched_since_zero(kmods)
+        out["rng_loss"] = float(rng_losses["total_loss"])
+        del st, step
+        out["faults"] = {}
+        for fault in PARALLEL_FAULTS:  # after the counted runs
+            st = parallel.shard_state(fresh(), mesh, "replicated")
+            if fault == "rows":
+                rank_of = sharding.data_rank
+                sharding.data_rank = lambda mesh: 0
+            step = parallel.make_sharded_cnn_train_step(
+                st.sharded, st.optimizer, mesh)
+            if fault == "rows":
+                sharding.data_rank = rank_of
+            if fault == "one_leaf":  # all-reduced by hand, but this leaf
+                st.sharded._unreduced = [
+                    p for n, p in st.model.named_parameters()
+                    if n != PARALLEL_FAULT_LEAF]
+            with (contextlib.nullcontext() if fault == "rows"
+                  else st.sharded.module.no_sync()):
+                out["faults"][fault] = run(step, x[r0:r1])[0]
+            if rank == 0:
+                torch.save(whole(st.model),
+                           f"{spec['ranks_params']}.{fault}")
+            del st, step
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_parallel_children(root, work, part, world, extra):
+    """Start ``world`` parallel children of ``part`` (two ranks with
+    torchrun's environment), wait for all, and return their reports; a
+    child that fails fails the phase.  Every child is ended here."""
+    spec = {"part": part, "out": os.path.join(work, f"{part}{{rank}}.json"),
+            **extra}
+    spec_path = os.path.join(work, f"{part}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ)
+            for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE",
+                      "MASTER_ADDR", "MASTER_PORT"):
+                env.pop(k, None)
+            if world > 1:
+                env.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                           WORLD_SIZE=str(world),
+                           LOCAL_WORLD_SIZE=str(world),
+                           MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(root, "chip_smoke.py"),
+                 "--parallel-child", spec_path], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        texts = [p.communicate(timeout=PARALLEL_CHILD_TIMEOUT)[0]
+                 for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        sys.stdout.write(text[-3000:])
+        check(p.returncode == 0, f"parallel {part} rank {rank} exited "
+                                 f"{p.returncode}")
+    reports = []
+    for rank in range(world):
+        with open(spec["out"].format(rank=rank)) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def stack_blocks(sd, model):
+    """A state dict of unrolled blocks (``layers.i``) as ``model``'s, whose
+    blocks are stacked (``scan.block``): block i's parameter is slice i."""
+    out = {}
+    for k in model.state_dict():
+        if ".scan.block." not in k:
+            out[k] = sd[k]
+            continue
+        prefix, rest = k.split(".scan.block.")
+        n = sum(1 for key in sd if key.startswith(f"{prefix}.layers.")
+                and key.endswith(f".{rest}") and key.count(".") ==
+                prefix.count(".") + rest.count(".") + 3)
+        out[k] = torch.stack([sd[f"{prefix}.layers.{i}.{rest}"]
+                              for i in range(n)])
+    return out
+
+
+def layout_models(vit_vae, param_import, param_convert, dtype):
+    """flagship32 in every layout from one init: the split model, its
+    weights fused by ``param_convert`` and stacked by ``stack_blocks``."""
+    split = flagship(vit_vae, dtype)
+    tree = param_convert.nest(param_import.to_jax(split))
+    param_convert.fuse_vit_params(tree, split.encoder_vit.layers[0].attn
+                                  .n_heads)
+    models = {"split": split}
+    for name, (fused, scan) in LAYOUTS.items():
+        if name == "split":
+            continue
+        m = vit_vae.CliffordARVAE(latent_dim=16, image_size=32,
+                                  in_channels=1, compute_dtype=dtype,
+                                  seed=1, fused_proj=fused,
+                                  scan_layers=scan)
+        src = (param_import.from_jax(param_convert.flatten(tree))
+               if fused else split.state_dict())
+        if scan:
+            src = stack_blocks(models["fused"].state_dict() if fused
+                               else src, m)
+        m.load_state_dict(src)
+        models[name] = m
+    return models
+
+
+class GemmCount:
+    """Counts the matrix products (``GEMM_OPS``) that reach the dispatcher
+    while it is entered: one launch each."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func._overloadpacket.__name__ in GEMM_OPS:
+                    counter.n += 1
+                return func(*args, **(kwargs or {}))
+
+        self.n = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def layouts_phase(kmods, mods, images):
+    """(c): flagship32 split / fused_proj / scan_layers / both, float32 and
+    bfloat16, weights converted from one init: requests (encode_mu,
+    encode_z, decode at batch 64) against the split model's in float32
+    (``LAYOUT_F32_BAR``; bfloat16 against float32 split at ``BF16_BARS``),
+    A 4 / 4 / 8 and F 0 / 1 / 0 per request; a train step's losses against
+    the split step's, A 12 + B 12 per step; the GEMM launches of a step,
+    and the step wall and device ms of each layout.  Returns the launches
+    per (dtype, layout)."""
+    serving, vit_vae, param_import, param_convert, state, loop = mods
+    report, counts = {}, {}
+    key = (0, 11)
+    ref = ref_step = None
+    for label, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        models = layout_models(vit_vae, param_import, param_convert, dtype)
+        for name, model in models.items():
+            srv = serving.Serving(model, device=DEVICE)
+            outs, per_request = {}, {}
+            zero_counts(*kmods)
+            with torch.inference_mode():
+                outs["encode_mu"] = srv.encode_mu(images)
+                per_request["encode_mu"] = launched_since_zero(kmods)
+                zero_counts(*kmods)
+                outs["encode_z"] = srv.encode_z(key, images)
+                per_request["encode_z"] = launched_since_zero(kmods)
+                zero_counts(*kmods)
+                z_in = ref["encode_z"] if ref is not None else outs[
+                    "encode_z"]
+                outs["decode"] = srv.decode(z_in)
+                per_request["decode"] = launched_since_zero(kmods)
+            for fn, want in LAYOUT_REQUESTS.items():
+                check(per_request[fn] == want,
+                      f"layouts {label} {name} {fn}: launches "
+                      f"{per_request[fn]}, want {want}")
+            if ref is None:
+                ref = {k: v.float() for k, v in outs.items()}
+            errs = {}
+            for fn in outs:
+                diff = outs[fn].float() - ref[fn]
+                if fn == "encode_mu":  # angles: modulo 2 pi
+                    diff = torch.remainder(diff + math.pi, 2 * math.pi) \
+                        - math.pi
+                errs[fn] = diff.abs().max().item()
+                if dtype == torch.float32:
+                    bar = LAYOUT_F32_BAR * ref[fn].abs().max().item()
+                else:
+                    bar = BF16_BARS[fn]
+                check(errs[fn] <= bar, f"layouts {label} {name} {fn}: "
+                                       f"{errs[fn]} > {bar} against split "
+                                       f"float32")
+            del srv
+            st = state.create_train_state(model, "adamw", TRAIN_LR,
+                                          device=DEVICE)
+            step = loop.make_cnn_train_step(st.model, st.optimizer)
+            zero_counts(*kmods)
+            with GemmCount() as gemm:
+                first = step(images, (0, 0), 1.0)
+            step_counts = launched_since_zero(kmods)
+            first = {k: float(v) for k, v in first.items()}
+            check(step_counts.get("attention_fwd") == 12
+                  and step_counts.get("attention_bwd") == 12,
+                  f"layouts {label} {name}: step launches {step_counts}")
+            if ref_step is None:
+                ref_step = first
+            loss_rel = abs(first["total_loss"] - ref_step["total_loss"]) \
+                / abs(ref_step["total_loss"])
+            bar = (LAYOUT_F32_BAR if dtype == torch.float32
+                   else TRAIN_BARS["bf16_loss_rel"])
+            check(loss_rel <= bar, f"layouts {label} {name}: first loss "
+                                   f"{first['total_loss']} vs split float32 "
+                                   f"{ref_step['total_loss']}: {loss_rel}")
+            wall, dev_ms = [], []
+            for i in range(LAYOUT_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                step(images, (0, i + 1), 1.0)
+                end.record()
+                end.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+                dev_ms.append(start.elapsed_time(end))
+            report[f"{label},{name}"] = dict(
+                request_errors=errs, per_request=per_request,
+                step_launches=step_counts, gemm_per_step=gemm.n,
+                first_loss=first["total_loss"], first_loss_rel=loss_rel,
+                step_wall_ms=statistics.median(wall),
+                step_device_ms=statistics.median(dev_ms))
+            counts[label, name] = dict(step_counts)
+            for pr in per_request.values():
+                for k, v in pr.items():
+                    counts[label, name][k] = counts[label, name].get(k, 0) + v
+            del st, step
+        del models
+        torch.cuda.empty_cache()
+    emit("parallel_layouts", batch=images.shape[0], layouts=report,
+         f32_bar=LAYOUT_F32_BAR, bf16_bars=BF16_BARS)
+    return counts
+
+
+def dp_bundle_phase(kmods, mods, work):
+    """(e): cnn4096 exported with ``data_parallel=2``, both replicas on
+    cuda:0: requests at batch 8 and 64 against in-process ``Serving``
+    (``DP_BUNDLE_BAR``), F once per replica per ``encode_z``.  Returns the
+    launches."""
+    serving, conv_vae, trandom = mods
+    model = cnn4096(conv_vae, torch.float32)
+    bundle = os.path.join(work, "dp_bundle")
+    serving.export_serving(model, None, (32, 32, 1), out_dir=bundle,
+                           platforms=("cuda",), data_parallel=DP_BUNDLE)
+    ld = serving.load_serving(bundle, devices=["cuda:0"] * DP_BUNDLE)
+    srv = serving.Serving(model, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(PARALLEL_SEED)
+    report, total = {}, {}
+    for b in DP_BUNDLE_BATCHES:
+        x = torch.rand(b, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
+        rng = (0, 100 + b)
+        zero_counts(*kmods)
+        got = {"encode_mu": ld.encode_mu(x), "encode_z": ld.encode_z(rng, x)}
+        z_launches = launched_since_zero(kmods)
+        got["decode"] = ld.decode(got["encode_z"])
+        launches = launched_since_zero(kmods)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(z_launches == {"sampler_keyed": DP_BUNDLE},
+              f"dp bundle batch {b}: encode_z launches {z_launches}, want "
+              f"one F per replica")
+        with torch.inference_mode():
+            want = {"encode_mu": srv.encode_mu(x),
+                    "encode_z": srv.encode_z(trandom.sample_key(rng), x)}
+            want["decode"] = srv.decode(got["encode_z"])
+        errs = {k: max_rel(got[k], want[k]) for k in want}
+        report[b] = errs
+        for k, e in errs.items():
+            check(e <= DP_BUNDLE_BAR, f"dp bundle batch {b} {k}: {e} > "
+                                      f"{DP_BUNDLE_BAR} against Serving")
+    emit("parallel_dp_bundle", replicas=DP_BUNDLE, devices=["cuda:0"] *
+         DP_BUNDLE, errors=report, bar=DP_BUNDLE_BAR, launches=total)
+    return total
+
+
+def parallel_runner_runs(root, work):
+    """(d): ``fashion_train`` at latent 4096 on the digit shard, one epoch,
+    without ``--mesh``, with ``--mesh dp`` and with ``--mesh dp
+    --mesh_mode fsdp`` (a world of 1, no launcher; three processes side by
+    side), best losses within ``PARALLEL_WORLD1_BAR``; then ``--arch vit
+    --fused_proj --scan_layers`` with ``--eval_subprocess``, whose child
+    reads the stacked, fused checkpoint."""
+    env = dict(os.environ, CLIFFORDTPU_DATA_DIR=os.path.join(
+        root, "tests", "data"))
+    light = ["--vsa_trials", "1", "--fid_samples", "256"]
+    runs = {"plain": [], "dp": ["--mesh", "dp"],
+            "fsdp": ["--mesh", "dp", "--mesh_mode", "fsdp"]}
+
+    def start(name, argv):
+        outdir = os.path.join(work, f"runner_{name}")
+        return outdir, subprocess.Popen(
+            [sys.executable, "-m", "cliffordtpu_torch.scripts.fashion_train",
+             *argv, "--outdir", outdir], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish(name, outdir, proc):
+        try:
+            text = proc.communicate(timeout=PARALLEL_CHILD_TIMEOUT)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"runner {name} exited "
+                                    f"{proc.returncode}: {text[-2000:]}")
+        check("subprocess eval failed" not in text
+              and "subprocess eval errored" not in text,
+              f"runner {name}: the eval child failed: {text[-2000:]}")
+        exp = [d for d in os.listdir(os.path.join(outdir, "results"))
+               if d != "comparisons"]
+        with open(os.path.join(outdir, "results", exp[0],
+                               "metrics.json")) as f:
+            return json.load(f), text
+
+    best, wall = {}, {}
+    t0 = time.perf_counter()
+    started = {name: start(name, runner_argv("fashion", 1, *light, *extra))
+               for name, extra in runs.items()}
+    for name, (outdir, proc) in started.items():
+        metrics, text = finish(name, outdir, proc)
+        best[name] = metrics["final_best_total_loss"]
+        check("mesh:" in text if name != "plain" else True,
+              f"runner {name}: no mesh line")
+    wall["cnn_runs_s"] = time.perf_counter() - t0
+    rel = {name: abs(best[name] - best["plain"]) / abs(best["plain"])
+           for name in ("dp", "fsdp")}
+    for name, r in rel.items():
+        check(r <= PARALLEL_WORLD1_BAR, f"runner --mesh {name}: best loss "
+                                        f"{best[name]} vs {best['plain']}: "
+                                        f"{r}")
+    t0 = time.perf_counter()
+    vit_dir, proc = start("vit", arm_argv("vit", os.path.join(
+        work, "runner_vit"))[:-2] + [
+        "--fused_proj", "--scan_layers", "--eval_subprocess", *light])
+    vit_dir = os.path.join(work, "runner_vit")
+    metrics, _ = finish("vit", vit_dir, proc)
+    check(math.isfinite(metrics["final_best_total_loss"])
+          and "knn_acc_100" in metrics,
+          f"runner vit fused scan: the child wrote no battery: {metrics}")
+    wall["vit_run_s"] = time.perf_counter() - t0
+    emit("parallel_runner", best_loss=best, rel=rel,
+         bar=PARALLEL_WORLD1_BAR, vit_best_loss=metrics[
+             "final_best_total_loss"], wall_s=wall)
+
+
+def parallel_phase(kmods, mods, root, work, images):
+    """The slice's path: (a) runner_fashion4096's step at a world of 1
+    (NCCL), DDP and FSDP2 against the single-device step; (b) the same
+    step on two ranks sharing the card (gloo, DDP), each drawing its rows
+    of the global draw; (c) flagship32's layouts; (d) ``--mesh`` through
+    the Fashion runner; (e) a data-parallel bundle.  (a) and (b) run in
+    child processes, so no process group reaches the other phases.
+    Returns the launches of its paths."""
+    t_phase = time.perf_counter()
+    single_params = os.path.join(work, "single.pt")
+    ranks_params = os.path.join(work, "ranks.pt")
+    (w1,) = run_parallel_children(root, work, "world1", 1,
+                                  {"single_params": single_params})
+    check(w1["backend"] == "nccl", f"world 1: backend {w1['backend']}")
+    world1 = {}
+    for mode in ("replicated", "fsdp"):
+        rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(
+            w1[mode], w1["single"]) for k in b)
+        world1[mode] = {"loss_grad_norm_rel": rel,
+                        "param_l2_rel": w1[f"{mode}_param_l2_rel"],
+                        "ms": w1[f"{mode}_ms"],
+                        "launches": w1[f"{mode}_launches"]}
+        check(rel <= PARALLEL_WORLD1_BAR and w1[f"{mode}_param_l2_rel"]
+              <= PARALLEL_WORLD1_BAR,
+              f"world 1 {mode}: {world1[mode]} > {PARALLEL_WORLD1_BAR}")
+        check(w1[f"{mode}_launches"] == {
+            "sampler_keyed": PARALLEL_STEPS, "torus_bwd": PARALLEL_STEPS},
+            f"world 1 {mode}: launches {w1[f'{mode}_launches']}")
+    ranks = run_parallel_children(root, work, "ranks", 2,
+                                  {"ranks_params": ranks_params})
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "two ranks on one card: not gloo")
+    check(all(r["draw_rows_equal"] for r in ranks),
+          "two ranks: a rank's u, v are not its rows of the global draw")
+
+    def loss_rel(hists):
+        return max(abs(a[k] - b[k]) / abs(b[k]) for h in hists for a, b in
+                   zip(h, w1["single"]) for k in b)
+
+    single = torch.load(single_params)
+    init = {n: p.detach().float().cpu() for n, p in parallel_model(
+        mods["bundle"][1]).named_parameters()}
+
+    def update_rel(path):
+        """The update's L2 error over all parameters and the worst leaf's
+        (its name and error), against the single device's update."""
+        got = torch.load(path)
+        want = {n: single[n] - init[n] for n in init}
+        leaves = {n: l2_rel({n: got[n] - init[n]}, {n: want[n]})
+                  for n in init}
+        worst = max(leaves, key=leaves.get)
+        return {"l2": l2_rel({n: got[n] - init[n] for n in init}, want),
+                "leaf": leaves[worst], "worst_leaf": worst}
+
+    rank_rel = loss_rel([r["steps"] for r in ranks])
+    param_rel = l2_rel(torch.load(ranks_params), single)
+    sound = update_rel(ranks_params)
+    faults = {}
+    for fault in PARALLEL_FAULTS:
+        faults[fault] = {"loss_rel": loss_rel([r["faults"][fault]
+                                               for r in ranks]),
+                         **update_rel(f"{ranks_params}.{fault}")}
+    emit("parallel_ranks_update", sound=sound, faults=faults,
+         fault_leaf=PARALLEL_FAULT_LEAF,
+         bars={"loss": PARALLEL_RANKS_BAR, "l2": PARALLEL_RANKS_UPDATE_BAR,
+               "leaf": PARALLEL_RANKS_LEAF_BAR})
+    check(rank_rel <= PARALLEL_RANKS_BAR, f"two ranks vs single device: "
+                                          f"losses {rank_rel} > "
+                                          f"{PARALLEL_RANKS_BAR}")
+    check(sound["l2"] <= PARALLEL_RANKS_UPDATE_BAR
+          and sound["leaf"] <= PARALLEL_RANKS_LEAF_BAR,
+          f"two ranks vs single device: the parameters' update differs by "
+          f"{sound} > {PARALLEL_RANKS_UPDATE_BAR}, "
+          f"{PARALLEL_RANKS_LEAF_BAR}")
+    for fault, got in faults.items():
+        check(got["l2"] > PARALLEL_RANKS_UPDATE_BAR
+              or got["leaf"] > PARALLEL_RANKS_LEAF_BAR,
+              f"two ranks: the planted fault {fault!r} passes the update "
+              f"bars ({got})")
+    for r in ranks:
+        check(r["launches"] == {"sampler_keyed": PARALLEL_STEPS,
+                                "torus_bwd": PARALLEL_STEPS},
+              f"rank {r['rank']}: launches {r['launches']}")
+        check(r["rng_launches"] == {"sampler_rng": 1, "torus_bwd": 1},
+              f"rank {r['rank']}: rng launches {r['rng_launches']}")
+    emit("parallel_world", world1=world1, single_ms=w1["single_ms"],
+         ranks={r["rank"]: {"rows": r["rows"], "ms": r["ms"],
+                            "launches": r["launches"],
+                            "rng_launches": r["rng_launches"]}
+                for r in ranks},
+         ranks_loss_rel=rank_rel, ranks_param_l2_rel=param_rel,
+         ranks_update_l2_rel=sound["l2"], ranks_update_leaf_rel=sound["leaf"],
+         bars={"world1": PARALLEL_WORLD1_BAR, "ranks": PARALLEL_RANKS_BAR,
+               "ranks_update": PARALLEL_RANKS_UPDATE_BAR,
+               "ranks_update_leaf": PARALLEL_RANKS_LEAF_BAR})
+    layout_counts = layouts_phase(kmods, mods["layouts"], images)
+    parallel_runner_runs(root, work)
+    bundle_counts = dp_bundle_phase(kmods, mods["bundle"], work)
+    emit("parallel_phase", seconds=time.perf_counter() - t_phase)
+    world1_counts = {}
+    for mode in ("replicated", "fsdp"):
+        for k, v in w1[f"{mode}_launches"].items():
+            world1_counts[k] = world1_counts.get(k, 0) + v
+    return {"world1": world1_counts,
+            "ranks_keyed_row0": ranks[1]["launches"],
+            "ranks_rng_row0": ranks[1]["rng_launches"],
+            "layouts": layout_counts, "dp_bundle": bundle_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3418,6 +4104,7 @@ def main() -> int:
         rolefiller_heatmap,
         sample_viz,
     )
+    from cliffordtpu_torch.nn import param_convert, param_import
     from cliffordtpu_torch.train import checkpoint, loop, schedules, state
     from cliffordtpu_torch.vsa import capacity
 
@@ -3557,6 +4244,23 @@ def main() -> int:
     viz_case = sampler_case(sampler, "keyed", sample_viz.N_SAMPLES, 4, False,
                             gen)
     emit("kernel", kernel="sampler_keyed", shape="sample_viz", **viz_case)
+    # the parallel phase's forms: F and E at a nonzero row base (rank 1 of
+    # two: rows 128.. of 256, d 4096, one kappa per row), A and B on the
+    # packed q/k/v of a fused_proj projection (flagship32's shape)
+    half = PARALLEL_BATCH // 2
+    par_cases = {
+        ("sampler_keyed", "row0"): sampler_case(
+            sampler, "keyed", half, CNN_LATENT, True, gen, row0=half),
+        ("sampler_rng", "row0"): sampler_case(
+            sampler, "rng", half, CNN_LATENT, True, gen, row0=half),
+        **{(name, label): case(attention, rope, BATCH, 68, 8, 64, dtype,
+                               True, gen, packed=True)
+           for name, case in (("attention_fwd", attention_case),
+                              ("attention_bwd", attention_bwd_case))
+           for label, dtype in (("float32", torch.float32),
+                                ("bfloat16", torch.bfloat16))}}
+    for (name, tag), case in par_cases.items():
+        emit("kernel", kernel=name, shape="parallel", **case)
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -3693,6 +4397,11 @@ def main() -> int:
                                      root, work)
     with tempfile.TemporaryDirectory() as work:
         native_data_phase(root, work)
+    with tempfile.TemporaryDirectory() as work:
+        par = parallel_phase(kmods, {
+            "layouts": (serving, vit_vae, param_import, param_convert, state,
+                        loop),
+            "bundle": (serving, conv_vae, trandom)}, root, work, images)
     emit("mnist_runner_kernels", shape="mnist_mlp", R=MLP_BATCH,
          cases={f"{name},d{d}": {k: mnist[name, d][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -3729,6 +4438,12 @@ def main() -> int:
             return sum(c.get(name, 0) for label, c in export_counts.items()
                        if label.startswith(path[len("export_"):])
                        and label.endswith(suffix))
+        if path == "parallel_layouts_packed":  # the fused layouts' A and B
+            return sum(c.get(name, 0) for (label, lay), c in
+                       par["layouts"].items()
+                       if label == dtype and lay.startswith("fused"))
+        if path.startswith("parallel_"):
+            return par[path[len("parallel_"):]].get(name, 0)
         if path.startswith("mnist_runner"):  # "mnist_runner,d<d>"
             return mnist_runner_counts[int(path.split(",d")[1])].get(name, 0)
         if path.startswith("mnist_mlp"):  # "mnist_mlp,d<d>"
@@ -3850,6 +4565,34 @@ def main() -> int:
         {**entry("sampler_keyed", "export_cnn4096", "sampler_keyed.cu",
                  "sampler_pallas.py:356", smp["keyed", "cnn4096"]),
          "shape": "cnn4096 bundle"}]
+    # the parallel phase's paths: F and E at a row base (rank 1 of two), A
+    # and B on the packed layout, F and D at a world of 1, F in the
+    # data-parallel bundle
+    for (name, tag), case in par_cases.items():
+        if tag == "row0":
+            kernels.append({
+                **entry(name, f"parallel_ranks_{name[8:]}_row0",
+                        f"{name}.cu", "sampler_pallas.py:356"
+                        if name == "sampler_keyed"
+                        else "sampler_pallas.py:212", case),
+                "shape": "runner_fashion4096 rank 1 of 2", "R": case["R"],
+                "d": case["d"], "row0": case["row0"]})
+        else:
+            kernels.append({
+                **entry(name, "parallel_layouts_packed", f"{name}.cu",
+                        att_tpu if name == "attention_fwd" else att_b_tpu,
+                        case, tag),
+                "shape": "flagship32 fused_proj", "layout": "packed"})
+    kernels += [
+        {**entry("sampler_keyed", "parallel_world1", "sampler_keyed.cu",
+                 "sampler_pallas.py:356", runner_cases["sampler_keyed"]),
+         "shape": "runner_fashion4096 world 1"},
+        {**entry("torus_bwd", "parallel_world1", "torus_bwd.cu",
+                 "torus_pallas.py:154", runner_cases["torus_bwd"]),
+         "shape": "runner_fashion4096 world 1"},
+        {**entry("sampler_keyed", "parallel_dp_bundle", "sampler_keyed.cu",
+                 "sampler_pallas.py:356", smp["keyed", "cnn4096"]),
+         "shape": "cnn4096 data_parallel=2 bundle"}]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3863,4 +4606,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--export-child"]:
         sys.exit(export_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(sys.argv[2]))
     sys.exit(main())

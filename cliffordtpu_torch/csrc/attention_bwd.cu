@@ -12,7 +12,12 @@
 //   dQr = dS Kr,  dKr = dS^T Qr
 //   dq = rot^-1(dQr), dk = rot^-1(dKr)   rot^-1(x) = [x0 c + x1 s | x1 c - x0 s]
 //
-// dq, dk, dv are written in the input type at the (B, S, H, hd) strides.
+// dq, dk, dv are written in the input type at the strides q, k, v are
+// read at: a token stride ld_tok and a head stride ld_head (elements; H hd
+// and hd for contiguous (B, S, H, hd) tensors, 3 H hd and 3 hd for the
+// views of one packed (B, S, H, 3, hd) projection, fused_proj's wqkv
+// product, whose gradient is then one packed dqkv tensor and one product
+// in the projection's backward).  dO is contiguous (B, S, H, hd).
 // One block per (batch, head), as in the forward, so each block owns its
 // dq, dk, dv slices and needs no atomics; it reads its rows with 16-byte
 // loads, rotates q and k in float32 as it stages them in shared memory,
@@ -267,7 +272,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
                       __nv_bfloat16* __restrict__ dq,
                       __nv_bfloat16* __restrict__ dk,
                       __nv_bfloat16* __restrict__ dv, int S, int H,
-                      float scale_log2, float scale) {
+                      int ld_tok, int ld_head, float scale_log2,
+                      float scale) {
   constexpr int P = mma_pitch<HD>();
   constexpr int HALF = HD / 2;
   constexpr int CH = HALF / 8;  // 16-byte chunks in half a row
@@ -285,6 +291,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   const int h = blockIdx.x % H;
   const size_t tok = (size_t)H * HD;
   const size_t base = (size_t)b * S * tok + (size_t)h * HD;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
 
   // 1. stage q, k (rotated), v and dO; rows S..Sk-1 zero
   for (int e = threadIdx.x; e < Sk * CH; e += blockDim.x) {
@@ -293,15 +300,16 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
     uint4 q0 = make_uint4(0, 0, 0, 0), q1 = q0, k0 = q0, k1 = q0, v0 = q0,
           v1 = q0, o0 = q0, o1 = q0;
     if (s < S) {
-      const size_t g = base + (size_t)s * tok + col;
+      const size_t g = ibase + (size_t)s * ld_tok + col;
+      const size_t go = base + (size_t)s * tok + col;
       q0 = *reinterpret_cast<const uint4*>(q + g);
       q1 = *reinterpret_cast<const uint4*>(q + g + HALF);
       k0 = *reinterpret_cast<const uint4*>(k + g);
       k1 = *reinterpret_cast<const uint4*>(k + g + HALF);
       v0 = *reinterpret_cast<const uint4*>(v + g);
       v1 = *reinterpret_cast<const uint4*>(v + g + HALF);
-      o0 = *reinterpret_cast<const uint4*>(d_out + g);
-      o1 = *reinterpret_cast<const uint4*>(d_out + g + HALF);
+      o0 = *reinterpret_cast<const uint4*>(d_out + go);
+      o1 = *reinterpret_cast<const uint4*>(d_out + go + HALF);
       if (cos_t != nullptr) {
         const float4* cp =
             reinterpret_cast<const float4*>(cos_t + s * HALF + col);
@@ -443,7 +451,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
       if (row >= S) continue;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * tok + n * 8 +
+        *reinterpret_cast<uint32_t*>(dq + ibase + (size_t)row * ld_tok + n * 8 +
                                      2 * t) =
             pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
     }
@@ -470,8 +478,8 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
     }
     unrotate<HD>(ak, cos_t, sin_t, n0, g, t, S);
     // Kr and v are no longer read: the warp's own rows stage dk and dv
-    store_tile<HD>(ak, ks, dk, base, tok, n0, S, g, t, lane);
-    store_tile<HD>(av, vs, dv, base, tok, n0, S, g, t, lane);
+    store_tile<HD>(ak, ks, dk, ibase, ld_tok, n0, S, g, t, lane);
+    store_tile<HD>(av, vs, dv, ibase, ld_tok, n0, S, g, t, lane);
   }
 }
 
@@ -533,7 +541,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
                        const float* __restrict__ sin_t,
                        const float* __restrict__ d_out, float* __restrict__ dq,
                        float* __restrict__ dk, float* __restrict__ dv, int S,
-                       int H, int hd, float scale) {
+                       int H, int hd, int ld_tok, int ld_head, float scale) {
   extern __shared__ __align__(16) float smem[];
   const SimtLayout L(S, hd);
   const int Sp = L.Sp, QP = L.qp, PP = L.pp;
@@ -549,6 +557,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
   const int h = blockIdx.x % H;
   const size_t tok = (size_t)H * hd;
   const size_t base = (size_t)b * S * tok + (size_t)h * hd;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
   const int half = hd / 2;
   const int CH = half / 4;
 
@@ -560,15 +569,16 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
     float4 q0 = zero, q1 = zero, k0 = zero, k1 = zero, v0 = zero, v1 = zero,
            o0 = zero, o1 = zero;
     if (s < S) {
-      const size_t g = base + (size_t)s * tok + col;
+      const size_t g = ibase + (size_t)s * ld_tok + col;
+      const size_t go = base + (size_t)s * tok + col;
       q0 = ld4(q + g);
       q1 = ld4(q + g + half);
       k0 = ld4(k + g);
       k1 = ld4(k + g + half);
       v0 = ld4(v + g);
       v1 = ld4(v + g + half);
-      o0 = ld4(d_out + g);
-      o1 = ld4(d_out + g + half);
+      o0 = ld4(d_out + go);
+      o1 = ld4(d_out + go + half);
       if (cos_t != nullptr) {
         const float4 c = ld4(cos_t + s * half + col);
         const float4 sn = ld4(sin_t + s * half + col);
@@ -730,7 +740,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
         x0 = rotate_back0(a0[a], a1[a], c, sn);
         x1 = rotate_back1(a0[a], a1[a], c, sn);
       }
-      float* dst = out + base + (size_t)s * tok + c0;
+      float* dst = out + ibase + (size_t)s * ld_tok + c0;
       *reinterpret_cast<float4*>(dst) = x0;
       *reinterpret_cast<float4*>(dst + half) = x1;
     }
@@ -763,7 +773,8 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<bool> (&raised)[kMaxDevices]) 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
                const float* sin_t, const void* d_out, void* dq, void* dk,
-               void* dv, int B, int S, int H, void* stream) {
+               void* dv, int B, int S, int H, int ld_tok, int ld_head,
+               void* stream) {
   static std::atomic<bool> raised[kMaxDevices];
   cudaError_t err = allow_smem(attention_bwd_mma<HD>, raised);
   if (err != cudaSuccess) return (int)err;
@@ -777,14 +788,16 @@ int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, cos_t, sin_t, (const __nv_bfloat16*)d_out,
       (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H,
-      1.4426950408889634f * scale, scale);
+      ld_tok, ld_head, 1.4426950408889634f * scale, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C ABI, bound with ctypes by cliffordtpu_torch/kernels/attention.py.
-// q, k, v, d_out, dq, dk, dv contiguous (B, S, H, hd) and 16-byte aligned;
+// q, k, v and dq, dk, dv at token stride ld_tok and head stride ld_head
+// (elements, each a multiple of 8), d_out contiguous (B, S, H, hd), all
+// 16-byte aligned;
 // cos, sin contiguous (S, hd/2) float32, 16-byte aligned, or both null.
 // float32 takes hd a multiple of 8, bfloat16 hd 16, 32, 64 or 128.  The
 // wrapper checks shapes, types, alignment and the shared memory size.
@@ -793,7 +806,7 @@ extern "C" int attention_bwd_f32(const void* q, const void* k, const void* v,
                                  const float* cos_t, const float* sin_t,
                                  const void* d_out, void* dq, void* dk,
                                  void* dv, int B, int S, int H, int hd,
-                                 void* stream) {
+                                 int ld_tok, int ld_head, void* stream) {
   static std::atomic<bool> raised[kMaxDevices];
   cudaError_t err = allow_smem(attention_bwd_simt, raised);
   if (err != cudaSuccess) return (int)err;
@@ -805,7 +818,7 @@ extern "C" int attention_bwd_f32(const void* q, const void* k, const void* v,
                        (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
       (const float*)d_out, (float*)dq, (float*)dk, (float*)dv, S, H, hd,
-      1.0f / sqrtf((float)hd));
+      ld_tok, ld_head, 1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
@@ -813,20 +826,20 @@ extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
                                   const float* cos_t, const float* sin_t,
                                   const void* d_out, void* dq, void* dk,
                                   void* dv, int B, int S, int H, int hd,
-                                  void* stream) {
+                                  int ld_tok, int ld_head, void* stream) {
   switch (hd) {
     case 16:
       return launch_mma<16>(q, k, v, cos_t, sin_t, d_out, dq, dk, dv, B, S, H,
-                            stream);
+                            ld_tok, ld_head, stream);
     case 32:
       return launch_mma<32>(q, k, v, cos_t, sin_t, d_out, dq, dk, dv, B, S, H,
-                            stream);
+                            ld_tok, ld_head, stream);
     case 64:
       return launch_mma<64>(q, k, v, cos_t, sin_t, d_out, dq, dk, dv, B, S, H,
-                            stream);
+                            ld_tok, ld_head, stream);
     case 128:
       return launch_mma<128>(q, k, v, cos_t, sin_t, d_out, dq, dk, dv, B, S,
-                             H, stream);
+                             H, ld_tok, ld_head, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

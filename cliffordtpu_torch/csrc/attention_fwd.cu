@@ -13,6 +13,12 @@
 // in shared memory, and takes the softmax over the S real keys.  Scores
 // never touch HBM.
 //
+// q, k and v are read at a token stride ld_tok and a head stride ld_head
+// (elements; the batch stride is S ld_tok): H hd and hd for contiguous
+// (B, S, H, hd) tensors, 3 H hd and 3 hd for the views of one packed
+// (B, S, H, 3, hd) projection (fused_proj's wqkv product), which are read
+// in place, with no copy.  out is contiguous (B, S, H, hd).
+//
 // What bounds it: at the flagship shape (B 64, S 68, H 8, hd 64) the
 // function moves 17.8 MB in bfloat16 (35.7 MB in float32) and does 0.6
 // GFLOP, so HBM bandwidth bounds it in bfloat16 (5.3 us at 3.35 TB/s) and
@@ -141,7 +147,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
                       const float* __restrict__ cos_t,
                       const float* __restrict__ sin_t,
                       __nv_bfloat16* __restrict__ out, int S, int H,
-                      float scale_log2) {
+                      int ld_tok, int ld_head, float scale_log2) {
   constexpr int P = mma_pitch<HD>();
   constexpr int HALF = HD / 2;
   constexpr int CH = HALF / 8;  // 16-byte chunks in half a row
@@ -155,6 +161,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
   const int h = blockIdx.x % H;
   const size_t tok = (size_t)H * HD;
   const size_t base = (size_t)b * S * tok + (size_t)h * HD;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
 
   // 1. stage q, k (rotated) and v; the ten 16-byte loads of a chunk pair
   //    go out before any is used
@@ -164,7 +171,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
     uint4 q0 = make_uint4(0, 0, 0, 0), q1 = q0, k0 = q0, k1 = q0, v0 = q0,
           v1 = q0;
     if (s < S) {
-      const size_t g = base + (size_t)s * tok + col;
+      const size_t g = ibase + (size_t)s * ld_tok + col;
       q0 = *reinterpret_cast<const uint4*>(q + g);
       q1 = *reinterpret_cast<const uint4*>(q + g + HALF);
       k0 = *reinterpret_cast<const uint4*>(k + g);
@@ -333,7 +340,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
                        const float* __restrict__ cos_t,
                        const float* __restrict__ sin_t,
                        float* __restrict__ out, int S, int H, int hd,
-                       float scale) {
+                       int ld_tok, int ld_head, float scale) {
   extern __shared__ __align__(16) float smem[];
   const SimtLayout L(S, hd);
   const int Sp = L.Sp, QP = L.qp, PP = L.pp;
@@ -347,6 +354,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
   const int h = blockIdx.x % H;
   const size_t tok = (size_t)H * hd;
   const size_t base = (size_t)b * S * tok + (size_t)h * hd;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
   const int half = hd / 2;
   const int CH = half / 4;
 
@@ -357,7 +365,7 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
     const float4 zero = make_float4(0, 0, 0, 0);
     float4 q0 = zero, q1 = zero, k0 = zero, k1 = zero, v0 = zero, v1 = zero;
     if (s < S) {
-      const size_t g = base + (size_t)s * tok + col;
+      const size_t g = ibase + (size_t)s * ld_tok + col;
       q0 = ld4(q + g);
       q1 = ld4(q + g + half);
       k0 = ld4(k + g);
@@ -494,7 +502,7 @@ cudaError_t allow_smem(Kernel kernel, std::atomic<bool> (&raised)[kMaxDevices]) 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
                const float* sin_t, void* out, int B, int S, int H,
-               void* stream) {
+               int ld_tok, int ld_head, void* stream) {
   static std::atomic<bool> raised[kMaxDevices];
   cudaError_t err = allow_smem(attention_fwd_mma<HD>, raised);
   if (err != cudaSuccess) return (int)err;
@@ -505,14 +513,15 @@ int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
   attention_fwd_mma<HD><<<B * H, warps * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, cos_t, sin_t, (__nv_bfloat16*)out, S, H,
-      scale_log2);
+      ld_tok, ld_head, scale_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C ABI, bound with ctypes by cliffordtpu_torch/kernels/attention.py.
-// q, k, v, out contiguous (B, S, H, hd) and 16-byte aligned; cos, sin
+// q, k, v at token stride ld_tok and head stride ld_head (elements, each a
+// multiple of 8), out contiguous (B, S, H, hd), all 16-byte aligned; cos, sin
 // contiguous (S, hd/2) float32, 16-byte aligned, or both null.  float32
 // takes hd a multiple of 8, bfloat16 hd 16, 32, 64 or 128.  The wrapper
 // checks shapes, types, alignment and the shared memory size.  Returns the
@@ -520,7 +529,7 @@ int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
 extern "C" int attention_fwd_f32(const void* q, const void* k, const void* v,
                                  const float* cos_t, const float* sin_t,
                                  void* out, int B, int S, int H, int hd,
-                                 void* stream) {
+                                 int ld_tok, int ld_head, void* stream) {
   static std::atomic<bool> raised[kMaxDevices];
   cudaError_t err = allow_smem(attention_fwd_simt, raised);
   if (err != cudaSuccess) return (int)err;
@@ -532,20 +541,27 @@ extern "C" int attention_fwd_f32(const void* q, const void* k, const void* v,
   attention_fwd_simt<<<B * H, threads, sizeof(float) * L.floats(hd),
                        (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
-      (float*)out, S, H, hd, 1.0f / sqrtf((float)hd));
+      (float*)out, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
 extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
                                   const float* cos_t, const float* sin_t,
                                   void* out, int B, int S, int H, int hd,
-                                  void* stream) {
+                                  int ld_tok, int ld_head, void* stream) {
   switch (hd) {
-    case 16: return launch_mma<16>(q, k, v, cos_t, sin_t, out, B, S, H, stream);
-    case 32: return launch_mma<32>(q, k, v, cos_t, sin_t, out, B, S, H, stream);
-    case 64: return launch_mma<64>(q, k, v, cos_t, sin_t, out, B, S, H, stream);
+    case 16:
+      return launch_mma<16>(q, k, v, cos_t, sin_t, out, B, S, H, ld_tok,
+                             ld_head, stream);
+    case 32:
+      return launch_mma<32>(q, k, v, cos_t, sin_t, out, B, S, H, ld_tok,
+                             ld_head, stream);
+    case 64:
+      return launch_mma<64>(q, k, v, cos_t, sin_t, out, B, S, H, ld_tok,
+                             ld_head, stream);
     case 128:
-      return launch_mma<128>(q, k, v, cos_t, sin_t, out, B, S, H, stream);
+      return launch_mma<128>(q, k, v, cos_t, sin_t, out, B, S, H, ld_tok,
+                             ld_head, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

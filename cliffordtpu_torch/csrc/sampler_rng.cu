@@ -6,7 +6,9 @@
 // which draws from the TPU core's hardware generator.  Here the uniforms
 // come from Philox-4x32-10:
 //
-//   words  philox4x32_10(counter = (r*d + k, 0, 0, 0), key = (s0, s1)),
+//   words  philox4x32_10(counter = ((row0 + r)*d + k, 0, 0, 0),
+//          key = (s0, s1)), row0 the launch's first row in the global
+//          draw (0 but for a rank's rows of a data-parallel batch),
 //          s0, s1 the wrapper's two seed words (the caller's key folded
 //          with 0x7A11A5, as the TPU package seeds its generator)
 //   u      max(f(word 0), 1e-12),  v = f(word 1),  f the mantissa float
@@ -105,7 +107,9 @@ __global__ void __launch_bounds__(kRngRowThreads) rng_sample_embed_fft_kernel(
     const float* __restrict__ loc, const float* __restrict__ kappa,
     int kap_row_stride, int kap_col_stride, float* __restrict__ x,
     float* __restrict__ theta, float* __restrict__ u_out,
-    float* __restrict__ v_out, int R, int d, uint32_t s0, uint32_t s1) {
+    float* __restrict__ v_out, int R, int d, int row0, uint32_t s0,
+    uint32_t s1) {
+  const uint32_t base = (uint32_t)row0 * (uint32_t)d;
   extern __shared__ __align__(16) float2 buf[];
   const int DT = rng_row_threads(d);
   const int T = fft_row_threads(d);
@@ -125,7 +129,7 @@ __global__ void __launch_bounds__(kRngRowThreads) rng_sample_embed_fft_kernel(
       }
       sample_pack_pair(
           [&](uint32_t ctr, float* u, float* v) {
-            philox_uniforms(ctr, s0, s1, u, v);
+            philox_uniforms(base + ctr, s0, s1, u, v);
           },
           loc, kappa, kap_row_stride, kap_col_stride, theta, u_out, v_out,
           row, k, d, a);
@@ -147,11 +151,13 @@ __global__ void __launch_bounds__(kTorusThreads) rng_sample_embed_kernel(
     const float* __restrict__ loc, const float* __restrict__ kappa,
     int kap_row_stride, int kap_col_stride, float* __restrict__ x,
     float* __restrict__ theta, float* __restrict__ u_out,
-    float* __restrict__ v_out, int R, int d, uint32_t s0, uint32_t s1) {
+    float* __restrict__ v_out, int R, int d, int row0, uint32_t s0,
+    uint32_t s1) {
+  const uint32_t base = (uint32_t)row0 * (uint32_t)d;
   extern __shared__ __align__(16) float smem[];
   sample_embed_tile(
       [&](uint32_t ctr, float* u, float* v) {
-        philox_uniforms(ctr, s0, s1, u, v);
+        philox_uniforms(base + ctr, s0, s1, u, v);
       },
       loc, kappa, kap_row_stride, kap_col_stride, x, theta, u_out, v_out, R,
       d, smem);
@@ -160,15 +166,15 @@ __global__ void __launch_bounds__(kTorusThreads) rng_sample_embed_kernel(
 }  // namespace
 
 // C ABI, bound with ctypes by cliffordtpu_torch/kernels/sampler.py.
-// Arguments as keyed_sample_embed, with the two seed words in place of the
-// four key words, and x 16-byte aligned; the FFT form for d a power of
+// Arguments as keyed_sample_embed (row0 included), with the two seed words
+// in place of the four key words, and x 16-byte aligned; the FFT form for d a power of
 // two, else the table form.  Returns the CUDA error of the shared-memory
 // attribute call or of the launch.
 extern "C" int rng_sample_embed(const float* loc, const float* kappa,
                                 int kap_row_stride, int kap_col_stride,
                                 float* x, float* theta, float* u, float* v,
-                                int R, int d, uint32_t s0, uint32_t s1,
-                                void* stream) {
+                                int R, int d, int row0, uint32_t s0,
+                                uint32_t s1, void* stream) {
   if (d >= 2 && (d & (d - 1)) == 0) {
     const int threads = rng_block_threads(d);
     const int rows = threads / rng_row_threads(d);
@@ -177,8 +183,8 @@ extern "C" int rng_sample_embed(const float* loc, const float* kappa,
     if (err != cudaSuccess) return (int)err;
     rng_sample_embed_fft_kernel<<<(R + rows - 1) / rows, threads, smem,
                                   (cudaStream_t)stream>>>(
-        loc, kappa, kap_row_stride, kap_col_stride, x, theta, u, v, R, d, s0,
-        s1);
+        loc, kappa, kap_row_stride, kap_col_stride, x, theta, u, v, R, d, row0,
+        s0, s1);
     return (int)cudaGetLastError();
   }
   const size_t smem = torus_embed_smem_bytes(d);
@@ -188,7 +194,7 @@ extern "C" int rng_sample_embed(const float* loc, const float* kappa,
                   (2 * d + kTorusCols - 1) / kTorusCols);
   rng_sample_embed_kernel<<<grid, kTorusThreads, smem,
                             (cudaStream_t)stream>>>(
-      loc, kappa, kap_row_stride, kap_col_stride, x, theta, u, v, R, d, s0,
-      s1);
+      loc, kappa, kap_row_stride, kap_col_stride, x, theta, u, v, R, d, row0,
+      s0, s1);
   return (int)cudaGetLastError();
 }

@@ -27,10 +27,13 @@ SAMPLERS = ("keyed", "unfused", "rng")
 
 @torch.no_grad()
 def _sample_von_mises(key, loc, concentration, sample_shape=(),
-                      n_rounds: int = 32) -> torch.Tensor:
+                      n_rounds: int = 32, rows: random.Rows = None
+                      ) -> torch.Tensor:
     """Best-Fisher (1979) wrapped-Cauchy rejection with ``n_rounds``
     proposals and a first-accept select; all misses (< 1e-15 at
-    kappa <= 10) give ``loc``, kappa < 1e-4 a uniform angle."""
+    kappa <= 10) give ``loc``, kappa < 1e-4 a uniform angle.  Elementwise,
+    so ``rows`` (the batch's first axis, ``random.counters``) draws those
+    rows of the global draw."""
     shape = tuple(sample_shape) + torch.broadcast_shapes(
         loc.shape, concentration.shape)
     kappa = torch.broadcast_to(concentration, shape)
@@ -40,7 +43,8 @@ def _sample_von_mises(key, loc, concentration, sample_shape=(),
     rho = (tau - torch.sqrt(2.0 * tau)) / (2.0 * safe_kappa)
     r = (1.0 + rho ** 2) / (2.0 * rho)
     u = random.uniform(key, (n_rounds, 3) + shape, minval=1e-7,
-                       maxval=1.0 - 1e-7, device=loc.device)
+                       maxval=1.0 - 1e-7, device=loc.device, rows=rows,
+                       axis=2 + len(tuple(sample_shape)))
     z = torch.cos(math.pi * u[:, 0])
     f = (1.0 + r * z) / (r + z)
     c = safe_kappa * (r - f)
@@ -71,12 +75,13 @@ class CliffordTorusDistribution:
     def _params(self):
         return torch.broadcast_tensors(self.loc, self.concentration)
 
-    def sample(self, key, sample_shape=()) -> torch.Tensor:
+    def sample(self, key, sample_shape=(), rows: random.Rows = None
+               ) -> torch.Tensor:
         """Torus points sample_shape + (..., 2d); no gradient, as in the
-        reference."""
+        reference.  ``rows``: as ``CliffordPowerSphericalDistribution``."""
         loc, kappa = self._params()
         return angles_to_torus(_sample_von_mises(key, loc, kappa,
-                                                 sample_shape))
+                                                 sample_shape, rows=rows))
 
     rsample = sample
 
@@ -108,8 +113,8 @@ class CliffordPowerSphericalDistribution:
                                  torch.sin(loc_angles)], -1)
         return PowerSpherical(mean_dirs, kappa)
 
-    def sample(self, key, sample_shape=(), sampler: str = "keyed"
-               ) -> torch.Tensor:
+    def sample(self, key, sample_shape=(), sampler: str = "keyed",
+               rows: random.Rows = None) -> torch.Tensor:
         """Reparameterised draws sample_shape + (..., 2d), differentiable in
         ``loc`` and ``concentration``.  With a ``sample_shape`` the draw
         takes the ``"unfused"`` route whatever ``sampler`` says, as the JAX
@@ -126,7 +131,14 @@ class CliffordPowerSphericalDistribution:
           ``ops.torus.angles_to_torus`` (the embedding kernel for large
           latents on the card);
         * ``"rng"`` (``pallas_rng``): the fused Philox kernel
-          (``sample_embed_rng``), a different stream by design."""
+          (``sample_embed_rng``), a different stream by design.
+
+        ``rows=(row0, n_rows)``: the batch (the first axis after
+        ``sample_shape``) is rows row0.. of a global batch of n_rows, as a
+        rank of a data-parallel step holds it; every route draws exactly
+        those rows of the global draw, bit for bit.  The fused kernels
+        count per (row, circle) over the flattened rows, so the tokens of
+        a row (``loc`` (B, T, d)) fold in: flat row row0 * T."""
         if sampler not in SAMPLERS:
             raise ValueError(f"sampler must be one of {SAMPLERS}, got "
                              f"{sampler!r}")
@@ -136,15 +148,21 @@ class CliffordPowerSphericalDistribution:
         if sample_shape or sampler == "unfused":
             shape = sample_shape + loc.shape
             k_u, k_v = random.split_words(key)
+            axis = len(sample_shape)
             u = random.uniform(k_u, shape, minval=sampler_kernel.U_MIN,
-                               device=loc.device)
-            v = random.uniform(k_v, shape, device=loc.device)
+                               device=loc.device, rows=rows, axis=axis)
+            v = random.uniform(k_v, shape, device=loc.device, rows=rows,
+                               axis=axis)
             return angles_to_torus(
                 sampler_kernel.circle_angles(loc, kappa, u, v))
         fused = (sampler_kernel.sample_embed_keyed if sampler == "keyed"
                  else sampler_kernel.sample_embed_rng)
+        flat_rows = None
+        if rows is not None:
+            per_row = math.prod(loc.shape[1:-1])
+            flat_rows = (rows[0] * per_row, rows[1] * per_row)
         x, _, _, _ = fused(key, loc.reshape(-1, d).float(),
-                           kappa.reshape(-1, d).float())
+                           kappa.reshape(-1, d).float(), rows=flat_rows)
         return x.reshape(*loc.shape[:-1], 2 * d).to(loc.dtype)
 
     rsample = sample

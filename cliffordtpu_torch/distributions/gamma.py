@@ -123,9 +123,13 @@ def first_accept_index(accept: torch.Tensor) -> torch.Tensor:
                        accept.shape[0] - 1)
 
 
-def _gamma_fixed(key, alpha: torch.Tensor, shape: Sequence[int]):
+def _gamma_fixed(key, alpha: torch.Tensor, shape: Sequence[int],
+                 rows: random.Rows = None, axis: int = 0):
     """K-proposal Marsaglia-Tsang; ``alpha`` float32 of ``shape``.
-    Returns the draw and the index of the proposal it took."""
+    Returns the draw and the index of the proposal it took.  With ``rows``
+    (``random.counters``) ``shape`` holds rows row0.. of ``axis`` of the
+    global draw, and every proposal is that of the global draw: the
+    proposals' leading axis puts the row axis at ``axis + 1``."""
     shape = tuple(shape)
     dev = alpha.device
     boost = alpha < 1.0
@@ -133,8 +137,9 @@ def _gamma_fixed(key, alpha: torch.Tensor, shape: Sequence[int]):
     d = a - 1.0 / 3.0
     c = 1.0 / torch.sqrt(9.0 * d)
     kx, ku, kb = random.split_words(key, 3)
-    x = random.normal(kx, (_BUDGET,) + shape, device=dev)
-    u = random.uniform(ku, (_BUDGET,) + shape, minval=_TINY, device=dev)
+    x = random.normal(kx, (_BUDGET,) + shape, dev, rows, axis + 1)
+    u = random.uniform(ku, (_BUDGET,) + shape, minval=_TINY, device=dev,
+                       rows=rows, axis=axis + 1)
     t = 1.0 + c * x
     v = t * t * t
     v_pos = v > 0.0
@@ -143,7 +148,8 @@ def _gamma_fixed(key, alpha: torch.Tensor, shape: Sequence[int]):
     idx = first_accept_index(accept)  # all six miss with p < 2e-8
     v_sel = torch.gather(v, 0, idx[None])[0]
     z = d * torch.clamp(v_sel, min=_TINY)
-    u3 = random.uniform(kb, shape, minval=_TINY, device=dev)
+    u3 = random.uniform(kb, shape, minval=_TINY, device=dev, rows=rows,
+                        axis=axis)
     return torch.where(boost, z * u3 ** (1.0 / torch.clamp(alpha, min=_TINY)),
                        z), idx
 
@@ -152,25 +158,27 @@ class _GammaSample(torch.autograd.Function):
     """The draw, with the implicit gradient in alpha."""
 
     @staticmethod
-    def forward(ctx, alpha, key, shape):
-        z, _ = _gamma_fixed(key, alpha, shape)
+    def forward(ctx, alpha, key, shape, rows, axis):
+        z, _ = _gamma_fixed(key, alpha, shape, rows, axis)
         ctx.save_for_backward(alpha, z)
         return z
 
     @staticmethod
     def backward(ctx, g):
         alpha, z = ctx.saved_tensors
-        return g * random_gamma_grad(alpha, z), None, None
+        return g * random_gamma_grad(alpha, z), None, None, None, None
 
 
-def gamma_sample(key, alpha, shape: Sequence[int], device=None
-                 ) -> torch.Tensor:
+def gamma_sample(key, alpha, shape: Sequence[int], device=None,
+                 rows: random.Rows = None, axis: int = 0) -> torch.Tensor:
     """Gamma(alpha, 1) of ``shape`` (alpha broadcast to it), float32,
     differentiable in alpha; ``device`` is alpha's when alpha is a
-    tensor."""
+    tensor.  With ``rows``, rows row0.. along ``axis`` of the global draw
+    (``random.counters``): the draw is elementwise, so they equal those
+    rows of it bit for bit."""
     shape = tuple(shape)
     if isinstance(alpha, torch.Tensor):
         device = alpha.device
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=device)
     alpha_b = torch.broadcast_to(alpha, shape)
-    return _GammaSample.apply(alpha_b.contiguous(), key, shape)
+    return _GammaSample.apply(alpha_b.contiguous(), key, shape, rows, axis)

@@ -20,11 +20,16 @@ class Normal:
         self.loc = loc
         self.scale = scale
 
-    def sample(self, key, sample_shape=()) -> torch.Tensor:
-        """loc + scale * eps, eps = ``jax.random.normal(key, shape)``."""
+    def sample(self, key, sample_shape=(), rows: random.Rows = None
+               ) -> torch.Tensor:
+        """loc + scale * eps, eps = ``jax.random.normal(key, shape)``; with
+        ``rows=(row0, n_rows)`` the batch (the first axis after
+        ``sample_shape``) is rows row0.. of a global batch of n_rows, and
+        eps is those rows of the global draw."""
         shape = tuple(sample_shape) + torch.broadcast_shapes(
             self.loc.shape, self.scale.shape)
-        eps = random.normal(key, shape, device=self.loc.device)
+        eps = random.normal(key, shape, self.loc.device, rows,
+                            len(tuple(sample_shape)))
         return self.loc + self.scale * eps.to(self.loc.dtype)
 
     rsample = sample

@@ -32,13 +32,16 @@ def t_transform(t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                                                     min=_EPS))], -1)
 
 
-def beta_half_sample(key, alpha, n_half: int, shape) -> torch.Tensor:
+def beta_half_sample(key, alpha, n_half: int, shape,
+                     rows: random.Rows = None, axis: int = 0
+                     ) -> torch.Tensor:
     """Beta(alpha, n_half / 2) = X / (X + Y), X ~ Gamma(alpha) (implicit
-    gradient), Y = half the sum of n_half squared normals."""
+    gradient), Y = half the sum of n_half squared normals; with ``rows``
+    rows row0.. along ``axis`` of the global draw."""
     shape = tuple(shape)
     kx, ky = random.split_words(key)
-    x = gamma_sample(kx, alpha, shape)
-    z = random.normal(ky, shape + (n_half,), device=x.device)
+    x = gamma_sample(kx, alpha, shape, rows=rows, axis=axis)
+    z = random.normal(ky, shape + (n_half,), x.device, rows, axis)
     y = 0.5 * (z * z).sum(-1)
     return x / (x + y)
 
@@ -61,8 +64,9 @@ def marginal_t_entropy(dim: int, scale: torch.Tensor) -> torch.Tensor:
     return h_beta + math.log(2.0)
 
 
-def _unit_tangent(key, shape, device) -> torch.Tensor:
-    v = random.normal(key, shape, device=device)
+def _unit_tangent(key, shape, device, rows: random.Rows = None,
+                  axis: int = 0) -> torch.Tensor:
+    v = random.normal(key, shape, device, rows, axis)
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + _EPS)
 
 
@@ -104,16 +108,21 @@ class PowerSpherical:
         beta = (self.dim - 1) / 2.0
         return beta + safe_scale, beta, safe_scale
 
-    def sample(self, key, sample_shape=()) -> torch.Tensor:
+    def sample(self, key, sample_shape=(), rows: random.Rows = None
+               ) -> torch.Tensor:
         """sample_shape + batch shape + (d,) points on S^(d-1), drawn with
-        ``key``; differentiable in ``loc`` and ``scale``."""
+        ``key``; differentiable in ``loc`` and ``scale``.  With ``rows=(row0,
+        n_rows)`` the batch's first axis is rows row0.. of a global batch of
+        n_rows, drawn as those rows of the global draw."""
         d = self.dim
         shape = tuple(sample_shape) + tuple(self.loc.shape[:-1])
+        axis = len(tuple(sample_shape))
         k_t, k_v = random.split_words(key)
         alpha, _, _ = self._alpha_beta()
         alpha = torch.broadcast_to(alpha, self.loc.shape[:-1])
-        t = 2.0 * beta_half_sample(k_t, alpha, d - 1, shape) - 1.0
-        v = _unit_tangent(k_v, shape + (d - 1,), self.loc.device)
+        t = 2.0 * beta_half_sample(k_t, alpha, d - 1, shape, rows,
+                                   axis) - 1.0
+        v = _unit_tangent(k_v, shape + (d - 1,), self.loc.device, rows, axis)
         y = t_transform(t[..., None].to(self.loc.dtype), v.to(self.loc.dtype))
         return householder_reflect(y, self.loc)
 

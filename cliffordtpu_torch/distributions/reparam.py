@@ -49,18 +49,20 @@ def reparameterize(distribution: str, z_mean, z_param2, z_dim: int):
 
 
 def sample_latent(key, distribution: str, q_z, l2_normalize: bool = False,
-                  sampler: Optional[str] = None) -> torch.Tensor:
+                  sampler: Optional[str] = None, rows=None) -> torch.Tensor:
     """One reparameterised draw of q_z with the sampling ``key``.  With
     ``l2_normalize`` a Gaussian draw is scaled to unit norm.  ``sampler``
     names the route of a clifford draw
     (``distributions/clifford_torus.py::SAMPLERS``); the other families
-    have one route, and a ``sampler`` for them raises."""
+    have one route, and a ``sampler`` for them raises.  ``rows=(row0,
+    n_rows)``: q_z's batch is rows row0.. of a global batch of n_rows, and
+    the draw is those rows of the global draw (every family)."""
     if distribution == "clifford":
-        return q_z.sample(key, sampler=sampler or "keyed")
+        return q_z.sample(key, sampler=sampler or "keyed", rows=rows)
     if sampler is not None:
         raise ValueError(f"sampler={sampler!r} names a route of the "
                          f"clifford draw; the {distribution} latent has none")
-    z = q_z.sample(key)
+    z = q_z.sample(key, rows=rows)
     if distribution in ("normal", "gaussian") and l2_normalize:
         z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
     return z
@@ -68,16 +70,17 @@ def sample_latent(key, distribution: str, q_z, l2_normalize: bool = False,
 
 def draw_flat(key, mu, param2, distribution: str, latent_dim: int,
               l2_normalize: bool = False, sampler: Optional[str] = None,
-              scale: float = 1.0) -> torch.Tensor:
+              scale: float = 1.0, rows=None) -> torch.Tensor:
     """A model's ``get_flat_latent`` after its encoder heads: the posterior
     of the heads (mu (B, [T,] d) and ``param2``; a per-token clifford
     concentration (B, T) broadcast over the circles), one draw with the
     sampling ``key``, times ``scale`` (sqrt(d) for ``CliffordARVAE``'s
-    powerspherical head), flattened to (B, T*k)."""
+    powerspherical head), flattened to (B, T*k); ``rows`` as
+    ``sample_latent``."""
     if distribution == "clifford" and param2.dim() < mu.dim():
         param2 = param2[..., None]
     q_z, _ = reparameterize(distribution, mu, param2, latent_dim)
-    z = sample_latent(key, distribution, q_z, l2_normalize, sampler)
+    z = sample_latent(key, distribution, q_z, l2_normalize, sampler, rows)
     if scale != 1.0:
         z = z * scale
     return z.reshape(z.shape[0], -1)

@@ -7,6 +7,9 @@ of ``cliffordtpu/distributions/von_mises_fisher.py``).
   Beta(c, c) proposals are two ``gamma_sample`` draws and carry no
   gradient; the gradient in ``scale`` flows through b(scale) and w(b, e);
 * the Householder map has the reference's 1e-5 epsilon;
+* every proposal, and so the rejection, is elementwise: rows row0.. of a
+  batch (``sample(rows=)``) draw those rows of the global draw, with no
+  global draw behind them;
 * ``entropy`` and ``log_prob`` use ``bessel.py``'s series.
 
 The key splits are the JAX package's, so equal keys give equal samples.
@@ -61,15 +64,20 @@ class VonMisesFisher:
             torch.tensor(self.m / 2, dtype=self.loc.dtype,
                          device=self.loc.device), self._kappa1())
 
-    def sample(self, key, sample_shape=()) -> torch.Tensor:
+    def sample(self, key, sample_shape=(), rows: random.Rows = None
+               ) -> torch.Tensor:
+        """With ``rows=(row0, n_rows)`` the batch's first axis is rows
+        row0.. of a global batch of n_rows, drawn as those rows of the
+        global draw."""
         sample_shape = tuple(sample_shape)
+        axis = len(sample_shape)
         k_w, k_v = random.split_words(key)
         kappa1 = self._kappa1()
         kappa = torch.broadcast_to(kappa1, sample_shape + kappa1.shape)
-        w = (self._sample_w3(k_w, kappa) if self.m == 3
-             else self._sample_w_rej(k_w, kappa))
+        w = (self._sample_w3(k_w, kappa, rows, axis) if self.m == 3
+             else self._sample_w_rej(k_w, kappa, rows, axis))
         v = random.normal(k_v, sample_shape + self.loc.shape[:-1]
-                          + (self.m - 1,), device=self.loc.device)
+                          + (self.m - 1,), self.loc.device, rows, axis)
         v = v.to(self.loc.dtype)
         v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
         w_ = torch.sqrt(torch.clamp(1.0 - w ** 2, min=1e-10))
@@ -79,14 +87,16 @@ class VonMisesFisher:
 
     rsample = sample
 
-    def _sample_w3(self, key, kappa: torch.Tensor) -> torch.Tensor:
+    def _sample_w3(self, key, kappa: torch.Tensor, rows=None, axis=0
+                   ) -> torch.Tensor:
         """w = 1 + log(u + (1 - u) exp(-2 kappa)) / kappa, in log space."""
         u = random.uniform(key, kappa.shape, minval=1e-7, maxval=1.0 - 1e-7,
-                           device=kappa.device)
+                           device=kappa.device, rows=rows, axis=axis)
         lse = torch.logaddexp(torch.log(u), torch.log1p(-u) - 2.0 * kappa)
         return 1.0 + lse / kappa
 
-    def _sample_w_rej(self, key, kappa: torch.Tensor) -> torch.Tensor:
+    def _sample_w_rej(self, key, kappa: torch.Tensor, rows=None, axis=0
+                      ) -> torch.Tensor:
         """Fixed-budget Ulrich rejection."""
         m = float(self.m)
         c = torch.sqrt(4.0 * kappa ** 2 + (m - 1.0) ** 2)
@@ -105,11 +115,11 @@ class VonMisesFisher:
         k_e1, k_e2 = random.split_words(k_e)
         shape = (K,) + tuple(kappa.shape)
         with torch.no_grad():  # the proposals carry no gradient
-            gx = gamma_sample(k_e1, con, shape, device=kappa.device)
-            gy = gamma_sample(k_e2, con, shape, device=kappa.device)
+            gx = gamma_sample(k_e1, con, shape, kappa.device, rows, axis + 1)
+            gy = gamma_sample(k_e2, con, shape, kappa.device, rows, axis + 1)
             e = (gx / (gx + gy)).to(kappa.dtype)
         u = random.uniform(k_u, shape, minval=1e-7, maxval=1.0 - 1e-7,
-                           device=kappa.device)
+                           device=kappa.device, rows=rows, axis=axis + 1)
         w = (1.0 - (1.0 + b) * e) / (1.0 - (1.0 - b) * e)
         t = (2.0 * a * b) / (1.0 - (1.0 - b) * e)
         accept = ((m - 1.0) * torch.log(t) - t + d) > torch.log(u)

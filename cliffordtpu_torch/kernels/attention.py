@@ -24,6 +24,13 @@ The route is a property of the shape, not a fallback: a kernel that fails
 on a shape ``kernel_fits`` accepts raises, and under autograd one route
 serves both directions.  ``dense_calls`` counts the dense route.
 
+``fused_attention_qkv`` takes the packed (B, S, H, 3, hd) product of a
+``fused_proj`` projection (``nn/vit_vae.py::Attention``): both kernels
+read q, k and v at their strides in it (token stride 3 H hd, head stride
+3 hd), and the backward writes one packed gradient, so the projection's
+backward is one product, with no copy or gather on either side.  The
+contiguous layout is unchanged, and ``kernel_fits`` is the same for both.
+
 Each kernel has one form per dtype (``fwd_form``, ``bwd_form``): bfloat16
 runs on the tensor cores (``mma.sync``, head_dim 16, 32, 64 or 128),
 float32 on the CUDA cores with register tiles (head_dim a multiple of 8).
@@ -134,7 +141,7 @@ def bwd_smem_bytes(S: int, hd: int, dtype=torch.float32) -> int:
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel(dtype):
     fn = getattr(build.library("attention_bwd"), _BWD_SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -143,7 +150,7 @@ def _bwd_kernel(dtype):
 @functools.lru_cache(maxsize=None)
 def _kernel(dtype):
     fn = getattr(build.library("attention_fwd"), _SYMBOLS[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -174,6 +181,25 @@ def kernel_fits(S: int, hd: int, dtype, backward: bool) -> bool:
     return _kernel_problem(S, hd, dtype, True, backward) is None
 
 
+def input_strides(q, k, v):
+    """(token stride, head stride) of q, k, v, in elements, for the layouts
+    the kernels read: contiguous (B, S, H, hd) tensors (H hd, hd), or the
+    q, k, v views of one packed (B, S, H, 3, hd) tensor (3 H hd, 3 hd).
+    Raises for any other layout."""
+    B, S, H, hd = q.shape
+    if all(t.is_contiguous() for t in (q, k, v)):
+        return H * hd, hd
+    step = q.element_size() * hd
+    packed = (3 * H * hd * S, 3 * H * hd, 3 * hd, 1)
+    if (all(t.stride() == packed or B == 1 and t.stride()[1:] == packed[1:]
+            for t in (q, k, v))
+            and k.data_ptr() == q.data_ptr() + step
+            and v.data_ptr() == q.data_ptr() + 2 * step):
+        return 3 * H * hd, 3 * hd
+    raise ValueError("q, k, v must be contiguous, or the q, k, v views of "
+                     "one packed (B, S, H, 3, hd) tensor")
+
+
 def _check_inputs(q, k, v, cos, sin):
     """The input errors, whatever the route."""
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
@@ -185,8 +211,7 @@ def _check_inputs(q, k, v, cos, sin):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must lie on one device")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("q, k, v must be contiguous")
+    input_strides(q, k, v)
     S, hd = q.shape[1], q.shape[3]
     if hd % 2 or hd < 2:
         raise ValueError(f"head_dim must be even, got {hd}")
@@ -221,13 +246,14 @@ def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
     global launches
     B, S, H, hd = q.shape
     _check_aligned(q, k, v, cos, sin)
-    out = torch.empty_like(q)
+    ld_tok, ld_head = input_strides(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         rc = _kernel(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if cos is None else cos.data_ptr(),
             None if sin is None else sin.data_ptr(),
-            out.data_ptr(), B, S, H, hd,
+            out.data_ptr(), B, S, H, hd, ld_tok, ld_head,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_fwd kernel failed: CUDA error {rc}")
@@ -235,18 +261,31 @@ def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(q, k, v, cos, sin, d_out):
+def _launch_bwd(q, k, v, cos, sin, d_out, dqkv=None):
+    """The backward kernel; the gradients take the inputs' layout: for
+    packed q, k, v they are written into ``dqkv`` (B, S, H, 3, hd), made
+    here when not given, and returned as its three views."""
     global bwd_launches
     B, S, H, hd = q.shape
     _check_aligned(q, k, v, cos, sin, d_out)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    ld_tok, ld_head = input_strides(q, k, v)
+    if dqkv is None and ld_head != hd:
+        dqkv = torch.empty((B, S, H, 3, hd), dtype=q.dtype, device=q.device)
+    if dqkv is not None:
+        dq, dk, dv = dqkv.unbind(3)
+    else:
+        dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                      for _ in range(3))
+    if input_strides(dq, dk, dv) != (ld_tok, ld_head):
+        raise ValueError("the gradients must take the inputs' layout")
     with torch.cuda.device(q.device):
         rc = _bwd_kernel(q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if cos is None else cos.data_ptr(),
             None if sin is None else sin.data_ptr(),
             d_out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, H, hd, torch.cuda.current_stream(q.device).cuda_stream)
+            B, S, H, hd, ld_tok, ld_head,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"attention_bwd kernel failed: CUDA error {rc}")
     bwd_launches += 1
@@ -271,11 +310,31 @@ class _FusedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _FusedAttentionQKV(torch.autograd.Function):
+    """``_FusedAttention`` on the packed (B, S, H, 3, hd) q/k/v: both
+    kernels read it in place, and the backward writes one packed dqkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, cos, sin):
+        ctx.save_for_backward(qkv, cos, sin)
+        return _fwd_op(*qkv.unbind(3), cos, sin)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        qkv, cos, sin = ctx.saved_tensors
+        if d_out.dtype != qkv.dtype:
+            raise ValueError(f"gradient is {d_out.dtype}, q is {qkv.dtype}")
+        dqkv = torch.empty_like(qkv)
+        _launch_bwd(*qkv.unbind(3), cos, sin, d_out.contiguous(), dqkv)
+        return dqkv, None, None
+
+
 def fused_attention_bwd(q, k, v, cos: Optional[torch.Tensor],
                         sin: Optional[torch.Tensor], d_out):
     """(dq, dk, dv) of ``fused_attention`` for the output gradient
     ``d_out`` (B, S, H, hd): the backward kernel for CUDA tensors, its
-    plain version for CPU tensors."""
+    plain version for CPU tensors.  For the views of a packed (B, S, H, 3,
+    hd) q/k/v the gradients are the views of one packed tensor."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, cos, sin, d_out)
     if q.device.type != "cuda":
@@ -320,6 +379,35 @@ def fused_attention(q, k, v, cos: Optional[torch.Tensor] = None,
         raise ValueError(f"fused_attention runs on cuda or cpu, not "
                          f"{q.device}")
     return _routed(q, k, v, cos, sin)
+
+
+def fused_attention_qkv(qkv, cos: Optional[torch.Tensor] = None,
+                        sin: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fused_attention`` on q, k, v packed in one contiguous (B, S, H, 3,
+    hd) tensor (the ``fused_proj`` projection's product), differentiable
+    in it: the kernels read the views in place and the backward writes one
+    packed gradient; the CPU and the dense route take the views."""
+    if qkv.dim() != 5 or qkv.shape[3] != 3 or not qkv.is_contiguous():
+        raise ValueError(f"qkv must be a contiguous (B, S, H, 3, hd) tensor, "
+                         f"got {tuple(qkv.shape)}")
+    q, k, v = qkv.unbind(3)
+    if qkv.device.type == "cpu":
+        return fused_attention(q, k, v, cos, sin)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"fused_attention_qkv runs on cuda or cpu, not "
+                         f"{qkv.device}")
+    global dense_calls
+    _check_inputs(q, k, v, cos, sin)
+    needs_grad = torch.is_grad_enabled() and qkv.requires_grad
+    S = qkv.shape[1]
+    if not kernel_fits(S, qkv.shape[4], qkv.dtype, backward=needs_grad):
+        dense_calls += 1
+        return attention_dense(q, k, v, cos, sin)
+    if cos is not None:
+        cos, sin = cos[:S].contiguous(), sin[:S].contiguous()
+    if needs_grad:
+        return _FusedAttentionQKV.apply(qkv, cos, sin)
+    return _fwd_op(q, k, v, cos, sin)
 
 
 def _needs_grad(q, k, v) -> bool:

@@ -14,7 +14,12 @@ host, when the program runs.
 * ``draw_latent(rng, mu, param2, ...)``: the latent draw of serving's
   ``encode_z`` (``distributions/reparam.py::draw_flat``) on the sampling
   key ``random.sample_key(rng)``, which flax's ``make_rng("sample")``
-  derives from the rng of ``model.apply``.  The key words are read on the
+  derives from the rng of ``model.apply``.  An rng of four words carries
+  the row range (row0, n_rows) after the key: the request's rows are rows
+  row0.. of a global batch of n_rows (a replica of a data-parallel
+  bundle), and the draw is those rows of the global draw.  The words are
+  a tensor, not constants, so one exported program serves every replica.
+  The key words are read on the
   host, and the powerspherical and vMF draws loop with host checks, as in
   the eager path; a clifford draw launches F, E or C on the card by its
   route, the plain versions on the CPU.  It has no autograd: training
@@ -52,7 +57,7 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @attention_fwd.register_fake
 def _(q, k, v, cos, sin):
-    return torch.empty_like(q)
+    return q.new_empty(q.shape)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::draw_latent", mutates_args=())
@@ -60,13 +65,16 @@ def draw_latent(rng: torch.Tensor, mu: torch.Tensor, param2: torch.Tensor,
                 distribution: str, latent_dim: int, l2_normalize: bool,
                 sampler: Optional[str], scale: float) -> torch.Tensor:
     """The flat latent (B, T*k) drawn from the encoder heads with the
-    sampling key of ``rng`` (two uint32 words in an integer tensor)."""
+    sampling key of ``rng`` (two uint32 words in an integer tensor, or
+    four: the key, then row0 and n_rows)."""
     from cliffordtpu_torch import random
     from cliffordtpu_torch.distributions.reparam import draw_flat
 
-    key = random.sample_key(rng)
+    words = [int(w) for w in rng.reshape(-1).tolist()]
+    key = random.sample_key(words[:2])
+    rows = (words[2], words[3]) if len(words) == 4 else None
     return draw_flat(key, mu, param2, distribution, latent_dim,
-                     l2_normalize, sampler, scale)
+                     l2_normalize, sampler, scale, rows)
 
 
 @draw_latent.register_fake

@@ -23,6 +23,12 @@ When ``loc`` or ``kappa`` needs a gradient, either CUDA path is a
 (``kernels/torus.py::sampler_bwd``); on the CPU autograd differentiates
 the plain versions.  Launches count in ``launches`` (keyed) and
 ``rng_launches``.
+
+Both take ``rows=(row0, n_rows)``: ``loc``'s R rows are rows row0.. of a
+global draw of n_rows rows, and the kernels count (row0 + r) * d + k, so
+a rank of a data-parallel step draws exactly its rows of the global draw,
+bit for bit, as the plain versions do (``random.counters``).  The 2**32
+limit of the counter word holds for the global R * d.
 """
 
 from __future__ import annotations
@@ -60,14 +66,16 @@ def circle_angles(loc, kappa, u, v) -> torch.Tensor:
         torch.cos((2.0 * math.pi) * v) * torch.sqrt(w)).to(loc.dtype)
 
 
-def sample_embed_keyed_plain(key, loc: torch.Tensor, kappa: torch.Tensor):
+def sample_embed_keyed_plain(key, loc: torch.Tensor, kappa: torch.Tensor,
+                             rows: random.Rows = None):
     """The plain PyTorch version: ``random.uniform`` draws on the split key,
     ``circle_angles``, then ``ops.torus.angles_to_torus_matmul``.  Returns
     (x (R, 2d), theta, u, v (R, d-1))."""
     R, d = loc.shape
     k_u, k_v = random.split(key)
-    u = random.uniform(k_u, (R, d), minval=U_MIN, device=loc.device)
-    v = random.uniform(k_v, (R, d), device=loc.device)
+    u = random.uniform(k_u, (R, d), minval=U_MIN, device=loc.device,
+                       rows=rows)
+    v = random.uniform(k_v, (R, d), device=loc.device, rows=rows)
     theta = circle_angles(loc, kappa, u, v)
     return angles_to_torus_matmul(theta), theta[:, 1:], u[:, 1:], v[:, 1:]
 
@@ -85,24 +93,26 @@ def rng_seed_words(key):
     return random.fold_in_words(key, RNG_FOLD)
 
 
-def rng_uniforms(seed, R: int, d: int, device=None):
+def rng_uniforms(seed, R: int, d: int, device=None, rows: random.Rows = None):
     """(u, v), both (R, d): the uniforms of ``csrc/sampler_rng.cu`` from
     integer tensor operations.  Element (r, k) takes words 0 and 1 of
-    ``philox4x32(counter=(r*d + k, 0, 0, 0), key=seed)``; u = max(f(word 0),
-    U_MIN) and v = f(word 1), f the mantissa float."""
-    q = torch.arange(R * d, dtype=torch.int64, device=device)
+    ``philox4x32(counter=((row0 + r)*d + k, 0, 0, 0), key=seed)``, row0 0
+    without ``rows``; u = max(f(word 0), U_MIN) and v = f(word 1), f the
+    mantissa float."""
+    q = random.counters((R, d), device, rows)
     w0, w1, _, _ = random.philox4x32(seed, (q, 0, 0, 0))
     u = torch.clamp(random.uniform_from_bits(w0), min=U_MIN)
     return u.reshape(R, d), random.uniform_from_bits(w1).reshape(R, d)
 
 
-def sample_embed_rng_plain(key, loc: torch.Tensor, kappa: torch.Tensor):
+def sample_embed_rng_plain(key, loc: torch.Tensor, kappa: torch.Tensor,
+                           rows: random.Rows = None):
     """The plain PyTorch version of the Philox sampler + embedding: the same
     words as the kernel draws, ``circle_angles``, then
     ``ops.torus.angles_to_torus_matmul``.  Returns (x (R, 2d), theta, u, v
     (R, d-1))."""
     R, d = loc.shape
-    u, v = rng_uniforms(rng_seed_words(key), R, d, loc.device)
+    u, v = rng_uniforms(rng_seed_words(key), R, d, loc.device, rows)
     theta = circle_angles(loc, kappa, u, v)
     return angles_to_torus_matmul(theta), theta[:, 1:], u[:, 1:], v[:, 1:]
 
@@ -111,7 +121,7 @@ def sample_embed_rng_plain(key, loc: torch.Tensor, kappa: torch.Tensor):
 def _kernel():
     fn = build.library("sampler_keyed").keyed_sample_embed
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_uint32] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -121,7 +131,7 @@ def _kernel():
 def _rng_kernel():
     fn = build.library("sampler_rng").rng_sample_embed
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_uint32] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -135,7 +145,7 @@ def _outputs(loc):
     return x, theta, u, v
 
 
-def _launch(key, loc, kap):
+def _launch(key, loc, kap, row0=0):
     global launches
     R, d = loc.shape
     ku, kv = random.split_words(key)
@@ -143,7 +153,7 @@ def _launch(key, loc, kap):
     with torch.cuda.device(loc.device):
         rc = _kernel()(loc.data_ptr(), kap.data_ptr(), *kap.stride(),
                        x.data_ptr(), theta.data_ptr(), u.data_ptr(),
-                       v.data_ptr(), R, d, *ku, *kv,
+                       v.data_ptr(), R, d, row0, *ku, *kv,
                        torch.cuda.current_stream(loc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -152,14 +162,14 @@ def _launch(key, loc, kap):
     return x, theta, u, v
 
 
-def _launch_rng(key, loc, kap):
+def _launch_rng(key, loc, kap, row0=0):
     global rng_launches
     R, d = loc.shape
     x, theta, u, v = _outputs(loc)
     with torch.cuda.device(loc.device):
         rc = _rng_kernel()(loc.data_ptr(), kap.data_ptr(), *kap.stride(),
                            x.data_ptr(), theta.data_ptr(), u.data_ptr(),
-                           v.data_ptr(), R, d, *rng_seed_words(key),
+                           v.data_ptr(), R, d, row0, *rng_seed_words(key),
                            torch.cuda.current_stream(loc.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"rng_sample_embed kernel failed: CUDA error {rc}")
@@ -167,9 +177,9 @@ def _launch_rng(key, loc, kap):
     return x, theta, u, v
 
 
-def _forward(ctx, launch, key, loc, kap):
+def _forward(ctx, launch, key, loc, kap, row0):
     """A forward kernel, saving theta, u, v and kappa for the backward."""
-    x, theta, u, v = launch(key, loc, kap)
+    x, theta, u, v = launch(key, loc, kap, row0)
     ctx.save_for_backward(theta, u, v, kap)
     ctx.mark_non_differentiable(theta, u, v)
     return x, theta, u, v
@@ -179,15 +189,15 @@ def _backward(ctx, g):
     """The torus backward kernel with the concentration epilogue."""
     theta, u, v, kap = ctx.saved_tensors
     d_loc, d_kappa = torus.sampler_bwd(theta, u, v, kap, g)
-    return None, d_loc, d_kappa
+    return None, d_loc, d_kappa, None
 
 
 class _SampleEmbedKeyed(torch.autograd.Function):
     """The keyed kernel and its backward."""
 
     @staticmethod
-    def forward(ctx, key, loc, kap):
-        return _forward(ctx, _launch, key, loc, kap)
+    def forward(ctx, key, loc, kap, row0=0):
+        return _forward(ctx, _launch, key, loc, kap, row0)
 
     @staticmethod
     def backward(ctx, g, *_):
@@ -198,15 +208,15 @@ class _SampleEmbedRng(torch.autograd.Function):
     """The Philox kernel and its backward (the keyed kernel's)."""
 
     @staticmethod
-    def forward(ctx, key, loc, kap):
-        return _forward(ctx, _launch_rng, key, loc, kap)
+    def forward(ctx, key, loc, kap, row0=0):
+        return _forward(ctx, _launch_rng, key, loc, kap, row0)
 
     @staticmethod
     def backward(ctx, g, *_):
         return _backward(ctx, g)
 
 
-def _on_card(name, function, launch, key, loc, kappa):
+def _on_card(name, function, launch, key, loc, kappa, rows):
     """Check the arguments of a CUDA call and launch, through the autograd
     function when a gradient is needed."""
     if loc.device.type != "cuda":
@@ -217,8 +227,13 @@ def _on_card(name, function, launch, key, loc, kappa):
     R, d = loc.shape
     if not 2 <= d <= MATMUL_MAX_DIM:
         raise ValueError(f"d={d} outside [2, {MATMUL_MAX_DIM}]")
-    if R * d >= 2 ** 32:
-        raise ValueError("R*d must stay below 2**32 (one counter word)")
+    row0, total = (0, R) if rows is None else (int(rows[0]), int(rows[1]))
+    if row0 < 0 or row0 + R > total:
+        raise ValueError(f"rows {row0}..{row0 + R} outside a draw of "
+                         f"{total} rows")
+    if total * d >= 2 ** 32:
+        raise ValueError("the global R*d must stay below 2**32 (one counter "
+                         "word)")
     if kappa.dtype != torch.float32 or kappa.device != loc.device:
         raise ValueError(f"kappa must be float32 on {loc.device}")
     # read in place at its strides: a per-row kappa expanded over the
@@ -226,29 +241,33 @@ def _on_card(name, function, launch, key, loc, kappa):
     kap = torch.broadcast_to(kappa, (R, d))
     loc = loc.contiguous()
     if torch.is_grad_enabled() and (loc.requires_grad or kap.requires_grad):
-        return function.apply(key, loc, kap)
-    return launch(key, loc, kap)
+        return function.apply(key, loc, kap, row0)
+    return launch(key, loc, kap, row0)
 
 
-def sample_embed_keyed(key, loc: torch.Tensor, kappa: torch.Tensor):
+def sample_embed_keyed(key, loc: torch.Tensor, kappa: torch.Tensor,
+                       rows: random.Rows = None):
     """Sample theta ~ CliffordPowerSpherical(loc, kappa) with the keyed
     threefry stream and embed it on the torus.
 
     ``key``: two uint32 words (see ``random.key_words``); ``loc`` (R, d)
     float32; ``kappa`` float32 broadcastable to (R, d).  Returns
     (x (R, 2d), theta, u, v (R, d-1)), angles 1..d-1 (angle 0 is pinned).
-    x is differentiable in ``loc`` and ``kappa``.
+    x is differentiable in ``loc`` and ``kappa``.  ``rows=(row0, n_rows)``:
+    the R rows are rows row0.. of a global draw of n_rows (the module
+    docstring).
     """
     if loc.device.type == "cpu":
-        return sample_embed_keyed_plain(key, loc, kappa)
+        return sample_embed_keyed_plain(key, loc, kappa, rows)
     return _on_card("sample_embed_keyed", _SampleEmbedKeyed, _launch, key,
-                    loc, kappa)
+                    loc, kappa, rows)
 
 
-def sample_embed_rng(key, loc: torch.Tensor, kappa: torch.Tensor):
+def sample_embed_rng(key, loc: torch.Tensor, kappa: torch.Tensor,
+                     rows: random.Rows = None):
     """As ``sample_embed_keyed`` on the Philox stream of ``key`` (see the
     module docstring): one launch draws, samples and embeds."""
     if loc.device.type == "cpu":
-        return sample_embed_rng_plain(key, loc, kappa)
+        return sample_embed_rng_plain(key, loc, kappa, rows)
     return _on_card("sample_embed_rng", _SampleEmbedRng, _launch_rng, key,
-                    loc, kappa)
+                    loc, kappa, rows)

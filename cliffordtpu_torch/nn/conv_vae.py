@@ -214,23 +214,25 @@ class CNNVAE(nn.Module):
     def decode(self, z):
         return self.decoder(z)
 
-    def reparam(self, mu, params, key, sampler=None):
+    def reparam(self, mu, params, key, sampler=None, rows=None):
         """(z, q_z, p_z): the latent z drawn with the sampling ``key`` (two
         uint32 words), the posterior and the prior.  Clifford: the torus
         point (B, 2d), kappa (B, 1) broadcast over the d circles without a
-        copy; otherwise z (B, d)."""
+        copy; otherwise z (B, d).  ``rows=(row0, n_rows)``: these B rows are
+        rows row0.. of a global batch, drawn as those rows of its draw
+        (``distributions/reparam.py::sample_latent``)."""
         if self.distribution == "clifford":
             params = params.expand(mu.shape)
         q_z, p_z = reparameterize(self.distribution, mu, params,
                                   self.latent_dim)
         return (sample_latent(key, self.distribution, q_z, self.l2_normalize,
-                              sampler or self.sampler), q_z, p_z)
+                              sampler or self.sampler, rows), q_z, p_z)
 
-    def forward(self, x, key):
+    def forward(self, x, key, rows=None):
         """Image (B, H, W, C) and the sampling ``key`` ->
-        (x_recon, q_z, p_z, mu)."""
+        (x_recon, q_z, p_z, mu); ``rows`` as ``reparam``."""
         mu, params = self.encoder(x)
-        z, q_z, p_z = self.reparam(mu, params, key)
+        z, q_z, p_z = self.reparam(mu, params, key, rows=rows)
         return self.decoder(z), q_z, p_z, mu
 
     def get_flat_latent(self, x, key, sampler=None):

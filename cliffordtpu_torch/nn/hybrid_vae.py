@@ -189,24 +189,24 @@ class HybridVAE(nn.Module):
             z = z.reshape(z.shape[0], self.num_tokens, self.dec_latent_dim)
         return self.decoder(z)
 
-    def reparam(self, mu, params, key, sampler=None):
+    def reparam(self, mu, params, key, sampler=None, rows=None):
         """(z, q_z, p_z): per-token latents drawn with the sampling ``key``
         (two uint32 words), the posterior and the prior.  Clifford: torus
         points (B, T, 2d) with kappa (B, T) broadcast over the d circles;
-        otherwise (B, T, d)."""
+        otherwise (B, T, d).  ``rows``: as ``CNNVAE.reparam``."""
         if self.distribution == "clifford":
             params = params[..., None].expand(mu.shape)
         q_z, p_z = reparameterize(self.distribution, mu, params,
                                   self.latent_dim)
         z = sample_latent(key, self.distribution, q_z, self.l2_normalize,
-                          sampler or self.sampler)
+                          sampler or self.sampler, rows)
         return z, q_z, p_z
 
-    def forward(self, x, key):
+    def forward(self, x, key, rows=None):
         """Image (B, H, W, C) and the sampling ``key`` ->
-        (x_recon, q_z, p_z, mu)."""
+        (x_recon, q_z, p_z, mu); ``rows`` as ``reparam``."""
         mu, params = self.encoder(x)
-        z, q_z, p_z = self.reparam(mu, params, key)
+        z, q_z, p_z = self.reparam(mu, params, key, rows=rows)
         return self.decode(z), q_z, p_z, mu
 
     def get_flat_latent(self, x, key, sampler=None):

@@ -64,21 +64,30 @@ class ConvT(nn.ConvTranspose2d):
                                   self.padding)
 
 
+# fused projections: how many equal slices their output axis holds; each
+# is drawn with one slice's fan_out (JAX's ``_sliced_xavier``)
+FUSED_SLICES = {"wqkv": 3, "w13": 2}
+
+
 @torch.no_grad()
 def reset_parameters(module: nn.Module, seed: int):
     """JAX's initialisers, drawn in float32 from ``seed``: xavier-uniform
-    weights, unit-normal register tokens, unit norm scales, zero biases and
-    zero log-sigmas."""
+    weights (a fused projection's with one slice's fan_out), unit-normal
+    register tokens, unit norm scales, zero biases and zero log-sigmas.
+    A parameter stacked on a leading layer axis (``vit_vae.StackedBlocks``,
+    under ``.scan.``) takes each layer's fans from its trailing axes."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in module.named_parameters():
+        shape = p.shape[1:] if ".scan." in f".{name}" else p.shape
         if name.endswith("register_token"):
             val = torch.randn(p.shape, generator=gen)
         elif name.endswith(".bias") or "log_sigma" in name:
             val = torch.zeros(p.shape)
-        elif p.dim() == 1:  # norm scales
+        elif len(shape) == 1:  # norm scales
             val = torch.ones(p.shape)
         else:
-            rf = p[0, 0].numel()  # receptive field (1 for Linear)
-            limit = math.sqrt(6.0 / ((p.shape[0] + p.shape[1]) * rf))
+            rf = math.prod(shape[2:])  # receptive field (1 for Linear)
+            fan_out = shape[0] // FUSED_SLICES.get(name.split(".")[-2], 1)
+            limit = math.sqrt(6.0 / ((fan_out + shape[1]) * rf))
             val = (torch.rand(p.shape, generator=gen) * 2 - 1) * limit
         p.copy_(val)

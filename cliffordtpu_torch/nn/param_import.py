@@ -30,9 +30,19 @@ Every rule is a transpose, a flip or the identity, so it is linear and
 maps ``jax.grad``'s tree onto the gradients of the port's parameters as it
 maps the parameters themselves (``cliffordar_from_jax`` serves both).
 
+``CliffordARVAE``'s two other block layouts come across as they are:
+``fused_proj``'s ``Attention_0/wqkv`` and ``SwiGLU_0/w13`` kernels are
+Dense kernels of the port's ``attn.wqkv`` and ``ffn.w13`` (the
+interleaving is the same on both sides), and a ``scan_layers`` tree
+(``Scan_ScanBlockBody_0/TransformerBlock_0/...``, every leaf with a
+leading layer axis) maps onto ``StackedBlocks`` (``.scan.block.``), its
+stacked Dense kernels transposed on their trailing two axes.  Which
+layout a tree holds is read from its keys, and the port model must hold
+the same one (``param_convert.py`` converts between fused and split).
+
 q and k weights need no permutation: the port keeps JAX's half-split RoPE
-basis.  Every key of the input must be used, so a tree of another layout
-(``fused_proj``, ``scan_layers``) is refused instead of half loaded.
+basis.  Every key of the input must be used, so a tree of any other
+layout is refused instead of half loaded.
 """
 
 from __future__ import annotations
@@ -61,6 +71,10 @@ def _conv_t(a):
     return np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
 
 
+def _stacked_dense(a):
+    return a.transpose(0, 2, 1)
+
+
 # (port name, jax name, transform) under a common prefix
 Rule = Tuple[str, str, Callable]
 
@@ -68,7 +82,8 @@ Rule = Tuple[str, str, Callable]
 # order), order None for the identity; a serving bundle's manifest carries
 # them, so its loader maps params.npz onto the programs without this module
 _LAYOUTS = {_same: ((), None), _dense: ((), (1, 0)),
-            _conv: ((), (3, 2, 0, 1)), _conv_t: ((0, 1), (2, 3, 0, 1))}
+            _conv: ((), (3, 2, 0, 1)), _conv_t: ((0, 1), (2, 3, 0, 1)),
+            _stacked_dense: ((), (0, 2, 1))}
 
 
 def _gn(port: str, jax: str) -> List[Rule]:
@@ -76,7 +91,16 @@ def _gn(port: str, jax: str) -> List[Rule]:
             (f"{port}.bias", f"{jax}/bias", _same)]
 
 
-def transformer_block_rules() -> List[Rule]:
+def transformer_block_rules(fused: bool = False) -> List[Rule]:
+    if fused:
+        return [
+            ("norm1.weight", "RMSNorm_0/scale", _same),
+            ("attn.wqkv.weight", "Attention_0/wqkv/kernel", _dense),
+            ("attn.wo.weight", "Attention_0/wo/kernel", _dense),
+            ("norm2.weight", "RMSNorm_1/scale", _same),
+            ("ffn.w13.weight", "SwiGLU_0/w13/kernel", _dense),
+            ("ffn.w2.weight", "SwiGLU_0/w2/kernel", _dense),
+        ]
     return [
         ("norm1.weight", "RMSNorm_0/scale", _same),
         ("attn.wq.weight", "Attention_0/Dense_0/kernel", _dense),
@@ -88,6 +112,9 @@ def transformer_block_rules() -> List[Rule]:
         ("ffn.w3.weight", "SwiGLU_0/Dense_1/kernel", _dense),
         ("ffn.w2.weight", "SwiGLU_0/Dense_2/kernel", _dense),
     ]
+
+
+SCAN_PREFIX = "Scan_ScanBlockBody_0/TransformerBlock_0/"
 
 
 def res_down_block_rules() -> List[Rule]:
@@ -122,10 +149,30 @@ def _count(flat, prefix: str) -> int:
 
 
 def _blocks(flat, jax_prefix: str) -> List[Rule]:
-    n = _count(flat, f"{jax_prefix}TransformerBlock")
-    return [r for i in range(n) for r in _nest(
-        transformer_block_rules(), f"layers.{i}",
-        f"{jax_prefix}TransformerBlock_{i}")]
+    """The transformer blocks' rules: unrolled (``layers.i`` <->
+    ``TransformerBlock_i``) or stacked (``scan.block`` <->
+    ``Scan_ScanBlockBody_0/TransformerBlock_0``), split or fused, as the
+    tree's keys say; for the stand-in of a port model (``_EveryKey``)
+    both stackings of its projection layout, which ``_port_rules`` then
+    filters."""
+    probe = isinstance(flat, _EveryKey)
+    scan = f"{jax_prefix}{SCAN_PREFIX}"
+    layouts = [(False, flat.fused), (True, flat.fused)] if probe else [(
+        any(k.startswith(scan) for k in flat),
+        any(k.startswith(jax_prefix) and k.endswith("/wqkv/kernel")
+            for k in flat))]
+    rules = []
+    for stacked, fused in layouts:
+        block = transformer_block_rules(fused)
+        if stacked:
+            rules += [(f"scan.block.{p}", f"{scan}{j}",
+                       _stacked_dense if f is _dense else f)
+                      for p, j, f in block]
+            continue
+        n = _count(flat, f"{jax_prefix}TransformerBlock")
+        rules += [r for i in range(n) for r in _nest(
+            block, f"layers.{i}", f"{jax_prefix}TransformerBlock_{i}")]
+    return rules
 
 
 def vit_encoder_rules(flat, jax_prefix: str = "") -> List[Rule]:
@@ -325,6 +372,8 @@ class _EveryKey(frozenset):
     where the port has the parameter), and it iterates over the numbered
     blocks' prefixes, so ``_count`` counts the port's blocks."""
 
+    fused = False  # the port model's projections are fused_proj's
+
     def __contains__(self, key) -> bool:
         return True
 
@@ -336,6 +385,7 @@ def _port_rules(names, distribution: str) -> List[Rule]:
     probe = _EveryKey(f"{jax}_{name[len(port):].split('.')[0]}/"
                       for name in names for port, jax in _BLOCK_PREFIXES
                       if name.startswith(port))
+    probe.fused = any(n.endswith(".wqkv.weight") for n in names)
     if "enc1.weight" in names:
         rules = [r for name in LAYERS for r in _bias(name, name, _dense)]
     elif "encoder.input_conv.weight" in names:
@@ -371,16 +421,28 @@ def layout(model) -> List[Tuple[str, str, List[int], Optional[List[int]]]]:
     return out
 
 
-def to_jax(model) -> Dict[str, np.ndarray]:
-    """The inverse of ``from_jax``: a port model's parameters as the flat
-    float32 dict of the JAX model's tree (``params.npz`` keys)."""
-    params = dict(model.named_parameters())
+def port_to_jax(tensors: Dict[str, torch.Tensor],
+                distribution: str = "clifford") -> Dict[str, np.ndarray]:
+    """The inverse of ``from_jax`` on a dict of the port's parameters (or
+    of tensors shaped as they are, such as their Adam moments) by name:
+    the flat float32 dict of the JAX model's tree."""
+    rules = {p: (j, f) for p, j, f in _port_rules(list(tensors),
+                                                   distribution)}
     out = {}
-    for port, jax, flip, order in layout(model):
-        a = params[port].detach().cpu().float().numpy()
+    for port in tensors:
+        jax, f = rules[port]
+        flip, order = _LAYOUTS[f]
+        a = tensors[port].detach().cpu().float().numpy()
         if order is not None:
             a = a.transpose(np.argsort(order))
         if flip:
             a = np.flip(a, tuple(flip))
         out[jax] = np.ascontiguousarray(a)
     return out
+
+
+def to_jax(model) -> Dict[str, np.ndarray]:
+    """The inverse of ``from_jax``: a port model's parameters as the flat
+    float32 dict of the JAX model's tree (``params.npz`` keys)."""
+    return port_to_jax(dict(model.named_parameters()),
+                       getattr(model, "distribution", "clifford"))

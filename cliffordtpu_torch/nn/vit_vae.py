@@ -25,7 +25,24 @@ raw means and a floored concentration, one per token, into a von
 Mises-Fisher posterior; the decoder reads d-wide draws).  ``CNNVAE`` has
 no vmf head, in the JAX package either.
 
-Not ported yet: ``fused_proj`` and ``scan_layers``.
+``fused_proj`` and ``scan_layers`` are the JAX module's two layouts of
+the transformer blocks, identical math with another parameter tree:
+
+* ``fused_proj``: q, k and v as one product over ``attn.wqkv`` (D -> 3D,
+  head-interleaved: for head h the outputs [3 hd h, 3 hd (h + 1)) are
+  [q_h | k_h | v_h]) and w1, w3 as one over ``ffn.w13`` (D -> 2 d_ff,
+  pair-interleaved (w1_0, w3_0, w1_1, ...)), initialised as JAX's
+  ``_sliced_xavier``.  The attention kernels read q, k and v at their
+  strides in the packed (B, S, H, 3, hd) product and write one packed
+  gradient (``kernels/attention.py::fused_attention_qkv``), so the layout
+  keeps the launches it saves;
+* ``scan_layers``: every block parameter stacked on a leading layer axis
+  (``StackedBlocks``), JAX's ``Scan_ScanBlockBody_0/TransformerBlock_0``
+  tree one to one; the forward runs the block on slice i, layer by layer.
+
+The projections reshape with the heads they hold (``-1``), so under
+tensor parallelism (``parallel/sharding.py``) a rank runs the attention
+on its own heads.
 """
 
 from __future__ import annotations
@@ -55,7 +72,8 @@ HEADS = ("clifford", "gaussian", "powerspherical", "vmf")
 
 __all__ = [
     "rope_2d_cos_sin", "apply_rotary_half", "RMSNorm", "GroupNorm",
-    "SwiGLU", "Attention", "TransformerBlock", "ResDownBlock", "ResUpBlock",
+    "SwiGLU", "Attention", "TransformerBlock", "StackedBlocks",
+    "ResDownBlock", "ResUpBlock",
     "ViTEncoder", "ViTDecoder", "default_config", "CliffordARVAE", "HEADS",
 ]
 
@@ -88,55 +106,103 @@ class GroupNorm(nn.GroupNorm):
 
 
 class SwiGLU(nn.Module):
-    """w2(silu(w1 x) * w3 x), d_ff = 8/3 d rounded up to 256."""
+    """w2(silu(w1 x) * w3 x), d_ff = 8/3 d rounded up to 256; with
+    ``fused_proj`` w1 and w3 are one pair-interleaved ``w13``."""
 
-    def __init__(self, d_model: int, dtype=torch.float32):
+    def __init__(self, d_model: int, dtype=torch.float32,
+                 fused_proj: bool = False):
         super().__init__()
         d_ff = ((int(d_model * 8 / 3) + 255) // 256) * 256
-        self.w1 = _Linear(d_model, d_ff, dtype)
-        self.w3 = _Linear(d_model, d_ff, dtype)
+        self.fused_proj = fused_proj
+        if fused_proj:
+            self.w13 = _Linear(d_model, 2 * d_ff, dtype)
+        else:
+            self.w1 = _Linear(d_model, d_ff, dtype)
+            self.w3 = _Linear(d_model, d_ff, dtype)
         self.w2 = _Linear(d_ff, d_model, dtype)
 
     def forward(self, x):
+        if self.fused_proj:
+            y = self.w13(x).unflatten(-1, (-1, 2))
+            return self.w2(F.silu(y[..., 0]) * y[..., 1])
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
 class Attention(nn.Module):
     """Non-causal multi-head attention with 2-D RoPE.  The projections are
-    plain matrix products; the core is ``fused_attention``, which takes
-    the kernels or the dense route by shape."""
+    plain matrix products; the core is ``fused_attention`` (or, with
+    ``fused_proj``, ``fused_attention_qkv`` on the packed product), which
+    takes the kernels or the dense route by shape."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32,
+                 fused_proj: bool = False):
         super().__init__()
         self.n_heads = n_heads
-        self.wq = _Linear(d_model, d_model, dtype)
-        self.wk = _Linear(d_model, d_model, dtype)
-        self.wv = _Linear(d_model, d_model, dtype)
+        self.head_dim = d_model // n_heads
+        self.fused_proj = fused_proj
+        if fused_proj:
+            self.wqkv = _Linear(d_model, 3 * d_model, dtype)
+        else:
+            self.wq = _Linear(d_model, d_model, dtype)
+            self.wk = _Linear(d_model, d_model, dtype)
+            self.wv = _Linear(d_model, d_model, dtype)
         self.wo = _Linear(d_model, d_model, dtype)
 
     def forward(self, x, cos, sin):
-        B, S, D = x.shape
-        heads = (B, S, self.n_heads, D // self.n_heads)
-        q = self.wq(x).view(heads)
-        k = self.wk(x).view(heads)
-        v = self.wv(x).view(heads)
-        out = attention_kernel.fused_attention(q, k, v, cos, sin)
-        return self.wo(out.reshape(B, S, D))
+        B, S, _ = x.shape
+        hd = self.head_dim
+        if self.fused_proj:
+            qkv = self.wqkv(x).view(B, S, -1, 3, hd)
+            out = attention_kernel.fused_attention_qkv(qkv, cos, sin)
+        else:
+            q = self.wq(x).view(B, S, -1, hd)
+            k = self.wk(x).view(B, S, -1, hd)
+            v = self.wv(x).view(B, S, -1, hd)
+            out = attention_kernel.fused_attention(q, k, v, cos, sin)
+        return self.wo(out.reshape(B, S, -1))
 
 
 class TransformerBlock(nn.Module):
     """Pre-norm block: x + attn(norm1(x)), then + ffn(norm2(x))."""
 
-    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32):
+    def __init__(self, d_model: int, n_heads: int, dtype=torch.float32,
+                 fused_proj: bool = False):
         super().__init__()
         self.norm1 = RMSNorm(d_model)
-        self.attn = Attention(d_model, n_heads, dtype)
+        self.attn = Attention(d_model, n_heads, dtype, fused_proj)
         self.norm2 = RMSNorm(d_model)
-        self.ffn = SwiGLU(d_model, dtype)
+        self.ffn = SwiGLU(d_model, dtype, fused_proj)
 
     def forward(self, x, cos, sin):
         x = x + self.attn(self.norm1(x), cos, sin).to(x.dtype)
         return x + self.ffn(self.norm2(x)).to(x.dtype)
+
+
+class StackedBlocks(nn.Module):
+    """``n_layers`` transformer blocks whose parameters are stacked on a
+    leading layer axis, JAX's ``scan_layers`` tree: ``block`` holds one
+    block's modules with each parameter (L, *shape), and ``forward`` runs
+    the block on slice i of every parameter for i = 0..L-1 (views, so the
+    gradients land in the stacks: each stack is unbound once, and its
+    backward writes the stack's gradient once, not once per layer)."""
+
+    def __init__(self, n_layers: int, d_model: int, n_heads: int, dtype,
+                 fused_proj: bool = False):
+        super().__init__()
+        self.n_layers = n_layers
+        self.block = TransformerBlock(d_model, n_heads, dtype, fused_proj)
+        for mod in self.block.modules():
+            for name, p in list(mod.named_parameters(recurse=False)):
+                setattr(mod, name, nn.Parameter(
+                    p.detach().expand(n_layers, *p.shape).clone()))
+
+    def forward(self, x, cos, sin):
+        slices = {n: p.unbind(0) for n, p in self.block.named_parameters()}
+        for i in range(self.n_layers):
+            x = torch.func.functional_call(
+                self.block, {n: s[i] for n, s in slices.items()},
+                (x, cos, sin))
+        return x
 
 
 class ResDownBlock(nn.Module):
@@ -186,7 +252,7 @@ class _RopeStack(nn.Module):
     by the encoder and the decoder."""
 
     def __init__(self, n_layers, n_heads, d_model, image_size, patch_size,
-                 register_tokens, dtype):
+                 register_tokens, dtype, scan_layers=False, fused_proj=False):
         super().__init__()
         self.register_tokens = register_tokens
         self.register_token = nn.Parameter(
@@ -198,15 +264,23 @@ class _RopeStack(nn.Module):
                              persistent=False)
         self.register_buffer("rope_sin", torch.from_numpy(sin),
                              persistent=False)
-        self.layers = nn.ModuleList(
-            TransformerBlock(d_model, n_heads, dtype) for _ in range(n_layers))
+        if scan_layers:
+            self.scan = StackedBlocks(n_layers, d_model, n_heads, dtype,
+                                      fused_proj)
+        else:
+            self.layers = nn.ModuleList(
+                TransformerBlock(d_model, n_heads, dtype, fused_proj)
+                for _ in range(n_layers))
 
     def run_blocks(self, x):
         """(B, T, D) tokens -> (B, T, D), registers prepended then dropped."""
         reg = self.register_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([reg, x], dim=1)
-        for layer in self.layers:
-            x = layer(x, self.rope_cos, self.rope_sin)
+        if hasattr(self, "scan"):
+            x = self.scan(x, self.rope_cos, self.rope_sin)
+        else:
+            for layer in self.layers:
+                x = layer(x, self.rope_cos, self.rope_sin)
         return x[:, self.register_tokens:]
 
 
@@ -217,9 +291,10 @@ class ViTEncoder(_RopeStack):
     def __init__(self, n_layers: int, n_heads: int, d_model: int,
                  cnn_chs: Sequence[int], image_size: int, patch_size: int,
                  in_channels: int, register_tokens: int = 4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, scan_layers: bool = False,
+                 fused_proj: bool = False):
         super().__init__(n_layers, n_heads, d_model, image_size, patch_size,
-                         register_tokens, dtype)
+                         register_tokens, dtype, scan_layers, fused_proj)
         self.conv_in = _Conv(in_channels, cnn_chs[0], 3, 1, 1, dtype)
         self.down = nn.ModuleList(
             ResDownBlock(a, b, dtype) for a, b in zip(cnn_chs, cnn_chs[1:]))
@@ -242,9 +317,10 @@ class ViTDecoder(_RopeStack):
     def __init__(self, n_layers: int, n_heads: int, d_model: int,
                  cnn_chs: Sequence[int], out_channels: int, image_size: int,
                  patch_size: int, register_tokens: int = 4,
-                 dtype=torch.float32):
+                 dtype=torch.float32, scan_layers: bool = False,
+                 fused_proj: bool = False):
         super().__init__(n_layers, n_heads, d_model, image_size, patch_size,
-                         register_tokens, dtype)
+                         register_tokens, dtype, scan_layers, fused_proj)
         self.compute_dtype = dtype
         self.conv_in = _Conv(d_model, d_model, 3, 1, 1, torch.float32)
         self.up = nn.ModuleList(
@@ -299,7 +375,8 @@ class CliffordARVAE(nn.Module):
     ``l2_normalize`` a gaussian draw is normalised.  ``seed`` makes the
     random initialisation (xavier-uniform weights, unit-normal register
     tokens, zero biases) reproducible; weights carried from JAX replace it
-    (``nn/param_import.py``)."""
+    (``nn/param_import.py``).  ``scan_layers`` and ``fused_proj`` are the
+    JAX module's flags (the module docstring); they combine."""
 
     def __init__(self, latent_dim: int = 16, image_size: int = 256,
                  in_channels: int = 3, distribution: str = "clifford",
@@ -312,7 +389,8 @@ class CliffordARVAE(nn.Module):
                  patch_size: Optional[int] = None, register_tokens: int = 4,
                  concentration_floor: float = 0.03,
                  sampler: Optional[str] = None, l2_normalize: bool = False,
-                 compute_dtype: torch.dtype = torch.float32, seed: int = 0):
+                 compute_dtype: torch.dtype = torch.float32, seed: int = 0,
+                 scan_layers: bool = False, fused_proj: bool = False):
         super().__init__()
         if distribution not in HEADS:
             raise ValueError(f"distribution must be one of {HEADS}, got "
@@ -336,12 +414,14 @@ class CliffordARVAE(nn.Module):
         self.sampler = sampler
         self.l2_normalize = l2_normalize
         self.compute_dtype = compute_dtype
+        self.scan_layers = scan_layers
+        self.fused_proj = fused_proj
         grid = image_size // (2 ** (len(cnn_chs) - 1))
         self.num_tokens = grid * grid
         self.encoder_vit = ViTEncoder(
             encoder_vit_layers or cfg["encoder_vit_layers"], n_heads, zc,
             cnn_chs, image_size, patch_size, in_channels, register_tokens,
-            compute_dtype)
+            compute_dtype, scan_layers, fused_proj)
         self.quant_proj = _Linear(
             zc, 2 * latent_dim if distribution == "gaussian"
             else latent_dim + 1, torch.float32, bias=True)
@@ -352,7 +432,7 @@ class CliffordARVAE(nn.Module):
         self.decoder_vit = ViTDecoder(
             decoder_vit_layers or cfg["decoder_vit_layers"], n_heads, zc,
             cnn_chs[::-1], in_channels, image_size, patch_size,
-            register_tokens, compute_dtype)
+            register_tokens, compute_dtype, scan_layers, fused_proj)
         if use_learnable_beta:
             self.log_sigma_0 = nn.Parameter(torch.zeros(1))
             self.log_sigma_1 = nn.Parameter(torch.zeros(1))
@@ -374,18 +454,19 @@ class CliffordARVAE(nn.Module):
                             max=10.0)
         return mu, kappa
 
-    def reparam(self, mu, params, key, sampler=None):
+    def reparam(self, mu, params, key, sampler=None, rows=None):
         """(z, q_z, p_z): per-token latents drawn with the sampling ``key``
         (two uint32 words), the posterior and the prior.  Clifford: torus
         points (B, T, 2d); powerspherical: (B, T, d) scaled by sqrt(d);
         gaussian and vmf: (B, T, d), the vmf concentration (B, T) not
-        broadcast."""
+        broadcast.  ``rows=(row0, n_rows)``: these B rows are rows row0..
+        of a global batch, drawn as those rows of its draw."""
         if self.distribution == "clifford":
             params = params[..., None].expand(mu.shape)
         q_z, p_z = reparameterize(self.distribution, mu, params,
                                   self.latent_dim)
         z = sample_latent(key, self.distribution, q_z, self.l2_normalize,
-                          sampler or self.sampler)
+                          sampler or self.sampler, rows)
         if self.distribution == "powerspherical":
             z = z * self.draw_scale
         return z, q_z, p_z
@@ -404,11 +485,11 @@ class CliffordARVAE(nn.Module):
             z = z.reshape(z.shape[0], self.num_tokens, self.dec_latent_dim)
         return self.decoder_vit(self.post_quant_proj(z))
 
-    def forward(self, x, key):
+    def forward(self, x, key, rows=None):
         """Image (B, H, W, C) and the sampling ``key`` ->
-        (x_recon, q_z, p_z, mu)."""
+        (x_recon, q_z, p_z, mu); ``rows`` as ``reparam``."""
         mu, params = self.encode_heads(x)
-        z, q_z, p_z = self.reparam(mu, params, key)
+        z, q_z, p_z = self.reparam(mu, params, key, rows=rows)
         return self.decode(z), q_z, p_z, mu
 
     def encode(self, x, key):

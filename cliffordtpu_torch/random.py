@@ -44,6 +44,16 @@ Beside threefry stands Philox-4x32-10 (Salmon et al., SC'11), the
 generator of the Philox sampler kernel (``csrc/sampler_rng.cu``), which
 has no counterpart in ``jax.random``.
 
+Row ranges: ``random_bits``, ``uniform`` and ``normal`` take ``rows=(row0,
+n_rows)`` and ``axis``: the tensor asked for holds rows row0.. of axis
+``axis`` of a draw whose axis has n_rows, and every element gets the
+counter it has in that global draw.  So a rank of a data-parallel step
+that holds rows row0..row0+b of the global batch draws exactly those rows
+of the global draw, bit for bit, without drawing the rest.  Where the
+axis is not the first (a leading proposal axis, as in the Gamma draw) the
+counters of a row are not contiguous, and are formed one by one.  The
+2**32 limit of the one counter word holds for the global draw.
+
 Words are held in int64 tensors masked to 32 bits, so every operation is
 exact on any device.  The CUDA sampler kernels (``csrc/sampler_keyed.cu``,
 ``csrc/sampler_rng.cu``) compute the same words and are held to these
@@ -52,7 +62,7 @@ functions bit for bit.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -134,22 +144,64 @@ def sample_key(rng: Key) -> Tuple[int, int]:
     return fold_in_words(rng, MAKE_RNG_DATA)
 
 
-def _bits(k0, k1, n: int, device) -> torch.Tensor:
-    """x0 ^ x1 of threefry2x32(key, (0, q)) for the counters q < n; k0, k1
-    are ints or (T, 1) tensors, which give (T, n)."""
-    if n > 2 ** 32:
+# (row0, n_rows): this tensor's rows are rows row0.. of a global draw whose
+# row axis has n_rows
+Rows = Optional[Tuple[int, int]]
+
+
+def counters(shape: Sequence[int], device=None, rows: Rows = None,
+             axis: int = 0) -> torch.Tensor:
+    """The flat counters (int64, in row-major order of ``shape``) that the
+    elements of ``shape`` have in the global draw: 0..n-1 without
+    ``rows``; with ``rows=(row0, n_rows)`` those of rows row0.. along
+    ``axis`` of the global shape, whose ``axis`` has n_rows.  Raises where
+    the global draw needs more than 2**32 counters."""
+    shape = tuple(int(s) for s in shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    if rows is None:
+        if n > 2 ** 32:
+            raise ValueError(
+                "counters beyond 2**32 need the hi word; not ported")
+        return torch.arange(n, dtype=torch.int64, device=device)
+    row0, total = (int(r) for r in rows)
+    b = shape[axis]
+    if row0 < 0 or row0 + b > total:
+        raise ValueError(f"rows {row0}..{row0 + b} outside a draw of "
+                         f"{total} rows")
+    inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
+    outer = int(np.prod(shape[:axis], dtype=np.int64))
+    if outer * total * inner > 2 ** 32:
         raise ValueError("counters beyond 2**32 need the hi word; not ported")
-    lo = torch.arange(n, dtype=torch.int64, device=device)
+    if outer == 1:  # one base: the rows' counters are contiguous
+        return torch.arange(row0 * inner, (row0 + b) * inner,
+                            dtype=torch.int64, device=device)
+    o = torch.arange(outer, dtype=torch.int64, device=device)
+    r = torch.arange(row0, row0 + b, dtype=torch.int64, device=device)
+    i = torch.arange(inner, dtype=torch.int64, device=device)
+    return (o[:, None, None] * (total * inner) + r[None, :, None] * inner
+            + i[None, None, :]).reshape(-1)
+
+
+def _bits_at(k0, k1, lo: torch.Tensor) -> torch.Tensor:
+    """x0 ^ x1 of threefry2x32(key, (0, lo)) for the counters ``lo``; k0, k1
+    are ints or (T, 1) tensors, which give (T, len(lo))."""
     x0, x1 = threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return x0 ^ x1
 
 
-def random_bits(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+def _bits(k0, k1, n: int, device) -> torch.Tensor:
+    """``_bits_at`` for the counters q < n."""
+    return _bits_at(k0, k1, counters((n,), device))
+
+
+def random_bits(key: Key, shape: Sequence[int], device=None,
+                rows: Rows = None, axis: int = 0) -> torch.Tensor:
     """32 random bits per element (int64 in [0, 2**32)), the words
-    ``jax.random.bits(key, shape)`` gives."""
+    ``jax.random.bits(key, shape)`` gives; with ``rows`` the rows of the
+    global draw that ``counters`` names."""
     k0, k1 = key_words(key)
-    n = int(np.prod(shape, dtype=np.int64))
-    return _bits(k0, k1, n, device).reshape(tuple(shape))
+    return _bits_at(k0, k1, counters(shape, device, rows, axis)).reshape(
+        tuple(shape))
 
 
 def lane_uniform(keys: torch.Tensor, shape: Sequence[int],
@@ -218,20 +270,24 @@ def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
 
 
 def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
-            maxval: float = 1.0, device=None) -> torch.Tensor:
+            maxval: float = 1.0, device=None, rows: Rows = None,
+            axis: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)`` bit for
-    bit."""
-    return uniform_from_bits(random_bits(key, shape, device), minval, maxval)
+    bit; with ``rows`` the rows of the global draw (``counters``)."""
+    return uniform_from_bits(random_bits(key, shape, device, rows, axis),
+                             minval, maxval)
 
 
 # nextafter(-1, 0) in float32: the lower end of jax's normal draws
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 
 
-def normal(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+def normal(key: Key, shape: Sequence[int], device=None, rows: Rows = None,
+           axis: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)``: the same uniform words in
-    (nextafter(-1, 0), 1), then sqrt(2) * erfinv."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    (nextafter(-1, 0), 1), then sqrt(2) * erfinv; with ``rows`` the rows of
+    the global draw (``counters``)."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device, rows, axis)
     return torch.special.erfinv(u) * np.float32(np.sqrt(2.0))
 
 

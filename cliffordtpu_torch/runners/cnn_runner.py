@@ -22,9 +22,15 @@ distributions, other values).
 Everything runs on the device of ``args.device`` (``None``: the card,
 ``resolve_device``): training, the battery, FID.  Left out, as TPU
 runtime only: the persistent compile cache, the TPU lock, the battery's
-move to the CPU and the ``device_put`` calls.  ``--mesh`` /
-``--mesh_mode``, ``--scan_layers`` and ``--fused_proj`` raise
-``NotImplementedError`` (not ported yet).  The host libraries the card
+move to the CPU and the ``device_put`` calls.  ``--scan_layers`` and
+``--fused_proj`` build the ViT in those layouts (``nn/vit_vae.py``).
+``--mesh dp|N|NxM`` / ``--mesh_mode replicated|fsdp`` train on a
+("data", "model") mesh (``parallel/``): one process per rank under
+``torchrun --nproc_per_node N``, or at a world of 1 with no launcher; a
+rank trains on its rows of every global batch, only rank 0 writes
+artifacts, runs the battery and starts the eval child, and every rank
+takes the same best-on-(recon + kld) decision from the test losses
+all-reduced over the group.  The host libraries the card
 lacks: the CSV is written with the ``csv`` module (the text pandas'
 ``to_csv(index=False)`` gives), kNN runs the "torch" backend, and the
 drawing halves of the plots import matplotlib (t-SNE scikit-learn) when
@@ -33,6 +39,7 @@ called, inside ``safe_eval``.
 
 from __future__ import annotations
 
+import copy
 import csv
 import json
 import math
@@ -40,12 +47,13 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from typing import Dict, List
 
 import numpy as np
 import torch
 
-from cliffordtpu_torch import random
+from cliffordtpu_torch import parallel, random
 from cliffordtpu_torch.data import load_dataset
 from cliffordtpu_torch.device import resolve_device
 from cliffordtpu_torch.eval import ModelHandle
@@ -127,19 +135,12 @@ CSV_METRICS = ("knn_acc_100", "knn_acc_600", "knn_acc_1000", "knn_f1_100",
                "knn_f1_600", "knn_f1_1000", "mvc")
 
 
-def refuse_unported(args) -> None:
-    """Raise for the flags whose code paths are not ported yet."""
-    if getattr(args, "mesh", None) or getattr(
-            args, "mesh_mode", "replicated") != "replicated":
-        raise NotImplementedError(
-            "--mesh / --mesh_mode are not ported yet: parallel/ as torch "
-            "DDP and FSDP is a later slice (ROADMAP Queue 1)")
-    if getattr(args, "scan_layers_model", False) or getattr(
-            args, "fused_proj", False):
-        raise NotImplementedError(
-            "--scan_layers / --fused_proj are not ported yet: they change "
-            "the ViT param tree (ROADMAP Queue 1, optional "
-            "fused_proj / scan_layers)")
+def is_rank0() -> bool:
+    """Whether this process writes the run's artifacts: rank 0 of a
+    ``--mesh`` group, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 EVAL_MODULE = "cliffordtpu_torch.scripts.eval_checkpoint"
@@ -195,6 +196,10 @@ def _run_subprocess_eval(args, state, output_dir, dataset_name,
         argv += ["--device", str(args.device)]
     if getattr(args, "_actual_l2", False):
         argv += ["--l2_normalize"]
+    if getattr(args, "scan_layers_model", False):
+        argv += ["--scan_layers"]  # the param tree is layer-stacked
+    if getattr(args, "fused_proj", False):
+        argv += ["--fused_proj"]  # fused wqkv / w13 param tree
     if args.limit_train:
         argv += ["--limit_train", str(args.limit_train)]
     if args.limit_test:
@@ -206,8 +211,9 @@ def build_model(args, dist_name: str, latent_dim: int, in_channels: int,
                 seed: int = 0):
     """Model construction per arch, with the JAX runner's arguments
     (``gaussian_nol2`` is a gaussian without l2; the hybrid's per-token
-    latent is ``latent_dim // 16``, at least 4); ``seed`` seeds the
-    initial weights."""
+    latent is ``latent_dim // 16``, at least 4; the ViT takes
+    ``--scan_layers`` and ``--fused_proj``); ``seed`` seeds the initial
+    weights."""
     if dist_name == "gaussian_nol2":
         actual_dist, l2_norm = "gaussian", False
     elif dist_name == "gaussian":
@@ -224,7 +230,10 @@ def build_model(args, dist_name: str, latent_dim: int, in_channels: int,
     if arch == "hybrid":
         return HybridVAE(latent_dim=max(4, latent_dim // 16), img_size=32,
                          **common)
-    return CliffordARVAE(latent_dim=latent_dim, image_size=32, **common)
+    return CliffordARVAE(
+        latent_dim=latent_dim, image_size=32,
+        scan_layers=bool(getattr(args, "scan_layers_model", False)),
+        fused_proj=bool(getattr(args, "fused_proj", False)), **common)
 
 
 def train_model(args, model, x_train, x_test, run_key, logger=None):
@@ -235,15 +244,43 @@ def train_model(args, model, x_train, x_test, run_key, logger=None):
     ``--scan_epochs`` takes this same loop (JAX's one XLA program per
     epoch has no counterpart here).  The losses are summed on
     the device and copied once an epoch; the test losses once a batch, as
-    in JAX.  Returns (state with the best parameters, best recon + kld,
-    eval_step)."""
-    refuse_unported(args)
+    in JAX.
+
+    ``--mesh dp|N|NxM`` trains on a ("data", "model") mesh
+    (``parallel/``): this rank's rows of every global batch, drawn as
+    those rows of the global draw, the parameters placed by the rules
+    (``--mesh_mode replicated|fsdp``); the math of the single-device
+    step.  Returns (state with the best parameters, whole on every rank,
+    best recon + kld, eval_step)."""
     device = resolve_device(getattr(args, "device", None))
+    mesh = None
+    mesh_spec = getattr(args, "mesh", None)
+    mode = getattr(args, "mesh_mode", "replicated")
+    if mesh_spec:
+        if getattr(args, "scan_epochs", False):
+            raise ValueError("--mesh is not supported with --scan_epochs")
+        device = parallel.init_distributed(device)
+        mesh = parallel.create_mesh(parallel.parse_mesh_spec(mesh_spec),
+                                    device.type)
+        ndata = parallel.mesh_sizes(mesh)["data"]
+        if args.batch_size % ndata != 0:
+            raise ValueError(
+                f"--batch_size {args.batch_size} must be divisible by the "
+                f"data axis ({ndata}) of mesh {mesh_spec}")
+        print(f"mesh: {parallel.mesh_sizes(mesh)}, mode {mode}")
+        plain = copy.deepcopy(model).to(device)
     state = create_train_state(
         model, "adamw", lr=args.cur_lr, clip_norm=1.0,
         sigma_lr_scale=0.1 if args.use_learnable_beta else None,
         accum_steps=int(getattr(args, "grad_accum", 1) or 1), device=device)
-    train_step = make_cnn_train_step(state.model, state.optimizer)
+    r0, r1 = 0, args.batch_size
+    if mesh is not None:
+        state = parallel.shard_state(state, mesh, mode)
+        train_step = parallel.make_sharded_cnn_train_step(
+            state.sharded, state.optimizer, mesh)
+        r0, r1 = parallel.global_batch_rows(mesh, args.batch_size)
+    else:
+        train_step = make_cnn_train_step(state.model, state.optimizer)
     eval_step = make_cnn_eval_step(state.model)
     xs = torch.as_tensor(x_train, dtype=torch.float32, device=device)
     xt = torch.as_tensor(x_test, dtype=torch.float32, device=device)
@@ -266,7 +303,7 @@ def train_model(args, model, x_train, x_test, run_key, logger=None):
         tr_dev = None
         for s in range(steps):
             losses = train_step(
-                xs[perm[s * bs:(s + 1) * bs]],
+                xs[perm[s * bs + r0:s * bs + r1]],
                 random.sample_key(random.fold_in_words(ekey, s + 1)),
                 beta_t)
             cur = torch.stack([losses[k] for k in LOSS_KEYS])
@@ -288,6 +325,8 @@ def train_model(args, model, x_train, x_test, run_key, logger=None):
             n_te += xb.shape[0]
         for k in te:
             te[k] /= max(1, n_te)
+        if mesh is not None:  # one decision on every rank
+            te = _all_ranks_mean(te, device)
 
         val = te["recon"] + te["kld"]
         if np.isfinite(val) and val < best:
@@ -321,7 +360,23 @@ def train_model(args, model, x_train, x_test, run_key, logger=None):
             break
 
     state.model.load_state_dict(best_params)
+    if mesh is not None:
+        if any(hasattr(p, "device_mesh") for p in state.model.parameters()):
+            state = parallel.unshard_state(state, plain)
+        state = replace(state, sharded=None)
+        eval_step = make_cnn_eval_step(state.model)
     return state, best, eval_step
+
+
+def _all_ranks_mean(values: Dict[str, float], device) -> Dict[str, float]:
+    """``values`` averaged over the ranks of the process group."""
+    import torch.distributed as dist
+
+    t = torch.tensor(list(values.values()), dtype=torch.float64,
+                     device=device)
+    dist.all_reduce(t)
+    t /= dist.get_world_size()
+    return dict(zip(values, t.tolist()))
 
 
 def trial_entry(m: Dict) -> Dict:
@@ -448,7 +503,6 @@ def run_cnn_experiments(args, dataset_name: str, timing_name: str,
 
 def _run_experiments(args, dataset_name: str, timing_name: str,
                      full_eval: bool):
-    refuse_unported(args)
     script_start_time = time.time()
     timing_results: Dict = {}
     device = resolve_device(getattr(args, "device", None))
@@ -538,6 +592,8 @@ def _run_experiments(args, dataset_name: str, timing_name: str,
                     args, model, x_train, x_test, run_key, logger)
                 model = state.model
                 train_time = time.time() - train_start_time
+                if not is_rank0():
+                    continue  # rank 0 scores the trial and writes it
                 print(f"best total loss (recon+kld): {best:.4f}, "
                       f"training time: {train_time:.2f}s")
                 if args.keep_ckpts:
@@ -869,6 +925,8 @@ def _run_experiments(args, dataset_name: str, timing_name: str,
                 across_dim_results[dist_name]["dims"].append(latent_dim)
 
         # per-dim reference curves + cross-dist comparison (:1288-1371)
+        if not is_rank0():
+            continue
         try:
             dim_results.update(reference_curves(
                 root_key, latent_dim, args.vsa_trials, device))
@@ -883,6 +941,8 @@ def _run_experiments(args, dataset_name: str, timing_name: str,
             print(f"warning: cross-dist comparison failed for "
                   f"d={latent_dim}: {e!r}")
 
+    if not is_rank0():
+        return
     try:
         comp_dir = ensure_dir(f"results/comparisons/{dataset_name}")
         across_merged = _merge_across_dims(

@@ -5,9 +5,10 @@ engine shared with the fashion runner).
     python -m cliffordtpu_torch.scripts.cifar10_train --latent_dims 4096 \\
         --distributions clifford --epochs 1 --no_wandb
 
-runs on the card; ``--device cpu`` runs on the CPU.  ``--mesh``,
-``--mesh_mode`` and ``--scan_layers`` raise ``NotImplementedError`` (not
-ported yet)."""
+runs on the card; ``--device cpu`` runs on the CPU.  ``--mesh`` and
+``--mesh_mode`` train on a ("data", "model") mesh (``torchrun
+--nproc_per_node N`` for N cards, none needed at a world of 1) as the
+fashion runner does."""
 
 from __future__ import annotations
 
@@ -61,14 +62,16 @@ def build_parser():
                    help="run the eval battery in the port's eval_checkpoint "
                         "in a fresh process, on the same device")
     p.add_argument("--mesh", type=str, default=None,
-                   help="not ported: raises NotImplementedError")
+                   help="train on a (data, model) mesh: dp | N | NxM "
+                        "(one rank per process; torchrun for more than 1)")
     p.add_argument("--mesh_mode", type=str, default="replicated",
                    choices=["replicated", "fsdp"],
-                   help="not ported: any value but the default raises "
-                        "NotImplementedError")
+                   help="replicated (DDP) or fsdp (FSDP2) over the data "
+                        "axis")
     p.add_argument("--scan_layers", dest="scan_layers_model",
                    action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="layer-stacked ViT blocks (identical math; another "
+                        "param tree)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="accumulate (average) gradients over N microbatch "
                         "steps before each optimizer update (effective "

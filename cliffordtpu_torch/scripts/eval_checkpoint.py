@@ -25,17 +25,12 @@ def build_model(arch: str, distribution: str, latent_dim: int,
                 in_channels: int, img_size: int, l2_normalize: bool = False,
                 scan_layers: bool = False, fused_proj: bool = False):
     """The JAX script's model per arch; ``scan_layers`` and ``fused_proj``
-    raise (not ported)."""
+    give the ViT's layer-stacked and fused-projection layouts."""
     from cliffordtpu_torch.nn.conv_vae import CNNVAE
     from cliffordtpu_torch.nn.hybrid_vae import HybridVAE
     from cliffordtpu_torch.nn.mlp_vae import MLPVAE
     from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
 
-    if scan_layers or fused_proj:
-        raise NotImplementedError(
-            "--scan_layers / --fused_proj are not ported yet: they change "
-            "the ViT param tree (ROADMAP Queue 1, optional "
-            "fused_proj / scan_layers)")
     if arch == "mlp":
         return MLPVAE(128, latent_dim, distribution, l2_normalize)
     if arch == "cnn":
@@ -50,7 +45,8 @@ def build_model(arch: str, distribution: str, latent_dim: int,
         return CliffordARVAE(latent_dim=latent_dim, image_size=img_size,
                              in_channels=in_channels,
                              distribution=distribution,
-                             l2_normalize=l2_normalize)
+                             l2_normalize=l2_normalize,
+                             scan_layers=scan_layers, fused_proj=fused_proj)
     raise ValueError(arch)
 
 
@@ -65,9 +61,10 @@ def build_parser():
     p.add_argument("--dataset", default="fashionmnist")
     p.add_argument("--img_size", type=int, default=32)
     p.add_argument("--scan_layers", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="the checkpoint's ViT is layer-stacked")
     p.add_argument("--fused_proj", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="fused wqkv / w13 ViT projections (a checkpoint of "
+                        "the other layout is converted)")
     p.add_argument("--outdir", required=True)
     p.add_argument("--vsa_trials", type=int, default=20)
     p.add_argument("--fid_samples", type=int, default=2048)
@@ -131,7 +128,10 @@ def main(argv=None):
         EMPTY_CURVE,
         safe_eval,
     )
-    from cliffordtpu_torch.train.checkpoint import load_checkpoint
+    from cliffordtpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_model_state,
+    )
     from cliffordtpu_torch.utils import CLASS_NAMES, ensure_dir
     from cliffordtpu_torch.utils.artifacts import jsonable
     from cliffordtpu_torch.vsa.capacity import (
@@ -151,7 +151,7 @@ def main(argv=None):
     if ckpt is None:
         print(f"error: no checkpoint in {args.ckpt}", file=sys.stderr)
         return 2
-    model.load_state_dict(ckpt["model"])
+    load_model_state(model, ckpt)
     handle = ModelHandle(model.to(device).eval())
     ds = load_dataset(args.dataset, n_train=args.limit_train,
                       n_test=args.limit_test)

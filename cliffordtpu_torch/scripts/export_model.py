@@ -13,9 +13,12 @@ the model code.  See ``cliffordtpu_torch/serving.py``.
 The checkpoint is one that the port's ``save_checkpoint`` wrote (the
 runners' ``--keep_ckpts``).  Exporting runs on the card unless
 ``--device`` names another device; ``--platforms`` names the devices whose
-programs the bundle holds (default ``cuda,cpu``).  ``--scan_layers``,
-``--fused_proj``, ``--data_parallel`` above 1 and ``--native`` raise
-``NotImplementedError``: those code paths are not ported.
+programs the bundle holds (default ``cuda,cpu``).  ``--scan_layers``
+and ``--fused_proj`` name the ViT's layouts (a checkpoint of the other
+projection layout is converted); ``--data_parallel N`` writes a bundle
+that splits each request's rows over N replicas (``load_serving``'s
+``devices``).  ``--native`` (the JAX package's PJRT host) raises
+``NotImplementedError``: it is not ported.
 """
 
 from __future__ import annotations
@@ -37,13 +40,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--in_channels", type=int, default=1)
     p.add_argument("--l2_normalize", action="store_true")
     p.add_argument("--scan_layers", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="the checkpoint's ViT is layer-stacked")
     p.add_argument("--fused_proj", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="fused wqkv / w13 ViT projections")
     p.add_argument("--platforms", default="cuda,cpu",
                    help="comma-separated torch devices to export for")
     p.add_argument("--data_parallel", type=int, default=None,
-                   help="above 1 not ported: raises NotImplementedError")
+                   help="N replicas, each request's rows split over them "
+                        "(the symbolic batch a multiple of N)")
     p.add_argument("--params_dtype", default="float32",
                    choices=["float32", "bfloat16", "int8"],
                    help="storage format of params.npz (bfloat16 halves, "
@@ -65,10 +69,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.fused_proj and args.arch != "vit":
         p.error("--fused_proj only applies to --arch vit")
-    if args.data_parallel is not None and args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1 is not ported yet: it needs the parallel/ "
-            "slice (ROADMAP Queue 1 item 5)")
     if args.native:
         raise NotImplementedError(
             "--native is not ported: the JAX package's PJRT host "
@@ -78,7 +78,10 @@ def main(argv=None) -> int:
     from cliffordtpu_torch.device import resolve_device
     from cliffordtpu_torch.scripts.eval_checkpoint import build_model
     from cliffordtpu_torch.serving import export_serving
-    from cliffordtpu_torch.train.checkpoint import load_checkpoint
+    from cliffordtpu_torch.train.checkpoint import (
+        load_checkpoint,
+        load_model_state,
+    )
 
     device = resolve_device(args.device)
     model = build_model(args.arch, args.distribution, args.latent_dim,
@@ -89,7 +92,7 @@ def main(argv=None) -> int:
     if ckpt is None:
         print(f"error: no checkpoint in {args.ckpt}", file=sys.stderr)
         return 2
-    model.load_state_dict(ckpt["model"])
+    load_model_state(model, ckpt)
     model.to(device)
 
     img_shape = (args.img_size, args.img_size, args.in_channels)

@@ -6,8 +6,13 @@
         --latent_dims 4096 --distributions clifford --epochs 2 --no_wandb
 
 runs on the card; ``--device cpu`` runs the plain versions of the
-kernels on the CPU.  ``--mesh``, ``--mesh_mode``, ``--scan_layers`` and
-``--fused_proj`` raise ``NotImplementedError`` (not ported yet)."""
+kernels on the CPU.  ``--mesh dp|N|NxM`` trains on a ("data", "model")
+mesh, at a world of 1 as it is and on N cards under
+``torchrun --nproc_per_node N python -m
+cliffordtpu_torch.scripts.fashion_train --mesh dp ...``
+(``--mesh_mode fsdp`` shards the parameters);
+``--scan_layers`` and ``--fused_proj`` build the ViT's layer-stacked and
+fused-projection layouts (``--arch vit``)."""
 
 from __future__ import annotations
 
@@ -72,16 +77,19 @@ def build_parser():
                    help="run the eval battery in the port's eval_checkpoint "
                         "in a fresh process, on the same device")
     p.add_argument("--mesh", type=str, default=None,
-                   help="not ported: raises NotImplementedError")
+                   help="train on a (data, model) mesh: dp | N | NxM "
+                        "(one rank per process; torchrun for more than 1)")
     p.add_argument("--mesh_mode", type=str, default="replicated",
                    choices=["replicated", "fsdp"],
-                   help="not ported: any value but the default raises "
-                        "NotImplementedError")
+                   help="replicated (DDP) or fsdp (FSDP2) over the data "
+                        "axis")
     p.add_argument("--scan_layers", dest="scan_layers_model",
                    action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="layer-stacked ViT blocks (identical math; another "
+                        "param tree)")
     p.add_argument("--fused_proj", action="store_true",
-                   help="not ported: raises NotImplementedError")
+                   help="fused wqkv / w13 ViT projections (identical "
+                        "math, fewer launches; another param tree)")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="accumulate (average) gradients over N microbatch "
                         "steps before each optimizer update (effective "

@@ -33,6 +33,16 @@ kernels' operator registrations (``kernels/ops.py``) and no
 (``load_params_npz``, ``Serving(params=...)``); its ``.stablehlo``
 programs do not.
 
+A bundle exported with ``data_parallel=N`` serves a request's rows on N
+replicas (JAX's batch sharded over an N-device mesh): the batch is a
+multiple of N, each replica runs the same programs on its B/N rows on
+its own device (``load_serving(devices=)``, default ``cuda:0..N-1``), and
+a replica's ``encode_z`` draws its rows of the global draw, its program
+taking the rng as four words (the key, row0, B), which ``draw_latent``
+reads as the row base of the draw; the outputs are joined on the first
+device.  So a request gives the z of one device, bit for bit in every
+counter.
+
 ``params.npz`` keeps JAX's three storage modes (``_quantize_flat``):
 float32, bfloat16 (the raw uint16 words of a round-to-nearest-even cast)
 and int8 (one symmetric scale per output column, tensors of rank < 2
@@ -146,10 +156,14 @@ def _heads(model, x):
     return model.encode(x.reshape(x.shape[0], -1))
 
 
-def _rng_tensor(rng) -> torch.Tensor:
+def _rng_tensor(rng, rows=None) -> torch.Tensor:
     """An rng (two uint32 words in any form ``random.key_words`` takes) as
-    the int64 tensor (2,) on the CPU that ``draw_latent`` reads."""
-    return torch.tensor(random.key_words(rng), dtype=torch.int64)
+    the int64 tensor on the CPU that ``draw_latent`` reads: (2,), or (4,)
+    with the row range ``rows=(row0, n_rows)`` after the key."""
+    words = list(random.key_words(rng))
+    if rows is not None:
+        words += [int(rows[0]), int(rows[1])]
+    return torch.tensor(words, dtype=torch.int64)
 
 
 def serving_fns(model) -> Dict[str, Callable]:
@@ -291,19 +305,19 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
     Returns {"manifest": ..., "exported": {(fn, platform): program}};
     with ``out_dir`` the bundle is written there.
 
-    ``data_parallel`` > 1 (a batch sharded over several cards) and
-    ``native`` (the JAX package's C++ PJRT host) raise
-    ``NotImplementedError``."""
+    ``data_parallel`` N > 1 records N in the manifest: requests are then a
+    multiple of N rows ("N*b"), served on N replicas, and ``encode_z``'s
+    program takes the four-word rng (the module docstring).  ``native``
+    (the JAX package's C++ PJRT host) raises ``NotImplementedError``."""
     from torch.export import Dim
 
     from cliffordtpu_torch.nn.param_import import from_jax, layout, to_jax
 
     if params_dtype not in _QUANT_MODES:
         raise ValueError(f"params_dtype must be one of {_QUANT_MODES}")
-    if data_parallel is not None and int(data_parallel) > 1:
-        raise NotImplementedError(
-            "data_parallel > 1 is not ported yet: it needs the parallel/ "
-            "slice (ROADMAP Queue 1 item 5)")
+    dp = int(data_parallel or 1)
+    if dp < 1:
+        raise ValueError(f"data_parallel must be >= 1, got {data_parallel}")
     if native:
         raise NotImplementedError(
             "native=True is not ported: the JAX package's PJRT host "
@@ -320,7 +334,7 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
         device = torch.device(plat)
         model.to(device)
         weights = {k: v.detach() for k, v in model.named_parameters()}
-        rng = _rng_tensor((0, 0))
+        rng = _rng_tensor((0, 0), (0, 2) if dp > 1 else None)
         z_width = None
         for name in _FN_NAMES:
             def run(batch, symbolic):
@@ -362,19 +376,22 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
                 z_width = shapes[name][-1]
 
     def batch_dim(name):
-        return "b" if batch_mode[name] == "symbolic" else batch_mode[name]
+        b_ = "b" if batch_mode[name] == "symbolic" else batch_mode[name]
+        return b_ if dp == 1 else f"{dp}*{b_}"
 
     def ins(name):
         if name == "decode":
             return [_sd_json((batch_dim(name), z_width), "float32")]
         x = _sd_json((batch_dim(name), *img_shape), "float32")
-        return [_sd_json((2,), "uint32"), x] if name == "encode_z" else [x]
+        rng_words = 2 if dp == 1 else 4
+        return ([_sd_json((rng_words,), "uint32"), x] if name == "encode_z"
+                else [x])
 
     manifest = {
         "format_version": SERVING_FORMAT_VERSION,
         "torch_version": torch.__version__,
         "platforms": list(platforms),
-        "data_parallel": 1,
+        "data_parallel": dp,
         "model_class": type(model).__name__,
         "distribution": getattr(model, "distribution", "normal"),
         "latent_dim": int(getattr(model, "latent_dim",
@@ -416,33 +433,49 @@ class LoadedServing:
     """A serving bundle loaded from disk: ``encode_mu`` / ``encode_z`` /
     ``decode`` run its ``torch.export`` programs for one platform, with no
     model code.  ``device`` defaults to CUDA; a bundle without programs
-    for the device's platform raises."""
+    for the device's platform raises.
 
-    def __init__(self, directory: str, device=None):
+    A ``data_parallel`` N bundle runs N replicas on ``devices`` (default
+    ``cuda:0`` .. ``cuda:N-1``, which raises when fewer cards are visible;
+    replicas may share a device), each on its B/N rows of a request; the
+    outputs are joined on the first."""
+
+    def __init__(self, directory: str, device=None, devices=None):
         from cliffordtpu_torch import kernels  # noqa: F401  (the ops)
 
-        self.device = resolve_device(device)
         with open(os.path.join(directory, _MANIFEST)) as f:
             self.manifest = json.load(f)
         if self.manifest["format_version"] > SERVING_FORMAT_VERSION:
             raise ValueError(
                 f"serving bundle format {self.manifest['format_version']} "
                 f"is newer than supported {SERVING_FORMAT_VERSION}")
-        if int(self.manifest.get("data_parallel", 1)) > 1:
-            raise NotImplementedError(
-                "a data-parallel bundle needs the parallel/ slice, not "
-                "ported yet (ROADMAP Queue 1 item 5)")
-        plat = self.device.type
-        if plat not in self.manifest["platforms"]:
+        self.data_parallel = dp = int(self.manifest.get("data_parallel", 1))
+        if devices is None:
+            if dp > 1 and device is None:
+                visible = (torch.cuda.device_count()
+                           if torch.cuda.is_available() else 0)
+                if visible < dp:
+                    raise ValueError(
+                        f"bundle was exported for {dp}-way data parallelism "
+                        f"but only {visible} devices are visible")
+                devices = [f"cuda:{i}" for i in range(dp)]
+            else:
+                devices = [resolve_device(device)] * dp
+        self.devices = [torch.device(d) for d in devices]
+        if len(self.devices) != dp:
+            raise ValueError(f"a {dp}-replica bundle needs {dp} devices, "
+                             f"got {len(self.devices)}")
+        self.device = self.devices[0]
+        plats = {d.type for d in self.devices}
+        missing = plats - set(self.manifest["platforms"])
+        if missing:
             raise ValueError(
                 f"the bundle has programs for {self.manifest['platforms']}, "
-                f"not for {plat}")
+                f"not for {', '.join(sorted(missing))}")
         self._layout = self.manifest["param_layout"]
+        self._directory = directory
+        self._loaded = {}
         self.params = load_params_npz(os.path.join(directory, _PARAMS))
-        self._programs = {
-            name: torch.export.load(os.path.join(
-                directory, f"{name}.{plat}.pt2")).module()
-            for name in _FN_NAMES}
 
     @property
     def params(self) -> Dict[str, np.ndarray]:
@@ -451,31 +484,62 @@ class LoadedServing:
 
     @params.setter
     def params(self, flat: Dict[str, np.ndarray]):
-        """Hot-swap the weights: placed on the device once, here."""
+        """Hot-swap the weights: placed on each replica's device once,
+        here."""
         self._params = flat
-        self._placed = _apply_layout(flat, self._layout, self.device)
+        self._placed = {str(d): _apply_layout(flat, self._layout, d)
+                        for d in dict.fromkeys(self.devices)}
 
-    def _input(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+    def _program(self, name: str, device: torch.device):
+        """The program of ``name`` for ``device``'s platform, its constants
+        on ``device`` (loaded once per device)."""
+        key = (name, str(device))
+        if key not in self._loaded:
+            self._loaded[key] = torch.export.load(os.path.join(
+                self._directory, f"{name}.{device.type}.pt2")).module().to(
+                device)
+        return self._loaded[key]
+
+    def _run(self, name: str, a, rng=None) -> torch.Tensor:
+        """``name`` on each replica's rows of ``a``, joined on the first
+        device."""
+        a = torch.as_tensor(a, dtype=torch.float32)
+        n = self.data_parallel
+        if a.shape[0] % n:
+            raise ValueError(f"a batch of {a.shape[0]} is not divisible by "
+                             f"the bundle's {n} replicas")
+        b = a.shape[0] // n
+        outs = []
+        for i, dev in enumerate(self.devices):
+            args = [a[i * b:(i + 1) * b].to(dev)]
+            if rng is not None:
+                args.insert(0, _rng_tensor(rng, None if n == 1 else
+                                           (i * b, a.shape[0])))
+            outs.append(self._program(name, dev)(self._placed[str(dev)],
+                                                 *args))
+        if n == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])
 
     @torch.inference_mode()
     def encode_mu(self, x) -> torch.Tensor:
-        return self._programs["encode_mu"](self._placed, self._input(x))
+        return self._run("encode_mu", x)
 
     @torch.inference_mode()
     def encode_z(self, rng, x) -> torch.Tensor:
         """Sampled latents for the rng of JAX's ``encode_z`` (two uint32
-        words), as ``serving_fns``' ``encode_z``."""
-        return self._programs["encode_z"](self._placed, _rng_tensor(rng),
-                                          self._input(x))
+        words), as ``serving_fns``' ``encode_z``; each replica draws its
+        rows of the request's draw."""
+        return self._run("encode_z", x, rng)
 
     @torch.inference_mode()
     def decode(self, z) -> torch.Tensor:
-        return self._programs["decode"](self._placed, self._input(z))
+        return self._run("decode", z)
 
 
-def load_serving(directory: str, device=None) -> LoadedServing:
-    return LoadedServing(directory, device)
+def load_serving(directory: str, device=None, devices=None
+                 ) -> LoadedServing:
+    return LoadedServing(directory, device, devices)
 
 
 __all__ = ["Serving", "CliffordARServing", "serving_fns", "export_serving",

@@ -24,8 +24,15 @@ the ``clip_by_global_norm`` + ``adam`` / ``adamw`` chain, its
 ``ravel_pytree`` order) and ``optax.MultiSteps`` around any of them.  A
 checkpoint from before the half-split RoPE layout (no ``rope_layout``
 tag, attention kernels present) has its q / k kernels and their moments
-permuted first; one whose projections are stored fused is refused, as
-the port has no fused-projection layout.
+permuted first.  A ``CliffordARVAE`` tree of any block layout carries:
+fused or split projections (``proj_layout``, else read from the keys) are
+converted to the receiving model's ``fused_proj`` with
+``nn/param_convert.py``, parameters and moments alike, as JAX's
+``load_checkpoint(fused_proj=)`` converts them, and a ``scan_layers``
+tree goes onto a ``scan_layers`` model.
+
+``restore_checkpoint`` converts the port's own checkpoints the same way
+when the saved model's projections and the receiving model's differ.
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ import numpy as np
 import torch
 
 from cliffordtpu_torch import random
-from cliffordtpu_torch.nn.param_import import from_jax
+from cliffordtpu_torch.nn import param_convert
+from cliffordtpu_torch.nn.param_import import from_jax, port_to_jax
 from cliffordtpu_torch.nn.vit_vae import Attention
+from cliffordtpu_torch.train.state import group_names
 
 CKPT_NAME = "best_model.ckpt"
 FORMAT = "cliffordtpu_torch/1"
@@ -98,10 +107,80 @@ def load_checkpoint(output_dir: str) -> Optional[Dict[str, Any]]:
     return payload
 
 
+def _fused(names) -> bool:
+    return any(n.endswith(".wqkv.weight") for n in names)
+
+
+def _converter(model):
+    """Port tensors by name, in the other projection layout -> in
+    ``model``'s, through JAX's flat keys and ``param_convert``."""
+    distribution = getattr(model, "distribution", "clifford")
+    n_heads = _n_heads(model)
+    conv = (param_convert.fuse_vit_params if _fused(
+        n for n, _ in model.named_parameters())
+        else param_convert.unfuse_vit_params)
+
+    def convert(by_name: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        tree = param_convert.nest(port_to_jax(by_name, distribution))
+        conv(tree, n_heads)
+        return from_jax(param_convert.flatten(tree), distribution)
+
+    return convert
+
+
+def _convert_layout(payload: Dict[str, Any], model) -> Dict[str, Any]:
+    """A port checkpoint of one projection layout in the other (the
+    receiving ``model``'s): parameters, Adam moments and the
+    accumulator."""
+    convert = _converter(model)
+    out = dict(payload)
+    out["model"] = convert(payload["model"])
+    opt = payload["optimizer"]
+    n_groups = len(opt["param_groups"])
+    old = sum(group_names(list(payload["model"]), n_groups), [])
+    new_groups = group_names([n for n, _ in model.named_parameters()],
+                              n_groups)
+    new = sum(new_groups, [])
+    state = {old[i]: st for i, st in opt["state"].items()}
+    moments = {}
+    if state:
+        moments = {m: convert({n: st[m] for n, st in state.items()})
+                   for m in ("exp_avg", "exp_avg_sq")}
+    steps = {("sigma" if "log_sigma" in n else "main"): st["step"]
+             for n, st in state.items()}
+    groups, i = [], 0
+    for g, names in zip(opt["param_groups"], new_groups):
+        groups.append({**g, "params": list(range(i, i + len(names)))})
+        i += len(names)
+    out["optimizer"] = {
+        "state": {i: {"step": steps["sigma" if "log_sigma" in n else "main"],
+                      "exp_avg": moments["exp_avg"][n],
+                      "exp_avg_sq": moments["exp_avg_sq"][n]}
+                  for i, n in enumerate(new) if moments},
+        "param_groups": groups}
+    if payload["accumulator"] is not None:
+        acc = convert(dict(zip(old, payload["accumulator"])))
+        out["accumulator"] = [acc[n] for n in new]
+    return out
+
+
+def load_model_state(model, payload: Dict[str, Any]) -> None:
+    """Load a port checkpoint's parameters into ``model``, converted first
+    when its projections are stored in the other layout."""
+    params = payload["model"]
+    if _fused(params) != _fused(n for n, _ in model.named_parameters()):
+        params = _converter(model)(params)
+    model.load_state_dict(params)
+
+
 def restore_checkpoint(state, payload: Dict[str, Any]) -> Dict[str, Any]:
     """Load ``payload`` into ``state``'s model and optimizer (built with
     the saved run's optimizer settings); returns its step, best metric and
-    key."""
+    key.  A checkpoint whose projections are fused where the model's are
+    split, or the reverse, is converted first (``_convert_layout``)."""
+    if _fused(payload["model"]) != _fused(
+            n for n, _ in state.model.named_parameters()):
+        payload = _convert_layout(payload, state.model)
     state.model.load_state_dict(payload["model"])
     opt = state.optimizer
     opt.inner.load_state_dict(payload["optimizer"])
@@ -264,11 +343,6 @@ def state_from_jax(payload: Dict[str, Any], model, optimizer=None
     ``optimizer`` (``train/state.py::ClippedOptimizer``, built over
     ``model`` with the JAX run's optimizer, learning rate, sigma group and
     accumulation).  Returns the run's step, best metric and key."""
-    if payload.get("proj_layout") == "fused":
-        raise NotImplementedError(
-            "the checkpoint stores fused ViT projections (fused_proj); the "
-            "port has the split layout only and param_convert is not "
-            "ported")
     params = copy.deepcopy(payload["params"])
     moments = None
     if optimizer is not None:
@@ -279,6 +353,14 @@ def state_from_jax(payload: Dict[str, Any], model, optimizer=None
         n_heads = _n_heads(model)
         _migrate_rope_layout(params, n_heads)
         _migrate_rope_layout(moments, n_heads)
+    stored = (payload.get("proj_layout")
+              or param_convert.detect_proj_layout(params))
+    want = "fused" if getattr(model, "fused_proj", False) else "split"
+    if stored not in ("none", want):
+        conv = (param_convert.fuse_vit_params if want == "fused"
+                else param_convert.unfuse_vit_params)
+        conv(params, _n_heads(model))
+        conv(moments, _n_heads(model))
     distribution = getattr(model, "distribution", "clifford")
     model.load_state_dict(from_jax(_flat(params), distribution))
     if optimizer is not None:

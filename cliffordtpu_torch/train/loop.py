@@ -41,23 +41,36 @@ from cliffordtpu_torch.train.state import (
 VAL_FOLD = 10_000  # fold_in(ekey, VAL_FOLD) keys an epoch's validation
 
 
-def _losses(model, x, key, beta) -> Dict[str, torch.Tensor]:
-    x_recon, q_z, p_z, _ = model(x, key)
+def _losses(model, x, key, beta, rows=None, call=None
+            ) -> Dict[str, torch.Tensor]:
+    """``cnn_vae_loss`` of ``model`` on ``x``; ``rows`` as the model's
+    ``forward``; ``call`` runs the forward in the model's place (a
+    wrapper of it, such as DDP's)."""
+    x_recon, q_z, p_z, _ = (call or model)(x, key, rows=rows)
     return cnn_vae_loss(x, x_recon, q_z, p_z, model.distribution, beta=beta,
                         recon_loss_type=model.recon_loss_type,
                         l1_weight=model.l1_weight,
                         sigmas=model.loss_sigmas())
 
 
-def _train_step(optimizer, loss_fn, total: str) -> Callable:
+def _train_step(optimizer, loss_fn, total: str,
+                after_backward: Optional[Callable] = None,
+                reduce: Optional[Callable] = None) -> Callable:
     """``step(x, key, beta) -> losses``: loss, backward, clip, update;
-    ``losses`` gains ``grad_norm``, the norm from before the clip."""
+    ``losses`` gains ``grad_norm``, the norm from before the clip.
+    ``after_backward()`` runs between the backward pass and the update,
+    and ``reduce`` maps the detached losses before they are returned (the
+    sharded step's gradient and loss all-reduces)."""
 
     def train_step(x, key, beta):
         optimizer.zero_grad()
         losses = loss_fn(x, key, beta)
         losses[total].sum().backward()  # a lane's gradient is its own
+        if after_backward is not None:
+            after_backward()
         losses = {k: v.detach() for k, v in losses.items()}
+        if reduce is not None:
+            losses = reduce(losses)
         losses["grad_norm"] = optimizer.step()
         return losses
 

@@ -48,11 +48,25 @@ ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 OPTIMIZERS = ("adam", "adamw", "adam_fused", "adamw_fused")
 
 
+def _is_sharded(t) -> bool:
+    return hasattr(t, "device_mesh")  # a DTensor (parallel/sharding.py)
+
+
+def _local(t) -> torch.Tensor:
+    """A tensor, or the shard of a DTensor this rank holds (in place)."""
+    return t.to_local() if _is_sharded(t) else t
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(sum of squares over all tensors) (``optax.global_norm``), as a
-    scalar tensor on their device."""
-    return torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(list(tensors))))
+    scalar tensor on their device.  A DTensor (a sharded gradient) counts
+    whole: its norm is reduced over the ranks that hold its shards."""
+    tensors = list(tensors)
+    plain = [t for t in tensors if not _is_sharded(t)]
+    norms = list(torch._foreach_norm(plain)) if plain else []
+    norms += [torch.linalg.vector_norm(t).full_tensor()
+              for t in tensors if _is_sharded(t)]
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def lane_norms(tensors) -> torch.Tensor:
@@ -90,7 +104,7 @@ class ClippedOptimizer:
         return global_norm(grads)
 
     def _scale(self, grads, factor: torch.Tensor):
-        torch._foreach_mul_(grads, factor)
+        torch._foreach_mul_([_local(g) for g in grads], factor)
 
     def _clip_and_update(self, grads, norm):
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
@@ -137,6 +151,15 @@ def _is_sigma(name: str) -> bool:
     return "log_sigma" in name
 
 
+def group_names(names: List[str], n_groups: int) -> List[List[str]]:
+    """The parameter names of each of ``make_optimizer``'s groups, in its
+    order: one group, or the main group then the learnable-beta sigmas."""
+    if n_groups == 1:
+        return [list(names)]
+    return [[n for n in names if not _is_sigma(n)],
+            [n for n in names if _is_sigma(n)]]
+
+
 def make_optimizer(params, optimizer: str = "adam", lr: float = 1e-3,
                    clip_norm: float = 1.0,
                    sigma_lr_scale: Optional[float] = None,
@@ -178,6 +201,8 @@ class TrainState:
     model: nn.Module
     optimizer: ClippedOptimizer
     device: torch.device
+    # set by parallel/sharding.py::shard_state: the model on its mesh
+    sharded: Optional[object] = None
 
 
 def create_train_state(model: nn.Module, optimizer: str = "adam",

@@ -4,7 +4,8 @@ trained and checkpointed (cliffordtpu/train/checkpoint.py, orbax) carried
 by ``state_from_jax`` into the port, whose next step is held against the
 JAX run's own next step: the clip + adamw chain, its learnable-beta sigma
 group, the flat ``fused_adam`` state and ``optax.MultiSteps``.  Then the
-legacy (v1) RoPE migration and the refusal of fused projections.  The
+legacy (v1) RoPE migration and fused-projection checkpoints, carried in
+either layout.  The
 tiny HybridVAE of test_torch_hybrid_vae.py, batch 3, float32.  Bars: the
 carried step's loss within 1e-4 relative of JAX's, every parameter
 afterwards within 1e-5 of JAX's."""
@@ -266,7 +267,40 @@ def test_v1_payload_carries_into_the_port():
     assert any("Attention" in k for k in flat)
 
 
-def test_fused_projections_are_refused():
-    with pytest.raises(NotImplementedError, match="fused"):
-        checkpoint.state_from_jax({"proj_layout": "fused", "params": {}},
-                                  _port(False))
+@pytest.mark.parametrize("stacked", [False, True],
+                         ids=["unrolled", "scan_layers"])
+def test_fused_projections_are_refused(stacked):
+    """Fused projections are no longer refused: a JAX ``fused_proj``
+    payload (unrolled or ``scan_layers``), parameters and Adam moments,
+    carries into a fused port model as it is and into a split one through
+    ``param_convert``, as JAX's ``load_checkpoint(fused_proj=)``
+    converts it; both equal ``from_jax`` of the tree in their layout."""
+    from cliffordtpu.nn.param_convert import unfuse_vit_params
+    from cliffordtpu.nn.vit_vae import CliffordARVAE as JViT
+
+    kw = dict(latent_dim=8, image_size=32, in_channels=1,
+              cnn_chs=[16, 32, 64], z_channels=64, encoder_vit_layers=1,
+              decoder_vit_layers=2, patch_size=4, scan_layers=stacked)
+    flat = _random_params(JViT(**kw, fused_proj=True),
+                          jnp.zeros((2, 32, 32, 1)), 6)
+    tree = _unflatten_params(flat)
+    moments = {"count": np.int32(3), "mu": tree, "nu": jax.tree_util
+               .tree_map(np.abs, tree)}
+    payload = {"params": tree, "opt_state": [None, [moments, None, None]],
+               "proj_layout": "fused", "rope_layout": "half", "step": 3,
+               "best_metric": 0.0}
+    split_tree = jax.tree_util.tree_map(np.copy, tree)
+    unfuse_vit_params(split_tree, 1)
+    for fused, want_flat in ((True, flat),
+                             (False, _flatten_params(split_tree))):
+        port = vit_vae.CliffordARVAE(**kw, fused_proj=fused)
+        st = create_train_state(port, "adamw", LR, device="cpu")
+        checkpoint.state_from_jax(payload, st.model, st.optimizer)
+        want = param_import.cliffordar_from_jax(want_flat)
+        opt_state = st.optimizer.inner.state
+        for name, p in st.model.named_parameters():
+            assert torch.equal(p.detach(), want[name]), name
+            assert torch.equal(opt_state[p]["exp_avg"], want[name]), name
+            assert torch.equal(opt_state[p]["exp_avg_sq"], want[name].abs())
+        assert any(".wqkv." in n for n, _ in port.named_parameters()) == \
+            fused

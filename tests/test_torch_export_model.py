@@ -1,6 +1,7 @@
 """params.npz's storage modes byte for byte against cliffordtpu/serving.py
 (written by either package, read by the other), quantized bundles, the
-``export_model`` entry point and its refusals, and ``encode_z`` through a
+``export_model`` entry point (its layouts, data-parallel bundles and the
+``--native`` refusal), and ``encode_z`` through a
 bundle for the gaussian, powerspherical and vMF heads."""
 
 import json
@@ -166,25 +167,85 @@ def test_export_model_writes_a_bundle_of_the_checkpoint(tmp_path, capsys):
         "--outdir", out]) == 2
 
 
+def _narrow_vit(scan_layers=False, fused_proj=False, seed=0):
+    from cliffordtpu_torch.nn.vit_vae import CliffordARVAE
+
+    return CliffordARVAE(latent_dim=4, image_size=32, in_channels=1,
+                         cnn_chs=[16, 32, 64], z_channels=64,
+                         encoder_vit_layers=1, decoder_vit_layers=1,
+                         patch_size=4, scan_layers=scan_layers,
+                         fused_proj=fused_proj, seed=seed)
+
+
 @pytest.mark.parametrize("flag", [
     ["--scan_layers"], ["--fused_proj", "--arch", "vit"],
     ["--data_parallel", "2"], ["--native"]])
-def test_unported_export_options_raise(flag, tmp_path):
-    argv = ["--ckpt", str(tmp_path), "--arch", "mlp", "--distribution",
-            "clifford", "--latent_dim", "5", "--device", "cpu",
-            "--outdir", str(tmp_path / "o"), *flag]
-    with pytest.raises(NotImplementedError):
-        export_model.main(argv)
+def test_unported_export_options_raise(flag, tmp_path, monkeypatch):
+    """Of the options that raised before, only ``--native`` (the JAX
+    package's PJRT host) still does.  ``--scan_layers`` exports a
+    layer-stacked ViT checkpoint; ``--fused_proj`` a split one, converted
+    to the fused layout on load; ``--data_parallel 2`` a bundle of two
+    replicas (run here as two CPU replicas).  Each bundle answers as the
+    checkpoint's model does."""
+    from cliffordtpu_torch.scripts import eval_checkpoint
+
+    vit = "--data_parallel" not in flag and "--native" not in flag
+    scan = "--scan_layers" in flag
+    model = (_narrow_vit(scan_layers=scan, seed=4) if vit
+             else MLPVAE(32, 5, "clifford", seed=4))
+    if vit:
+        monkeypatch.setattr(
+            eval_checkpoint, "build_model",
+            lambda *a, scan_layers=False, fused_proj=False: _narrow_vit(
+                scan_layers, fused_proj))
+    st = create_train_state(model, "adam", 1e-3, device="cpu")
+    save_checkpoint(str(tmp_path), st)
+    out = tmp_path / "o"
+    argv = ["--ckpt", str(tmp_path), "--arch", "vit" if vit else "mlp",
+            "--distribution", "clifford", "--latent_dim",
+            "4" if vit else "5", "--device", "cpu", "--platforms", "cpu",
+            "--img_size", "32" if vit else "28", "--outdir", str(out),
+            *[f for f in flag if f not in ("--arch", "vit")]]
+    if "--native" in flag:
+        with pytest.raises(NotImplementedError, match="pjrt_serve"):
+            export_model.main(argv)
+        return
+    assert export_model.main(argv) == 0
+    dp = 2 if "--data_parallel" in flag else 1
+    loaded = serving.load_serving(str(out), devices=["cpu"] * dp)
+    assert loaded.manifest["data_parallel"] == dp
+    srv = serving.Serving(model, device="cpu")
+    x = _images((32, 32, 1) if vit else IMG, 4, 6)
+    np.testing.assert_allclose(loaded.encode_mu(x).numpy(),
+                               srv.encode_mu(x).numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        loaded.encode_z((0, 3), x).numpy(),
+        srv.encode_z(random.sample_key((0, 3)), x).numpy(), rtol=1e-5,
+        atol=1e-5)
 
 
-def test_export_and_load_refuse_what_they_cannot_do(mlp_flat, f32_bundle):
-    """data_parallel > 1 and native raise at export; a bundle loaded on a
-    device it has no programs for raises, and without a device it asks
-    for the card, which this host lacks: nothing moves to the CPU."""
+def test_export_and_load_refuse_what_they_cannot_do(mlp_flat, f32_bundle,
+                                                   tmp_path):
+    """native raises at export; data_parallel=2 is recorded (requests a
+    multiple of 2, ``encode_z`` taking the four-word rng), and its bundle
+    without ``devices`` asks for two cards, which this host lacks; a
+    bundle loaded on a device it has no programs for raises, and without
+    a device it asks for the card: nothing moves to the CPU."""
     model = MLPVAE(32, 5, "clifford")
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        serving.export_serving(model, mlp_flat, IMG, data_parallel=2,
-                               platforms=("cpu",))
+    dp_dir = str(tmp_path / "dp2")
+    mani = serving.export_serving(model, mlp_flat, IMG, out_dir=dp_dir,
+                                  data_parallel=2,
+                                  platforms=("cpu",))["manifest"]
+    assert mani["data_parallel"] == 2
+    assert mani["functions"]["encode_z"]["in"][0]["shape"] == ["4"]
+    assert mani["functions"]["encode_mu"]["in"][0]["shape"][0] == "2*b"
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="devices are visible"):
+            serving.load_serving(dp_dir)
+    with pytest.raises(ValueError, match="divisible"):
+        serving.load_serving(dp_dir, devices=["cpu"] * 2).encode_mu(
+            _images(IMG, 3, 1))
     with pytest.raises(NotImplementedError, match="pjrt_serve"):
         serving.export_serving(model, mlp_flat, IMG, native=True,
                                platforms=("cpu",))

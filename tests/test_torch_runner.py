@@ -17,7 +17,8 @@ scripts and its artifact helpers, against the JAX package where one runs:
 * one in-process ``run_cnn_experiments`` on the CPU at the JAX runner
   smoke's tiny config, with its artifact contract, and a second
   per-family run into the same directory that must aggregate;
-* the flags that are not ported raise; the port's ``eval_checkpoint``
+* the flags that raised before (``--mesh``, ``--mesh_mode``,
+  ``--scan_layers``, ``--fused_proj``) run; the port's ``eval_checkpoint``
   on a saved tiny ``MLPVAE``.
 The whole JAX runner is not run here (tests/test_runners.py runs it)."""
 
@@ -313,19 +314,63 @@ def test_cnn_runner_inprocess_smoke(tmp_path, monkeypatch):
     assert across["clifford"]["dims"] == across["gaussian"]["dims"] == [8]
 
 
+@pytest.fixture(scope="module")
+def plain_run(tmp_path_factory):
+    """The TINY clifford run with no flag: its best loss."""
+    out = tmp_path_factory.mktemp("plain")
+    return _flag_run(fashion_train, [], out)
+
+
+def _flag_run(script, flags, out):
+    cwd = os.getcwd()
+    try:
+        args = script.build_parser().parse_args(
+            TINY + flags + ["--distributions", "clifford", "--outdir",
+                            str(out)])
+        cnn_runner.run_cnn_experiments(args, "fashionmnist", "x",
+                                       full_eval=False)
+    finally:
+        os.chdir(cwd)
+    exp = out / "results" / "fashionmnist-clifford-d8-l1"
+    return json.loads((exp / "metrics.json").read_text())[
+        "final_best_total_loss"]
+
+
 @pytest.mark.parametrize("flags", [["--mesh", "dp"],
-                                   ["--mesh_mode", "fsdp"],
+                                   ["--mesh", "dp", "--mesh_mode", "fsdp"],
                                    ["--scan_layers"], ["--fused_proj"]],
                          ids=["mesh", "mesh_mode", "scan_layers",
                               "fused_proj"])
-def test_unported_flags_raise(flags, tmp_path):
-    parser = (cifar10_train if flags == ["--scan_layers"] else
-              fashion_train).build_parser()
-    args = parser.parse_args(TINY + flags + ["--outdir", str(tmp_path)])
-    args.distributions = ["clifford"]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cnn_runner.run_cnn_experiments(args, "fashionmnist", "x")
-    assert not (tmp_path / "results").exists()
+def test_unported_flags_raise(flags, tmp_path, monkeypatch, plain_run):
+    """The flags that raised before parallel/ and the ViT layouts were
+    ported now run the runner at the TINY config on the CPU: ``--mesh dp``
+    (a world of 1, no launcher) with DDP or FSDP2 gives the best loss of
+    the run without it within 1e-6 relative; ``--scan_layers`` (the
+    cifar10 parser) and ``--fused_proj`` train a narrow ``--arch vit`` of
+    that layout, whose battery child would get the same flags."""
+    monkeypatch.setenv("CLIFFORDTPU_DATA_DIR", str(tmp_path / "none"))
+    if flags[0] == "--mesh":
+        best = _flag_run(fashion_train, flags, tmp_path)
+        assert abs(best - plain_run) <= 1e-6 * abs(plain_run), (
+            best, plain_run)
+        return
+    built, vit = [], cnn_runner.CliffordARVAE
+
+    def narrow(**kw):
+        kw.update(cnn_chs=[8, 16, 32], z_channels=32, encoder_vit_layers=1,
+                  decoder_vit_layers=1)
+        built.append(vit(**kw))
+        return built[-1]
+
+    monkeypatch.setattr(cnn_runner, "CliffordARVAE", narrow)
+    if flags == ["--scan_layers"]:  # the cifar10 parser takes it too
+        assert cifar10_train.build_parser().parse_args(
+            TINY + flags).scan_layers_model
+    best = _flag_run(fashion_train, flags + ["--arch", "vit"], tmp_path)
+    assert math.isfinite(best)
+    assert built and all(
+        m.fused_proj == ("--fused_proj" in flags)
+        and m.scan_layers == ("--scan_layers" in flags) for m in built)
 
 
 def test_eval_checkpoint_scores_a_saved_model(tmp_path, monkeypatch):

@@ -234,7 +234,7 @@ def test_autograd_function_routes_to_the_backward_launch(monkeypatch):
         size=(rows, 2 * d)).astype(np.float32))
     calls = []
 
-    def launch(key, loc_, kap_):
+    def launch(key, loc_, kap_, row0=0):
         with torch.no_grad():
             return sampler.sample_embed_rng_plain(key, loc_, kap_)
 

@@ -165,7 +165,7 @@ def test_autograd_function_routes_to_the_backward_launch(monkeypatch):
     loc, kap, key, w = _sampler_inputs(d, rows, True, 19)
     calls = []
 
-    def launch(key, loc, kap):
+    def launch(key, loc, kap, row0=0):
         with torch.no_grad():
             return sampler.sample_embed_keyed_plain(key, loc, kap)
 
