@@ -3,7 +3,8 @@ version, a wrapper and a launch count (port of ``cliffordtpu/kernels``).
 
 Sources live in ``cliffordtpu_torch/csrc``; ``build.py`` compiles them.
 Importing the package registers the operators of ``ops.py`` (the kernels
-and the latent draw as ``torch.export`` sees them).
+and the latent draw as ``torch.export`` sees them); ``native.py`` loads
+their C++ counterparts for the Python-free serving path on request.
 """
 
 from cliffordtpu_torch.kernels import ops  # noqa: F401  (registers the ops)

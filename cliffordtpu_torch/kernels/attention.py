@@ -417,7 +417,12 @@ def _needs_grad(q, k, v) -> bool:
 
 def _fwd_op(q, k, v, cos, sin) -> torch.Tensor:
     """The registered forward operator (``kernels/ops.py``), which a traced
-    program records: kernel A on CUDA, ``attention_plain`` on the CPU."""
+    program records: kernel A on CUDA, ``attention_plain`` on the CPU; its
+    C++ counterpart while a native export traces (``kernels/native.py``)."""
+    from cliffordtpu_torch.kernels import native
+
+    if native.active():
+        return torch.ops.cliffordtpu_native.attention_fwd(q, k, v, cos, sin)
     return torch.ops.cliffordtpu_torch.attention_fwd(q, k, v, cos, sin)
 
 

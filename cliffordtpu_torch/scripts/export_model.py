@@ -17,8 +17,11 @@ programs the bundle holds (default ``cuda,cpu``).  ``--scan_layers``
 and ``--fused_proj`` name the ViT's layouts (a checkpoint of the other
 projection layout is converted); ``--data_parallel N`` writes a bundle
 that splits each request's rows over N replicas (``load_serving``'s
-``devices``).  ``--native`` (the JAX package's PJRT host) raises
-``NotImplementedError``: it is not ported.
+``devices``).  ``--native`` also writes, for each of ``--platforms``, one
+AOTInductor package per function at the fixed batch ``--native_batch``
+(``<fn>.native.<platform>.pt2``) and the manifest's ``native`` section,
+which the Python-free host ``cliffordtpu_torch/native/serve.cc`` serves
+(``export_serving(native=True)``); it refuses ``--data_parallel`` > 1.
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "int8 quarters the artifact; weight-only, programs "
                         "unchanged, dequantized at load)")
     p.add_argument("--native", action="store_true",
-                   help="not ported (the JAX package's PJRT host): raises "
-                        "NotImplementedError")
+                   help="also write AOTInductor packages at the fixed "
+                        "--native_batch for the C++ serving host "
+                        "(cliffordtpu_torch/native/serve.cc)")
     p.add_argument("--native_batch", type=int, default=8)
     p.add_argument("--outdir", required=True)
     p.add_argument("--device", default=None,
@@ -69,11 +73,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.fused_proj and args.arch != "vit":
         p.error("--fused_proj only applies to --arch vit")
-    if args.native:
-        raise NotImplementedError(
-            "--native is not ported: the JAX package's PJRT host "
-            "(cliffordtpu/native/pjrt_serve.cc) runs StableHLO; a port "
-            "bundle runs through torch.export.load (load_serving)")
 
     from cliffordtpu_torch.device import resolve_device
     from cliffordtpu_torch.scripts.eval_checkpoint import build_model
@@ -99,7 +98,10 @@ def main(argv=None) -> int:
     res = export_serving(model, None, img_shape, out_dir=args.outdir,
                          platforms=tuple(args.platforms.split(",")),
                          data_parallel=args.data_parallel,
-                         params_dtype=args.params_dtype)
+                         params_dtype=args.params_dtype,
+                         native=args.native,
+                         native_platforms=tuple(args.platforms.split(",")),
+                         native_batch=args.native_batch)
     mani = res["manifest"]
     print(json.dumps({
         "outdir": args.outdir,
@@ -108,6 +110,9 @@ def main(argv=None) -> int:
         "flat_z_dim": mani["flat_z_dim"],
         "platforms": mani["platforms"],
         "batch": {k: v["batch"] for k, v in mani["functions"].items()},
+        **({"native_batch": mani["native"]["batch"],
+            "native_compile_s": res["native_compile_s"]}
+           if args.native else {}),
     }, indent=2))
     return 0
 

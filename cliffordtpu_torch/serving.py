@@ -175,6 +175,7 @@ def serving_fns(model) -> Dict[str, Callable]:
     ``random.sample_key(rng)``, so one rng gives JAX's z in both
     packages."""
     from cliffordtpu_torch import kernels  # noqa: F401  (registers the ops)
+    from cliffordtpu_torch.kernels import native
 
     latent_dim = int(getattr(model, "latent_dim",
                              getattr(model, "z_dim", 0)))
@@ -185,6 +186,11 @@ def serving_fns(model) -> Dict[str, Callable]:
 
     def encode_z(rng, x):
         mu, param2 = _heads(model, x)
+        if native.active():  # a native export: the C++ operator
+            return native.draw_latent(
+                rng, mu, param2, model.distribution,
+                bool(model.l2_normalize), model.sampler,
+                float(getattr(model, "draw_scale", 1.0)))
         return torch.ops.cliffordtpu_torch.draw_latent(
             rng, mu, param2, model.distribution, latent_dim,
             bool(model.l2_normalize), model.sampler,
@@ -292,7 +298,9 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
                    platforms=("cuda", "cpu"), fallback_batch: int = 8,
                    data_parallel: Optional[int] = None,
                    params_dtype: str = "float32",
-                   native: bool = False) -> dict:
+                   native: bool = False,
+                   native_platforms=("cuda", "cpu"),
+                   native_batch: int = 8) -> dict:
     """Export a model's serving functions as ``torch.export`` programs, one
     per function and platform, each from the model on that device.
 
@@ -307,8 +315,19 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
 
     ``data_parallel`` N > 1 records N in the manifest: requests are then a
     multiple of N rows ("N*b"), served on N replicas, and ``encode_z``'s
-    program takes the four-word rng (the module docstring).  ``native``
-    (the JAX package's C++ PJRT host) raises ``NotImplementedError``."""
+    program takes the four-word rng (the module docstring).
+
+    ``native=True`` also writes, for each function and each of
+    ``native_platforms``, a program for the Python-free host
+    (``native/serve.cc``): traced at the fixed batch ``native_batch`` with
+    the C++ operators (``kernels/native.py``) and compiled by AOTInductor
+    into ``<fn>.native.<platform>.pt2`` by child processes (one a
+    package, up to the cores; their Inductor cache
+    ``build/cliffordtpu_torch/inductor``), and records the manifest's
+    ``native`` section (``_export_native``).  It needs ``out_dir`` and
+    raises ``ValueError`` with ``data_parallel`` > 1, as the JAX package's
+    does.  The result then also holds "native_compile_s", the seconds of
+    each package's compile."""
     from torch.export import Dim
 
     from cliffordtpu_torch.nn.param_import import from_jax, layout, to_jax
@@ -319,10 +338,15 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
     if dp < 1:
         raise ValueError(f"data_parallel must be >= 1, got {data_parallel}")
     if native:
-        raise NotImplementedError(
-            "native=True is not ported: the JAX package's PJRT host "
-            "(cliffordtpu/native/pjrt_serve.cc) runs StableHLO; a port "
-            "bundle runs through torch.export.load (load_serving)")
+        if dp > 1:
+            raise ValueError("native export is single-device; it is "
+                             "incompatible with data_parallel > 1")
+        if out_dir is None:
+            raise ValueError("native export writes packages: pass out_dir")
+        for plat in native_platforms:
+            if plat not in ("cuda", "cpu"):
+                raise ValueError(f"native platforms are cuda and cpu, got "
+                                 f"{plat!r}")
     if params is not None:
         model.load_state_dict(from_jax(params, model.distribution))
     model.eval()
@@ -421,9 +445,142 @@ def export_serving(model, params: Optional[Dict[str, np.ndarray]],
         for (name, plat), program in exported.items():
             torch.export.save(program,
                               os.path.join(out_dir, f"{name}.{plat}.pt2"))
+    result = {"manifest": manifest, "exported": exported}
+    if native:
+        manifest["native"], result["native_compile_s"] = _export_native(
+            model, img_shape, z_width, out_dir, tuple(native_platforms),
+            int(native_batch))
+    if out_dir is not None:
         with open(os.path.join(out_dir, _MANIFEST), "w") as f:
             json.dump(manifest, f, indent=2)
-    return {"manifest": manifest, "exported": exported}
+    return result
+
+
+class _NativeProgram(torch.nn.Module):
+    """One entry point for the native host: ``forward`` takes the weights
+    as flat positional inputs, in ``names`` order, then the array
+    arguments."""
+
+    def __init__(self, model, name: str, names):
+        super().__init__()
+        self._bound = (_Entry(model, name),)  # a tuple: not a submodule
+        self._names = list(names)
+
+    def forward(self, *flat):
+        n = len(self._names)
+        return torch.func.functional_call(
+            self._bound[0],
+            {f"model.{k}": v for k, v in zip(self._names, flat[:n])},
+            flat[n:], strict=False)
+
+
+def _export_native(model, img_shape, z_width: int, out_dir: str, platforms,
+                   batch: int, fns=_FN_NAMES):
+    """Trace each (function of ``fns``, platform) at ``batch`` with the C++
+    operators and compile the programs into AOTInductor packages in child
+    processes (``native/compile.py``, ``_compile_packages``).  Returns
+    (the manifest's ``native`` section, the compile seconds per
+    package)."""
+    import shutil
+    import tempfile
+
+    from cliffordtpu_torch.kernels import build as kbuild
+    from cliffordtpu_torch.kernels import native as knative
+
+    ops = knative.load(cuda="cuda" in platforms)
+    names = [n for n, _ in model.named_parameters()]
+    rng_spec = {"name": "rng", "shape": [2], "dtype": "uint32",
+                "program_dtype": "int64"}
+    x_spec = {"name": "x", "shape": [batch, *img_shape], "dtype": "float32"}
+    z_spec = {"name": "z", "shape": [batch, z_width], "dtype": "float32"}
+    args_of = {"encode_mu": [x_spec], "encode_z": [rng_spec, x_spec],
+               "decode": [z_spec]}
+    functions = {}
+    work = tempfile.mkdtemp(prefix="native-export-", dir=out_dir)
+    todo = []
+    try:
+        for plat in platforms:
+            device = torch.device(plat)
+            model.to(device)
+            weights = [p.detach() for _, p in model.named_parameters()]
+            for name in fns:
+                args = [torch.zeros([2], dtype=torch.int64, device=device)
+                        if a["name"] == "rng" else
+                        torch.zeros(a["shape"], device=device)
+                        for a in args_of[name]]
+                with knative.tracing(), torch.no_grad():
+                    program = torch.export.export(
+                        _NativeProgram(model, name, names),
+                        (*weights, *args), strict=False)
+                out_val = next(n for n in program.graph.nodes
+                               if n.op == "output").args[0][0].meta["val"]
+                package = f"{name}.native.{plat}.pt2"
+                entry = functions.setdefault(name, {
+                    "args": args_of[name],
+                    "out": _sd_json(list(out_val.shape),
+                                    str(out_val.dtype).split(".")[-1]),
+                    "packages": {}})
+                entry["packages"][plat] = package
+                ep_path = os.path.join(work, f"{name}.{plat}.ep.pt2")
+                program.example_inputs = None
+                torch.export.save(program, ep_path)
+                todo.append((package, ep_path))
+        compile_s = _compile_packages(todo, ops, out_dir, work,
+                                      kbuild.BUILD_DIR / "inductor")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    section = {
+        "batch": batch,
+        "platforms": list(platforms),
+        "ops": {"library": knative.LIBRARY, "abi": knative.ABI},
+        # the flat calling convention: these weights (param_layout's port
+        # names) in this order, then each function's "args"
+        "param_order": names,
+        "functions": functions,
+    }
+    return section, compile_s
+
+
+def _compile_packages(todo, ops: str, out_dir: str, work: str,
+                      cache_dir) -> Dict[str, float]:
+    """Compile each (package, exported program) with ``native/compile.py``:
+    one child a package, at most one a core at once (beyond that a child
+    compiles its share in turn); raises with the log of any that fails."""
+    import subprocess
+
+    jobs = max(1, min(len(todo), os.cpu_count() or 1))
+    env = dict(os.environ)
+    env["TORCHINDUCTOR_CACHE_DIR"] = str(cache_dir)
+    env.setdefault("TORCHINDUCTOR_COMPILE_THREADS",
+                   str(max(1, (os.cpu_count() or 1) // jobs)))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    children = []
+    for i in range(jobs):
+        args = [a for package, ep_path in todo[i::jobs]
+                for a in ("--program", ep_path,
+                          "--out", os.path.join(out_dir, package))]
+        log = open(os.path.join(work, f"compile{i}.log"), "w+")
+        children.append((subprocess.Popen(
+            [sys.executable, "-m", "cliffordtpu_torch.native.compile",
+             "--ops", ops, *args], stdout=log, stderr=subprocess.STDOUT,
+            env=env), log))
+    seconds, errors = {}, []
+    for proc, log in children:
+        proc.wait()
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if proc.returncode != 0:
+            errors.append(f"package compile failed (rc {proc.returncode}):"
+                          f"\n{text[-4000:]}")
+        else:
+            seconds.update(json.loads(text.strip().splitlines()[-1])[
+                "compile_s"])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
 
 
 # ---- load + run ----

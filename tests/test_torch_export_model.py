@@ -1,7 +1,7 @@
 """params.npz's storage modes byte for byte against cliffordtpu/serving.py
 (written by either package, read by the other), quantized bundles, the
-``export_model`` entry point (its layouts, data-parallel bundles and the
-``--native`` refusal), and ``encode_z`` through a
+``export_model`` entry point (its layouts, data-parallel bundles and
+``--native``'s manifest section), and ``encode_z`` through a
 bundle for the gaussian, powerspherical and vMF heads."""
 
 import json
@@ -181,12 +181,15 @@ def _narrow_vit(scan_layers=False, fused_proj=False, seed=0):
     ["--scan_layers"], ["--fused_proj", "--arch", "vit"],
     ["--data_parallel", "2"], ["--native"]])
 def test_unported_export_options_raise(flag, tmp_path, monkeypatch):
-    """Of the options that raised before, only ``--native`` (the JAX
-    package's PJRT host) still does.  ``--scan_layers`` exports a
-    layer-stacked ViT checkpoint; ``--fused_proj`` a split one, converted
-    to the fused layout on load; ``--data_parallel 2`` a bundle of two
-    replicas (run here as two CPU replicas).  Each bundle answers as the
-    checkpoint's model does."""
+    """None of the options that raised before raises now.
+    ``--scan_layers`` exports a layer-stacked ViT checkpoint;
+    ``--fused_proj`` a split one, converted to the fused layout on load;
+    ``--data_parallel 2`` a bundle of two replicas (run here as two CPU
+    replicas); ``--native`` adds the manifest's native section, its three
+    programs traced with the C++ operators and handed to the package
+    compile, which is recorded here instead of run (tests/
+    test_torch_native_serve.py compiles and serves a package).  Each
+    bundle answers as the checkpoint's model does."""
     from cliffordtpu_torch.scripts import eval_checkpoint
 
     vit = "--data_parallel" not in flag and "--native" not in flag
@@ -206,11 +209,25 @@ def test_unported_export_options_raise(flag, tmp_path, monkeypatch):
             "4" if vit else "5", "--device", "cpu", "--platforms", "cpu",
             "--img_size", "32" if vit else "28", "--outdir", str(out),
             *[f for f in flag if f not in ("--arch", "vit")]]
+    compiles = []
     if "--native" in flag:
-        with pytest.raises(NotImplementedError, match="pjrt_serve"):
-            export_model.main(argv)
-        return
+        monkeypatch.setattr(
+            serving, "_compile_packages",
+            lambda todo, *a: compiles.extend(p for p, _ in todo) or {
+                p: 0.0 for p, _ in todo})
     assert export_model.main(argv) == 0
+    if "--native" in flag:
+        with open(out / "manifest.json") as f:
+            nat = json.load(f)["native"]
+        assert nat["batch"] == 8 and nat["platforms"] == ["cpu"]
+        assert nat["param_order"] == [n for n, _ in model.named_parameters()]
+        assert sorted(compiles) == sorted(
+            f"{fn}.native.cpu.pt2" for fn in ("encode_mu", "encode_z",
+                                              "decode"))
+        assert {fn: f["packages"] for fn, f in nat["functions"].items()} \
+            == {fn: {"cpu": f"{fn}.native.cpu.pt2"}
+                for fn in ("encode_mu", "encode_z", "decode")}
+        assert nat["functions"]["encode_z"]["args"][1]["shape"] == [8, *IMG]
     dp = 2 if "--data_parallel" in flag else 1
     loaded = serving.load_serving(str(out), devices=["cpu"] * dp)
     assert loaded.manifest["data_parallel"] == dp
@@ -227,7 +244,8 @@ def test_unported_export_options_raise(flag, tmp_path, monkeypatch):
 
 def test_export_and_load_refuse_what_they_cannot_do(mlp_flat, f32_bundle,
                                                    tmp_path):
-    """native raises at export; data_parallel=2 is recorded (requests a
+    """native with data_parallel=2 raises at export, as JAX's does;
+    data_parallel=2 is recorded (requests a
     multiple of 2, ``encode_z`` taking the four-word rng), and its bundle
     without ``devices`` asks for two cards, which this host lacks; a
     bundle loaded on a device it has no programs for raises, and without
@@ -246,9 +264,9 @@ def test_export_and_load_refuse_what_they_cannot_do(mlp_flat, f32_bundle,
     with pytest.raises(ValueError, match="divisible"):
         serving.load_serving(dp_dir, devices=["cpu"] * 2).encode_mu(
             _images(IMG, 3, 1))
-    with pytest.raises(NotImplementedError, match="pjrt_serve"):
+    with pytest.raises(ValueError, match="data_parallel"):
         serving.export_serving(model, mlp_flat, IMG, native=True,
-                               platforms=("cpu",))
+                               data_parallel=2, platforms=("cpu",))
     with pytest.raises(ValueError, match="not for cuda"):
         serving.load_serving(str(f32_bundle), device="cuda")
     if not torch.cuda.is_available():
