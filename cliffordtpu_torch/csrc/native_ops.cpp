@@ -19,6 +19,16 @@
 //       kernels/ops.py::draw_latent: the key of flax's make_rng("sample")
 //       from the apply rng, then distributions/reparam.py::draw_flat for
 //       family 0 normal / gaussian, 1 powerspherical, 2 vmf, 3 clifford.
+//   cast(x, dtype)                       x.to(dtype) as a copy, the dtype an
+//       int (kernels/native.py::CAST_DTYPES).
+//   group_norm(x, groups, weight?, bias?, eps)   at::group_norm as eager
+//       calls it, its layout chosen at run time.
+// native/compile.py writes each cast and group norm of a low-precision
+// program as these calls: torch 2.11's proxy executor misreads the dtype
+// argument of aten::_to_copy; and the copy to a contiguous layout that
+// group_norm makes on CUDA depends on strides known only at run time
+// (cuDNN's convolutions answer in channels-last where tracing saw
+// contiguous tensors).
 //
 // The draws are the Python ones written out op for op in ATen, so on one
 // device they give the same numbers; the threefry and Philox words are
@@ -36,6 +46,7 @@
 #include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <iterator>
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -712,6 +723,24 @@ Tensor attention_fwd_cuda(const Tensor& q_in, const Tensor& k_in,
 }
 #endif
 
+// ---- casts and group norms (any device, Meta included) ----
+
+// kernels/native.py::CAST_DTYPES, in this order
+const at::ScalarType kCastDtypes[] = {at::kFloat, at::kBFloat16, at::kHalf};
+
+Tensor cast_op(const Tensor& x, int64_t dtype) {
+  TORCH_CHECK(dtype >= 0 && dtype < int64_t(std::size(kCastDtypes)),
+              "cliffordtpu_native::cast: unknown dtype code ", dtype);
+  return x.to(kCastDtypes[dtype], /*non_blocking=*/false, /*copy=*/true);
+}
+
+Tensor group_norm_op(const Tensor& x, int64_t groups,
+                     const c10::optional<Tensor>& weight,
+                     const c10::optional<Tensor>& bias, double eps) {
+  return at::group_norm(x, groups, weight, bias, eps,
+                        at::globalContext().userEnabledCuDNN());
+}
+
 // ---- shapes for tracing (Meta) ----
 
 Tensor attention_fwd_meta(const Tensor& q, const Tensor&, const Tensor&,
@@ -739,7 +768,7 @@ std::tuple<Tensor, Tensor, Tensor, Tensor> sample_embed_meta(
 }  // namespace
 
 // the ABI of the operators' schemas, which a bundle's manifest records
-extern "C" int64_t cliffordtpu_native_abi() { return 1; }
+extern "C" int64_t cliffordtpu_native_abi() { return 2; }
 
 // the kernels whose launches are counted, in the order of the counts
 extern "C" const char* cliffordtpu_native_kernels() {
@@ -769,6 +798,14 @@ TORCH_LIBRARY(cliffordtpu_native, m) {
         "int l2_normalize, int route, float scale) -> Tensor");
   m.def("sample_embed(Tensor key, Tensor loc, Tensor kappa, int route) -> "
         "(Tensor, Tensor, Tensor, Tensor)");
+  m.def("cast(Tensor x, int dtype) -> Tensor");
+  m.def("group_norm(Tensor x, int groups, Tensor? weight, Tensor? bias, "
+        "float eps) -> Tensor");
+}
+
+TORCH_LIBRARY_IMPL(cliffordtpu_native, CompositeExplicitAutograd, m) {
+  m.impl("cast", cast_op);
+  m.impl("group_norm", group_norm_op);
 }
 
 TORCH_LIBRARY_IMPL(cliffordtpu_native, CPU, m) {

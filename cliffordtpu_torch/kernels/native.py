@@ -1,7 +1,8 @@
 """The C++ operators of the Python-free serving path, from Python.
 
 ``csrc/native_ops.cpp`` registers ``torch.ops.cliffordtpu_native.*``
-(``attention_fwd``, ``sample_embed``, ``draw_latent``) through
+(``attention_fwd``, ``sample_embed``, ``draw_latent``; ``cast`` and
+``group_norm`` for ``native/compile.py::eager_calls``) through
 ``TORCH_LIBRARY``; ``build.build_native_ops`` builds it.  ``load(cuda)``
 builds and loads it into this process once: the CUDA variant launches
 kernels A, F, E and C and counts them inside the library
@@ -29,10 +30,12 @@ import torch
 from cliffordtpu_torch.kernels import build
 
 LIBRARY = "cliffordtpu_native"
-ABI = 1  # csrc/native_ops.cpp::cliffordtpu_native_abi
+ABI = 2  # csrc/native_ops.cpp::cliffordtpu_native_abi
 FAMILIES = {"normal": 0, "gaussian": 0, "powerspherical": 1, "vmf": 2,
             "clifford": 3}
 ROUTES = {"keyed": 0, "unfused": 1, "rng": 2}
+# the dtype codes of ``cliffordtpu_native::cast`` (csrc/native_ops.cpp)
+CAST_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 NO_ROUTE = -1
 
 _lock = threading.Lock()

@@ -12,12 +12,24 @@ process's warm Inductor state.  Each compile's example inputs are zeros
 of its program's input shapes.  TF32 is off for cuBLAS and cuDNN, as
 every float32 bar of the port assumes.
 
-A program that computes in bfloat16 (or float16) compiles with
-Inductor's ``emulate_precision_casts``: its fused kernels round to the
-low precision where eager rounds after each op, instead of carrying
-float32 from op to op.  What is left between such a package and eager
-(Inductor's own reductions and math functions) is measured by
-``scripts/torch_native_bf16_parity.py``.
+A program that computes in bfloat16 (or float16) compiles as eager runs
+it (``eager_calls``, Inductor's lite mode without its channels-last
+rewrite): every op a call of its ATen kernel, nothing fused, so the
+package answers as eager ``Serving`` does, bit for bit on the CPU and on
+the card.  Its graph is decomposed only where eager decomposes (the
+CompositeImplicit ops, such as ``conv2d`` into ``convolution``).  Some
+calls are written otherwise, for torch 2.11's proxy executor, which runs
+the ATen calls that have no C shim: a cast is the operator library's
+``cast`` (the executor misreads a dtype argument); a group norm its
+``group_norm`` (``at::group_norm`` itself, whose copy to a contiguous
+layout depends on strides known only at run time, while a traced graph
+fixes it); an int Scalar argument a float (the executor does not read
+int Scalars).
+Fused kernels part from eager wherever they round, reduce or evaluate a
+math function otherwise, and in bfloat16 one such step of an angle moves
+a latent by more than ``EXPORT_BF16_BAR``
+(``scripts/torch_native_bf16_parity.py`` measures each mode).  A float32
+program compiles with Inductor's defaults.
 
 Inductor builds a package with ``$CXX`` (default ``g++``) and
 ``-fopenmp -lgomp``.  Where that compiler has no OpenMP runtime
@@ -25,13 +37,13 @@ Inductor builds a package with ``$CXX`` (default ``g++``) and
 and so no OpenMP, is built through a wrapper that drops those two flags,
 and a CPU program fails to compile.  A CUDA program compiles without
 AOTInductor's precompiled header and without its probe of the host's
-vector ISA.  Prints one JSON line with each
-package's compile seconds.
+vector ISA.  Prints one JSON line with each package's compile seconds.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -53,6 +65,7 @@ def _takes_openmp(cxx: str) -> bool:
         return False
 
 
+@functools.lru_cache(maxsize=None)
 def openmp_cxx():
     """(compiler, whether it takes ``-fopenmp``): ``$CXX`` or ``g++``."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
@@ -84,6 +97,100 @@ def low_precision(program) -> bool:
                for n in program.graph.nodes)
 
 
+def _int_scalars_as_floats(program) -> None:
+    """Each int Scalar argument (given or by default) of an op with a
+    floating output, written as a float of the same value: AOTInductor
+    passes int Scalars of a proxy-executor call at run time and the
+    executor does not consume them."""
+    for node in program.graph.nodes:
+        val = node.meta.get("val")
+        if (node.op != "call_function"
+                or not isinstance(node.target, torch._ops.OpOverload)
+                or not isinstance(val, torch.Tensor)
+                or not val.dtype.is_floating_point):
+            continue
+        args, kwargs = list(node.args), dict(node.kwargs)
+        for i, arg in enumerate(node.target._schema.arguments):
+            if not isinstance(arg.type, torch.NumberType):
+                continue
+            if i < len(args):
+                if type(args[i]) is int:
+                    args[i] = float(args[i])
+            elif arg.name in kwargs:
+                if type(kwargs[arg.name]) is int:
+                    kwargs[arg.name] = float(kwargs[arg.name])
+            elif arg.has_default_value() and type(arg.default_value) is int:
+                kwargs[arg.name] = float(arg.default_value)
+        node.args, node.kwargs = tuple(args), kwargs
+
+
+def _replace(graph, node, target, args) -> None:
+    with graph.inserting_before(node):
+        call = graph.call_function(target, tuple(args))
+    call.meta = dict(node.meta)
+    node.replace_all_uses_with(call)
+    graph.erase_node(node)
+
+
+def eager_calls(program):
+    """The program as eager runs it, for Inductor's lite mode: each group
+    norm a call of the operator library's ``group_norm`` (``at::group_norm``,
+    which picks its layout at run time), then only the CompositeImplicit
+    ops decomposed (by their own ATen implementation, as eager dispatches
+    them: a linear layer into ``addmm``), export's
+    ``_assert_tensor_metadata`` checks dropped, each cast a call of the library's ``cast`` (torch 2.11's proxy
+    executor misreads the dtype argument of ``_to_copy``), int Scalars as
+    floats (``_int_scalars_as_floats``).  Keeps the example inputs; needs
+    the operator library loaded."""
+    from cliffordtpu_torch.kernels.native import CAST_DTYPES
+
+    native = torch.ops.cliffordtpu_native
+    example = getattr(program, "example_inputs", None)
+    for node in list(program.graph.nodes):
+        if node.target is torch.ops.aten.group_norm.default:
+            # the library's group_norm takes the first five of its arguments
+            schema = node.target._schema.arguments
+            given = {a.name: v for a, v in zip(schema, node.args)}
+            given.update(node.kwargs)
+            _replace(program.graph, node, native.group_norm.default,
+                     [given.get(a.name, a.default_value) for a in schema[:5]])
+    program.graph_module.recompile()
+    table = torch.export.default_decompositions()
+    for op in list(table.keys()):
+        if not torch._C._dispatch_has_kernel_for_dispatch_key(
+                op.name(), "CompositeImplicitAutograd"):
+            del table[op]
+    program = program.run_decompositions(table)
+    graph = program.graph
+    for node in list(graph.nodes):
+        if node.target is torch.ops.aten._assert_tensor_metadata.default:
+            graph.erase_node(node)
+        elif node.target is torch.ops.aten._to_copy.default:
+            if set(node.kwargs) != {"dtype"} or (
+                    node.kwargs["dtype"] not in CAST_DTYPES):
+                raise ValueError(f"eager_calls: no cast operator for "
+                                 f"{node.format_node()}")
+            _replace(graph, node, native.cast.default,
+                     (node.args[0], CAST_DTYPES[node.kwargs["dtype"]]))
+    _int_scalars_as_floats(program)
+    program.graph_module.recompile()
+    program.example_inputs = example
+    return program
+
+
+def inductor_configs(lowp: bool) -> dict:
+    """Inductor's configs for a program: the defaults, or for one that
+    computes in low precision lite mode with eager's layouts (no
+    channels-last rewrite around the convolutions).  Such a package has no
+    generated kernel, only the wrapper's calls: no probe of the host's
+    vector ISA, and the wrapper built at -O0 (a third less compile)."""
+    if not lowp:
+        return {}
+    return {**torch._inductor.lite_mode_options, "layout_optimization": False,
+            "cpp.vec_isa_ok": False,
+            "aot_inductor.compile_wrapper_opt_level": "O0"}
+
+
 def _load(path: str):
     """The exported program at ``path`` with zeros as example inputs (the
     saved program holds none: they would be the weights); whether it runs
@@ -99,6 +206,40 @@ def _load(path: str):
             low_precision(program))
 
 
+def init_process(ops: str) -> None:
+    """What every compile process sets first: TF32 off, one launch
+    configuration a pointwise kernel (fewer Triton compiles), the operator
+    library loaded."""
+    import torch._inductor.config as inductor_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inductor_config.triton.autotune_pointwise = False
+    torch.ops.load_library(ops)
+
+
+def compile_package(program, out: str, cuda: bool, configs: dict,
+                    work: str) -> float:
+    """Compile ``program`` into the package ``out`` with Inductor's
+    ``configs``; returns the seconds."""
+    import torch._inductor.config as inductor_config
+
+    cxx, openmp = openmp_cxx()
+    # a CUDA program has no CPU kernel: no precompiled AOTI header (~100 s
+    # of g++ with the CUDA headers) and no probe of the host's vector ISA
+    # (test builds, each dlopened by a Python child), both paid by every
+    # compile process
+    inductor_config.aot_inductor.precompile_headers = not cuda
+    inductor_config.cpp.vec_isa_ok = False if cuda else None
+    inductor_config.cpp.cxx = (
+        (None, _without_openmp(cxx, work)) if cuda and not openmp
+        else (None, cxx))
+    t0 = time.perf_counter()
+    torch._inductor.aoti_compile_and_package(
+        program, package_path=out, inductor_configs=configs)
+    return time.perf_counter() - t0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--ops", required=True)
@@ -107,34 +248,16 @@ def main(argv=None) -> int:
     a = parser.parse_args(argv)
     if len(a.program) != len(a.out):
         parser.error("give one --out for each --program")
-    import torch._inductor.config as inductor_config
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # one launch configuration a pointwise kernel: fewer Triton compiles
-    inductor_config.triton.autotune_pointwise = False
-    torch.ops.load_library(a.ops)
-    cxx, openmp = openmp_cxx()
+    init_process(a.ops)
     seconds = {}
     with tempfile.TemporaryDirectory() as work:
         for path, out in zip(a.program, a.out):
             program, cuda, lowp = _load(path)
-            # a CUDA program has no CPU kernel: no precompiled AOTI header
-            # (~100 s of g++ with the CUDA headers) and no probe of the
-            # host's vector ISA (test builds, each dlopened by a Python
-            # child), both paid by every compile process
-            inductor_config.aot_inductor.precompile_headers = not cuda
-            inductor_config.cpp.vec_isa_ok = False if cuda else None
-            inductor_config.cpp.cxx = (
-                (None, _without_openmp(cxx, work)) if cuda and not openmp
-                else (None, cxx))
-            t0 = time.perf_counter()
-            torch._inductor.aoti_compile_and_package(
-                program, package_path=out,
-                inductor_configs={"emulate_precision_casts": lowp})
-            seconds[os.path.basename(out)] = time.perf_counter() - t0
-    print(json.dumps({"compile_s": seconds, "cxx_openmp": openmp}),
-          flush=True)
+            seconds[os.path.basename(out)] = compile_package(
+                eager_calls(program) if lowp else program, out, cuda,
+                inductor_configs(lowp), work)
+    print(json.dumps({"compile_s": seconds,
+                      "cxx_openmp": openmp_cxx()[1]}), flush=True)
     return 0
 
 

@@ -251,29 +251,64 @@ def test_native_export_refuses_data_parallel():
                                native=True, native_platforms=("cpu",))
 
 
-class _CastLinear(torch.nn.Module):
-    """A float32 linear layer computed in ``dtype``, cast as the models
-    cast (``.to`` on the input and the weights)."""
+class _CastNorm(torch.nn.Module):
+    """A float32 linear layer, group norm, silu and softplus computed in
+    ``dtype``, cast as the models cast (``.to`` on the input and the
+    weights)."""
 
     def __init__(self, dtype):
         super().__init__()
-        self.lin = torch.nn.Linear(8, 3)
+        self.lin = torch.nn.Linear(8, 4)
+        self.norm = torch.nn.GroupNorm(2, 4, eps=1e-6)
         self.dtype = dtype
 
     def forward(self, x):
-        return torch.nn.functional.linear(
+        h = torch.nn.functional.linear(
             x.to(self.dtype), self.lin.weight.to(self.dtype),
-            self.lin.bias.to(self.dtype)).float()
+            self.lin.bias.to(self.dtype))
+        h = torch.nn.functional.group_norm(
+            h.float()[..., None], 2, self.norm.weight, self.norm.bias, 1e-6)
+        return torch.nn.functional.softplus(
+            torch.nn.functional.silu(h.to(self.dtype))).float()
 
 
-def test_low_precision_programs_compile_emulating_eager_casts():
-    """native/compile.py compiles a program that computes in bfloat16 with
-    ``emulate_precision_casts`` (rounding where eager rounds) and a float32
-    program as Inductor's default: it tells them apart by their values'
+def test_low_precision_programs_compile_as_eager_calls():
+    """native/compile.py compiles a program that computes in bfloat16 or
+    float16 in Inductor's lite mode without its layout rewrite, prepared
+    by ``eager_calls``: casts and group norms as the operator library's
+    ``cast`` and ``group_norm``, linear layers as eager decomposes them
+    (``addmm``), silu kept whole, its int Scalars as floats, no metadata asserts; the prepared
+    program answers as the exported one bit for bit.  A float32 program
+    compiles as Inductor's default.  It tells them apart by their values'
     dtypes, the casts of the models included."""
     from cliffordtpu_torch.native import compile as ncompile
 
+    native.load(False)
     x = torch.randn(5, 8)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        program = torch.export.export(_CastLinear(dtype), (x,))
-        assert ncompile.low_precision(program) == (dtype != torch.float32)
+        model = _CastNorm(dtype)
+        program = torch.export.export(model, (x,))
+        lowp = ncompile.low_precision(program)
+        assert lowp == (dtype != torch.float32)
+        configs = ncompile.inductor_configs(lowp)
+        if not lowp:
+            assert configs == {}
+            continue
+        assert configs["fallback_by_default"]
+        assert configs["layout_optimization"] is False
+        prepared = ncompile.eager_calls(program)
+        calls = [n for n in prepared.graph.nodes if n.op == "call_function"]
+        ops = {str(n.target) for n in calls}
+        assert {"cliffordtpu_native.cast.default",
+                "cliffordtpu_native.group_norm.default",
+                "aten.addmm.default", "aten.silu.default"} <= ops, ops
+        assert not ops & {"aten._to_copy.default", "aten.linear.default",
+                          "aten.group_norm.default",
+                          "aten.native_group_norm.default",
+                          "aten._assert_tensor_metadata.default"}, ops
+        softplus = next(n for n in calls
+                        if n.target is torch.ops.aten.softplus.default)
+        assert softplus.kwargs == {"beta": 1.0, "threshold": 20.0}
+        assert all(type(v) is float for v in softplus.kwargs.values())
+        with torch.no_grad():
+            assert torch.equal(prepared.module()(x), model(x))

@@ -89,6 +89,8 @@ def test_the_new_modules_and_scripts_are_covered():
                  "scripts/torch_profile_train.py",
                  "scripts/torch_profile_serving.py",
                  "scripts/torch_trial_lanes.py",
+                 "scripts/torch_native_bf16_parity.py",
+                 "cliffordtpu_torch/native/compile.py",
                  "cliffordtpu_torch/distributions/normal.py",
                  "cliffordtpu_torch/distributions/gamma.py",
                  "cliffordtpu_torch/distributions/bessel.py",
