@@ -20,7 +20,8 @@ Phases, each printing one JSON line and each fatal when it fails:
             and the torus backward at the MNIST MLP's R 128, d 5, 40 and
             256), with the form that
             ran (attention forward and backward: "mma" or "simt"; torus
-            forward and Philox sampler: "fft" or "table"), its device time
+            forward and backward, both samplers: "fft" or "table"), its
+            device time
             (CUDA events, median after warm-up; see ``cuda_ms``), the plain
             version's, the library's where it computes the same function
             (attention: ``scaled_dot_product_attention``; torus forward and
@@ -211,7 +212,8 @@ then the ``sweep`` and ``figures`` phases (``sweep_phase``,
             compute, cnn4096 by each sampler route and with the gaussian
             and powerspherical heads, the vMF ``MLPVAE`` at z_dim 41)
             exported with ``native=True`` at batch 64 by parallel child
-            processes (AOTInductor packages); each function answered by
+            processes (AOTInductor packages), each bundle served as soon
+            as its child is done; each function answered by
             the host binary as a subprocess with no Python in it, held
             against in-process ``Serving`` (``EXPORT_BAR``; a bfloat16
             package, compiled as eager runs it, against bfloat16
@@ -227,7 +229,9 @@ then the ``sweep`` and ``figures`` phases (``sweep_phase``,
             stream at batch 256 through the C++ batcher against the numpy
             path, keyed and not; ms per epoch of both;
 
-then the table of all six kernels as one JSON line (the attention kernels
+then the run's seconds (``seconds``: the total, and each phase's wall
+time since the one before, the six longest first), the table of all six
+kernels as one JSON line (the attention kernels
 also on the heads' path and at image 256; the keyed sampler and the torus
 backward also at the MNIST shapes and at the hybrid's, R 16384 rows of d
 256; the torus forward and the keyed sampler at cifar_fid4096's, R 256 and
@@ -521,11 +525,22 @@ def sampler_bwd_fft(torus, theta, u, v, kappa, g):
         [zero, dth * torus.dtheta_dkappa(u, v, kap[:, 1:])], 1))
 
 
+def torus_form(torus, kernel, d):
+    """The form a torus-family kernel takes at d (``torus.form``); in a
+    checkout from before that function (``scripts/torch_kernel_times.py
+    --root``) the forward and the Philox sampler took ``fwd_form``'s, the
+    torus backward and the keyed sampler the table form."""
+    if hasattr(torus, "form"):
+        return torus.form(d)
+    return torus.fwd_form(d) if kernel in ("torus_fwd", "sampler_rng") \
+        else "table"
+
+
 def torus_bound_ms(nbytes, R, d):
     """(bound ms, what binds, the dense form's bound ms) of a kernel that
     embeds R rows of d angles or differentiates that embedding.  The
     function is a real FFT of length n = 2d per row (about 2.5 n log2 n
-    operations), so it is bound by its bytes; the kernels here compute it
+    operations), so it is bound by its bytes; the table forms compute it
     as a dense product, two float32 multiply-adds per (row, angle, column),
     whose operation bound is reported beside it."""
     b_ms, b_by = bound_ms(nbytes, 2.5 * R * 2 * d * math.log2(2 * d),
@@ -567,9 +582,8 @@ def torus_fwd_case(torus, ops_torus, R, d, gen):
     check(fft_err <= 1e-5, f"torus_fwd_fft R={R} d={d}: err {fft_err}")
     # theta read, x written
     b_ms, b_by, dense = torus_bound_ms(4 * (theta.numel() + R * 2 * d), R, d)
-    # a checkout from before the FFT form had the table form only
-    form = getattr(torus, "fwd_form", lambda d_: "table")(d)
-    return dict(R=R, d=d, form=form, max_abs_err=err,
+    return dict(R=R, d=d, form=torus_form(torus, "torus_fwd", d),
+                max_abs_err=err,
                 ms=cuda_ms(lambda: torus.torus_fwd(theta)),
                 plain_ms=cuda_ms(lambda: torus.torus_fwd_plain(theta),
                                  reps=5),
@@ -635,7 +649,8 @@ def torus_bwd_case(torus, sampler, ops_torus, R, d, epilogue, gen):
                 f"autograd of {fused.__name__} differs from sampler_bwd")
     del got, want, by_fft
     b_ms, b_by, dense = torus_bound_ms(nbytes, R, d)
-    return dict(R=R, d=d, epilogue=epilogue, form="table",
+    return dict(R=R, d=d, epilogue=epilogue,
+                form=torus_form(torus, "torus_bwd", d),
                 max_abs_err=max(errs.values()), errors=errs, ms=cuda_ms(run),
                 plain_ms=cuda_ms(run_plain, reps=5),
                 matmul_ms=matmul_yardstick_ms(ops_torus, theta, g),
@@ -685,13 +700,10 @@ def sampler_case(sampler, route, R, d, per_row_kappa, gen, row0=0):
     nbytes = 4 * (loc.numel() + kappa.numel() + R * 2 * d + 3 * R * (d - 1))
     # the draws are a few hundred operations per angle, below the bytes too
     b_ms, b_by, dense = torus_bound_ms(nbytes, R, d)
-    # the keyed kernel, and a checkout from before the FFT form, have the
-    # table form only
-    form = getattr(sampler, "rng_form", lambda d_: "table")(d) \
-        if route == "rng" else "table"
     return dict(
         route=route, R=R, d=d, row0=row0, per_row_kappa=per_row_kappa,
-        form=form, max_abs_err=errs["x"], errors=errs,
+        form=torus_form(sampler.torus, f"sampler_{route}", d),
+        max_abs_err=errs["x"], errors=errs,
         ms=cuda_ms(lambda: fused(key, loc, kappa, **kw)),
         plain_ms=cuda_ms(lambda: plain(key, loc, kappa, **kw), reps=5),
         library_ms=None, bound_ms=b_ms, bound_by=b_by, dense_bound_ms=dense)
@@ -3359,6 +3371,7 @@ def export_phase(mods, root, work):
 
 
 HOST_BATCH = 64  # the native programs' fixed batch
+HOST_EXPORT_TIMEOUT = 900  # seconds for all of the phase's export children
 HOST_BENCH = 20  # timed requests of the host per function, after warm-up
 HOST_WARMUP = 3
 HOST_RNG = (0, 7)  # the apply rng of every encode_z request
@@ -3537,12 +3550,39 @@ def host_libpython(path):
             if "libpython" in line]
 
 
-def native_phase(mods, root, work):
+def native_builds(kbuild, nbuild):
+    """Start building the native phase's operator library and C++ host
+    (``nvcc`` and ``g++`` child processes, waited for on two threads), so
+    that they build while the card runs earlier phases.  Returns a function
+    that waits for both and gives (host, library, the seconds until the
+    later of them was built)."""
+    import concurrent.futures
+
+    t0 = time.perf_counter()
+
+    def timed(build):
+        return build(True), time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    host_f = pool.submit(timed, nbuild.build_host)
+    lib_f = pool.submit(timed, kbuild.build_native_ops)
+    pool.shutdown(wait=False)
+
+    def wait():
+        (host, host_s), (lib, lib_s) = host_f.result(), lib_f.result()
+        return host, lib, max(host_s, lib_s)
+    return wait
+
+
+def native_phase(mods, root, work, bundles, built):
     """The Python-free serving path on the card: the operator library and
-    the host built from the checkout at once; each operator's CUDA impl
-    against its CPU impl; the ``HOST_EXPORTS`` bundles exported with
+    the host built from the checkout (``built``: ``native_builds``'
+    waiting function); each operator's CUDA impl
+    against its CPU impl; the ``bundles`` (label -> functions, as
+    ``HOST_EXPORTS``) exported with
     ``native=True`` (AOTInductor packages at batch ``HOST_BATCH``) in
-    parallel child processes; every function answered by the host binary
+    parallel child processes, each bundle served as soon as its child is
+    done; every function answered by the host binary
     as a subprocess (no Python in it) and held against in-process
     ``Serving`` on the bundle's weights (``EXPORT_BAR``; a bfloat16
     package within ``EXPORT_BF16_BAR`` and ``HOST_BF16_EAGER_BAR`` of
@@ -3552,17 +3592,9 @@ def native_phase(mods, root, work):
     the host (``HOST_LAUNCHES``); the host's p50 ms beside
     ``LoadedServing``'s and ``Serving``'s.  Returns the host's launches by
     label and the operators' device times (``native_op_checks``)."""
-    (serving, vit_vae, conv_vae, mlp_vae, trandom, rope, kbuild, nbuild,
-     knative) = mods
-    import concurrent.futures
-
+    (serving, vit_vae, conv_vae, mlp_vae, trandom, rope, knative) = mods
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        host_f = pool.submit(nbuild.build_host, True)
-        lib = kbuild.build_native_ops(True)
-        host = host_f.result()
-    build_s = time.perf_counter() - t0
+    host, lib, build_s = built()
     check(not host_libpython(host) and not host_libpython(lib),
           f"native: the host or the operator library links libpython: "
           f"{host_libpython(host) + host_libpython(lib)}")
@@ -3577,7 +3609,7 @@ def native_phase(mods, root, work):
     def start(label):
         spec = os.path.join(work, f"{label}.json")
         with open(spec, "w") as f:
-            json.dump({"label": label, "fns": list(HOST_EXPORTS[label]),
+            json.dump({"label": label, "fns": list(bundles[label]),
                        "out": os.path.join(work, label)}, f)
         log = open(os.path.join(work, f"{label}.log"), "w+")
         return subprocess.Popen(
@@ -3587,7 +3619,6 @@ def native_phase(mods, root, work):
 
     def finish(label, child):
         proc, log = child
-        proc.wait(timeout=900)
         log.seek(0)
         text = log.read()
         log.close()
@@ -3598,12 +3629,9 @@ def native_phase(mods, root, work):
     # every bundle at once; the operators run on the card meanwhile
     t0 = time.perf_counter()
     exports = {}
-    children = {label: start(label) for label in HOST_EXPORTS}
+    children = {label: start(label) for label in bundles}
     gen = torch.Generator(device=DEVICE).manual_seed(HOST_SEED)
     op_errs, op_ms = native_op_checks(knative, rope, gen)
-    for label, child in children.items():
-        finish(label, child)
-    export_wall_s = time.perf_counter() - t0
 
     images = {img: np.asarray(torch.rand(
         HOST_BATCH, *img, generator=gen, device=DEVICE).cpu(), np.float32)
@@ -3616,7 +3644,8 @@ def native_phase(mods, root, work):
     runs, errs, errs_f32, host_ms, loaded_ms, served_ms, launches = (
         {}, {}, {}, {}, {}, {}, {})
     bit_equal = {}  # a bfloat16 package's answer equals bfloat16 Serving's
-    for label, fns in HOST_EXPORTS.items():
+
+    def serve(label, fns):
         d = os.path.join(work, label)
         x = images[host_img(label)]
         x_path = os.path.join(work, f"{label}.x.npy")
@@ -3695,6 +3724,29 @@ def native_phase(mods, root, work):
                 lambda: calls[fn][0](srv), DEVICE)
             loaded_ms[f"{label}/{fn}"] = request_ms(calls[fn][1], DEVICE)
         del srv, ref, ld
+
+    # each bundle served as soon as its child is done, while the others
+    # still compile (its host times share the CPU with those compiles)
+    export_wall_s, pending = None, dict(children)
+    try:
+        while pending:
+            done = [label for label, (proc, _) in pending.items()
+                    if proc.poll() is not None]
+            check(done or time.perf_counter() - t0 <= HOST_EXPORT_TIMEOUT,
+                  f"native export {sorted(pending)}: over "
+                  f"{HOST_EXPORT_TIMEOUT} s")
+            if not done:
+                time.sleep(0.2)
+            for label in done:
+                finish(label, pending.pop(label))
+                if not pending:
+                    export_wall_s = time.perf_counter() - t0
+                serve(label, bundles[label])
+    finally:
+        for proc, log in pending.values():
+            proc.kill()
+            proc.wait()
+            log.close()
     torch.cuda.empty_cache()
     emit("native", batch=HOST_BATCH, bench=HOST_BENCH, warmup=HOST_WARMUP,
          bar=EXPORT_BAR, bf16_bar=EXPORT_BF16_BAR,
@@ -4265,10 +4317,10 @@ def dp_bundle_phase(kmods, mods, work):
 def parallel_runner_runs(root, work):
     """(d): ``fashion_train`` at latent 4096 on the digit shard, one epoch,
     without ``--mesh``, with ``--mesh dp`` and with ``--mesh dp
-    --mesh_mode fsdp`` (a world of 1, no launcher; three processes side by
-    side), best losses within ``PARALLEL_WORLD1_BAR``; then ``--arch vit
-    --fused_proj --scan_layers`` with ``--eval_subprocess``, whose child
-    reads the stacked, fused checkpoint."""
+    --mesh_mode fsdp`` (a world of 1, no launcher), best losses within
+    ``PARALLEL_WORLD1_BAR``; beside them ``--arch vit --fused_proj
+    --scan_layers`` with ``--eval_subprocess``, whose child reads the
+    stacked, fused checkpoint: four processes side by side."""
     env = dict(os.environ, CLIFFORDTPU_DATA_DIR=os.path.join(
         root, "tests", "data"))
     light = ["--vsa_trials", "1", "--fid_samples", "256"]
@@ -4276,19 +4328,25 @@ def parallel_runner_runs(root, work):
             "fsdp": ["--mesh", "dp", "--mesh_mode", "fsdp"]}
 
     def start(name, argv):
+        """(outdir, log, process): the log a file, so that no child waits
+        on a full pipe while another is read."""
         outdir = os.path.join(work, f"runner_{name}")
-        return outdir, subprocess.Popen(
+        log = open(f"{outdir}.log", "w+")
+        return outdir, log, subprocess.Popen(
             [sys.executable, "-m", "cliffordtpu_torch.scripts.fashion_train",
-             *argv, "--outdir", outdir], cwd=root, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             *argv, "--outdir", outdir], cwd=root, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
 
-    def finish(name, outdir, proc):
+    def finish(name, outdir, log, proc):
         try:
-            text = proc.communicate(timeout=PARALLEL_CHILD_TIMEOUT)[0]
+            proc.wait(timeout=PARALLEL_CHILD_TIMEOUT)
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            log.seek(0)
+            text = log.read()
+            log.close()
         check(proc.returncode == 0, f"runner {name} exited "
                                     f"{proc.returncode}: {text[-2000:]}")
         check("subprocess eval failed" not in text
@@ -4304,31 +4362,36 @@ def parallel_runner_runs(root, work):
     t0 = time.perf_counter()
     started = {name: start(name, runner_argv("fashion", 1, *light, *extra))
                for name, extra in runs.items()}
-    for name, (outdir, proc) in started.items():
-        metrics, text = finish(name, outdir, proc)
-        best[name] = metrics["final_best_total_loss"]
-        check("mesh:" in text if name != "plain" else True,
-              f"runner {name}: no mesh line")
-    wall["cnn_runs_s"] = time.perf_counter() - t0
+    # the ViT arm beside them: four processes on the card at once
+    started["vit"] = start("vit", arm_argv("vit", os.path.join(
+        work, "runner_vit"))[:-2] + [
+        "--fused_proj", "--scan_layers", "--eval_subprocess", *light])
+    metrics = {}
+    try:
+        for name, child in started.items():
+            metrics[name], text = finish(name, *child)
+            best[name] = metrics[name]["final_best_total_loss"]
+            check("mesh:" in text if name in ("dp", "fsdp") else True,
+                  f"runner {name}: no mesh line")
+    finally:
+        for _, log, proc in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall["runs_s"] = time.perf_counter() - t0
     rel = {name: abs(best[name] - best["plain"]) / abs(best["plain"])
            for name in ("dp", "fsdp")}
     for name, r in rel.items():
         check(r <= PARALLEL_WORLD1_BAR, f"runner --mesh {name}: best loss "
                                         f"{best[name]} vs {best['plain']}: "
                                         f"{r}")
-    t0 = time.perf_counter()
-    vit_dir, proc = start("vit", arm_argv("vit", os.path.join(
-        work, "runner_vit"))[:-2] + [
-        "--fused_proj", "--scan_layers", "--eval_subprocess", *light])
-    vit_dir = os.path.join(work, "runner_vit")
-    metrics, _ = finish("vit", vit_dir, proc)
-    check(math.isfinite(metrics["final_best_total_loss"])
-          and "knn_acc_100" in metrics,
-          f"runner vit fused scan: the child wrote no battery: {metrics}")
-    wall["vit_run_s"] = time.perf_counter() - t0
+    check(math.isfinite(best["vit"]) and "knn_acc_100" in metrics["vit"],
+          f"runner vit fused scan: the child wrote no battery: "
+          f"{metrics['vit']}")
+    vit_best = best.pop("vit")
     emit("parallel_runner", best_loss=best, rel=rel,
-         bar=PARALLEL_WORLD1_BAR, vit_best_loss=metrics[
-             "final_best_total_loss"], wall_s=wall)
+         bar=PARALLEL_WORLD1_BAR, vit_best_loss=vit_best, wall_s=wall)
 
 
 def parallel_phase(kmods, mods, root, work, images):
@@ -4489,6 +4552,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    clock = [time.perf_counter()]
+    start, phase_s = clock[0], {}
+
+    def lap(name):
+        """The wall seconds since the last lap, as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4503,8 +4575,13 @@ def main() -> int:
          sources=build.sources())
     for name in build.sources():
         log = build.build_log(name)
-        emit("ptxas", source=name, report=[line.strip() for line in log
-                                           if "ptxas info" in line])
+        # each kernel's registers, stack frame and spill stores and loads
+        emit("ptxas", source=name, report=[
+            line.strip() for line in log
+            if "ptxas info" in line or "bytes stack frame" in line])
+    # the native phase's operator library and host build meanwhile
+    native_built = native_builds(build, nbuild)
+    lap("build")
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     att = {}
@@ -4639,6 +4716,7 @@ def main() -> int:
                                 ("bfloat16", torch.bfloat16))}}
     for (name, tag), case in par_cases.items():
         emit("kernel", kernel=name, shape="parallel", **case)
+    lap("kernels")
 
     kmods = (attention, sampler, torus)
     images = torch.rand(BATCH, 32, 32, 1, generator=gen, device=DEVICE) * 2 - 1
@@ -4654,6 +4732,7 @@ def main() -> int:
              first_ms={k: v[0] for k, v in lat.items()})
     serve_check(kmods, ops_torus, "serve", *runs["float32"][:2],
                 runs["bfloat16"][1], FLAGSHIP_REQUESTS, images)
+    lap("serve")
 
     trained = {}
     for label, dtype in (("float32", torch.float32),
@@ -4677,6 +4756,7 @@ def main() -> int:
                 lambda dtype: flagship(vit_vae, dtype), images, "train")
     runs = {k: v[2] for k, v in runs.items()}  # keep the counts only
     torch.cuda.empty_cache()
+    lap("train")
 
     cnn_runs = {}
     for label, dtype in (("float32", torch.float32),
@@ -4691,6 +4771,7 @@ def main() -> int:
     serve_check(kmods, ops_torus, "cnn_serve", *cnn_runs["float32"][:2],
                 cnn_runs["bfloat16"][1], CNN_REQUESTS, images)
     cnn_runs = {k: v[2] for k, v in cnn_runs.items()}
+    lap("cnn_serve")
 
     cnn_trained = {}
     for label, dtype in (("float32", torch.float32),
@@ -4735,33 +4816,44 @@ def main() -> int:
           "cnn4096 rng: another key gave the same loss")
     del rng_model
     torch.cuda.empty_cache()
+    lap("cnn_train")
 
     attention_route(attention, rope, gen)
+    lap("attention_route")
     image_counts = image256_phase(kmods, serving, vit_vae, state, loop, gen)
+    lap("image256")
     head_counts = heads_phase(kmods, serving, conv_vae, vit_vae, state, loop,
                               trandom, images, gen)
+    lap("heads")
     mlp_counts = mlp_phase(
         kmods, (loop, state, mlp_vae, losses, schedules, trandom))
+    lap("mlp")
     hybrid_images = torch.rand(HYBRID_BATCH, 32, 32, 1, generator=gen,
                                device=DEVICE) * 2 - 1
     hybrid_counts, hybrid_state = hybrid_phase(
         kmods, ops_torus, serving, conv_vae, hybrid_vae, state, loop,
         hybrid_images)
+    lap("hybrid")
     checkpoint_phase(kmods, checkpoint, hybrid_vae, state, loop,
                      hybrid_images, root)
+    lap("checkpoint")
     eval_counts = eval_phase(
         kmods, (adapters, binding, capacity, class_means, knn),
         hybrid_state.model)
+    lap("eval")
     fid_counts = fid_phase(kmods, (adapters, fid, inception, plots),
                            ops_torus, conv_vae, hybrid_state.model)
     del hybrid_state
     torch.cuda.empty_cache()
+    lap("fid")
     runner_counts, arm_counts = runner_phase(
         kmods, (cnn_runner, fashion_train, cifar10_train, plots, conv_vae,
                 loop, state, trandom, ops_torus), root)
+    lap("runner")
     mnist_runner_counts = mnist_runners_phase(
         kmods, (cnn_runner, mnist_runner, mnist_clifpws, mnist_vmf, mlp_vae,
                 ops_torus), root)
+    lap("mnist_runners")
     with tempfile.TemporaryDirectory() as work:
         sweep_counts, ckpts = sweep_phase(kmods, (cnn_runner, fashion_train),
                                           root, work)
@@ -4770,20 +4862,25 @@ def main() -> int:
                     binding_depth_heatmap, sample_viz,
                     paper_bind_bundle_figure, eval_battery_timing),
             ckpts, work)
+    lap("sweep, figures")
     with tempfile.TemporaryDirectory() as work:
         export_counts = export_phase((serving, vit_vae, conv_vae, trandom),
                                      root, work)
+    lap("export")
     with tempfile.TemporaryDirectory() as work:
         native_counts, native_op_ms = native_phase(
-            (serving, vit_vae, conv_vae, mlp_vae, trandom, rope, build,
-             nbuild, knative), root, work)
+            (serving, vit_vae, conv_vae, mlp_vae, trandom, rope, knative),
+            root, work, HOST_EXPORTS, native_built)
+    lap("native")
     with tempfile.TemporaryDirectory() as work:
         native_data_phase(root, work)
+    lap("native_data")
     with tempfile.TemporaryDirectory() as work:
         par = parallel_phase(kmods, {
             "layouts": (serving, vit_vae, param_import, param_convert, state,
                         loop),
             "bundle": (serving, conv_vae, trandom)}, root, work, images)
+    lap("parallel")
     emit("mnist_runner_kernels", shape="mnist_mlp", R=MLP_BATCH,
          cases={f"{name},d{d}": {k: mnist[name, d][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
@@ -5016,6 +5113,10 @@ def main() -> int:
          "shape": "cnn4096 data_parallel=2 bundle"}]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on its path")
+    lap("last cases")
+    emit("seconds", total=time.perf_counter() - start,
+         longest=dict(sorted(phase_s.items(), key=lambda kv: -kv[1])[:6]),
+         phases=phase_s)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

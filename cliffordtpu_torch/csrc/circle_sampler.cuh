@@ -11,19 +11,23 @@
 //   x      = the real-DFT torus embedding of theta (torus_basis.cuh)
 //
 // and theta, u, v are written too (the residuals a backward pass needs).
-// One launch, no intermediate in device memory.  A block owns 64 rows x 64
-// output columns (torus_embed_tile); it draws and samples its rows' angles
-// chunk by chunk into shared memory.  Blocks that share rows (the column
-// tiles of one row tile) each draw those rows again: the draw is a pure
-// function of (key, r, k), so they agree, and the blocks of column tile 0
-// write theta, u and v.  At d = 4096 that is 128 column tiles per row
-// tile: the draws cost about as much as the embedding there.
+// One launch, no intermediate in device memory, in one of two forms:
 //
-// A kernel whose d is a power of two can instead draw in front of the
-// FFT form of the embedding (torus_fft.cuh): sample_pack_pair draws,
-// samples and writes the angle pair (k, d - k) of one row and packs it
-// into the row's complex spectrum, as torus_fwd.cu's FFT form packs given
-// angles, so that every angle is drawn once per launch.
+// * FFT form, d a power of two (sample_embed_fft_kernel): the row's
+//   threads take the angle pairs (k, d - k); sample_pack_pair draws,
+//   samples and writes the pair and packs it into the row's complex
+//   spectrum, as torus_fwd.cu's FFT form packs given angles, and the
+//   inverse FFT of torus_fft.cuh gives x.  Every angle is drawn once per
+//   launch.
+//
+// * Table form, any other d (sample_embed_tile): a block owns 64 rows x 64
+//   output columns (torus_embed_tile) and draws and samples its rows'
+//   angles chunk by chunk into shared memory.  Blocks that share rows (the
+//   column tiles of one row tile) each draw those rows again: the draw is
+//   a pure function of (key, r, k), so they agree, and the blocks of
+//   column tile 0 write theta, u and v.
+//
+// sample_embed_launch picks the form for both samplers' C ABIs.
 //
 // IEEE division and square root and the accurate logf / expm1f / atanf /
 // cosf / sincosf: built without fast math.
@@ -140,4 +144,77 @@ __device__ __forceinline__ void sample_pack_pair(
   const float wbx = cw * bx - sw * by, wby = cw * by + sw * bx;
   z[fft_pad(k)] = make_float2(ax - wby, ay + wbx);
   if (k != d - k) z[fft_pad(d - k)] = make_float2(ax + wby, wbx - ay);
+}
+
+// The two forms as kernels, for a generator `Draw`: a functor
+// draw(ctr, &u, &v) that a kernel receives by value.
+//
+// The FFT form, d a power of two, launched by fft_wide_launch with DT
+// threads a row.  A row's threads take the pairs k = 1..d/2 (and Z_0);
+// then its first d/16 run the passes, and all store x as float4 (x
+// 16-byte aligned).
+template <typename Draw>
+__global__ void __launch_bounds__(kFftRowThreads) sample_embed_fft_kernel(
+    Draw draw, const float* __restrict__ loc, const float* __restrict__ kappa,
+    int kap_row_stride, int kap_col_stride, float* __restrict__ x,
+    float* __restrict__ theta, float* __restrict__ u_out,
+    float* __restrict__ v_out, int R, int d, int DT) {
+  extern __shared__ __align__(16) float2 buf[];
+  const FftWideRow w = fft_wide_row(buf, R, d, DT);
+  if (w.live) {
+    for (int k = w.t; k <= d / 2; k += w.DT) {
+      if (k == 0) {
+        w.a[0] = make_float2(2.0f, 0.0f);  // Z_0: X_0 = X_d = 1
+        continue;
+      }
+      sample_pack_pair(draw, loc, kappa, kap_row_stride, kap_col_stride,
+                       theta, u_out, v_out, w.row, k, d, w.a);
+    }
+  }
+  const float2* z = fft_inverse(w.a, w.b, d, w.t, w.T, w.live && w.t < w.T);
+  if (!w.live) return;
+  const float inv_n = 1.0f / (float)(2 * d);  // a power of two: exact
+  float4* xr = reinterpret_cast<float4*>(x + (size_t)w.row * 2 * d);
+  for (int e = w.t; e < d / 2; e += w.DT) {
+    const float2 z0 = z[fft_pad(2 * e)];
+    const float2 z1 = z[fft_pad(2 * e + 1)];
+    xr[e] = make_float4(z0.x * inv_n, z0.y * inv_n, z1.x * inv_n,
+                        z1.y * inv_n);
+  }
+}
+
+// The table form (sample_embed_tile), any d.
+template <typename Draw>
+__global__ void __launch_bounds__(kTorusThreads) sample_embed_table_kernel(
+    Draw draw, const float* __restrict__ loc, const float* __restrict__ kappa,
+    int kap_row_stride, int kap_col_stride, float* __restrict__ x,
+    float* __restrict__ theta, float* __restrict__ u_out,
+    float* __restrict__ v_out, int R, int d) {
+  extern __shared__ __align__(16) float smem[];
+  sample_embed_tile(draw, loc, kappa, kap_row_stride, kap_col_stride, x,
+                    theta, u_out, v_out, R, d, smem);
+}
+
+// Launch the FFT form for d a power of two (x 16-byte aligned), else the
+// table form (a grid of 64-row x 64-column tiles).  Returns the CUDA
+// error of the shared-memory attribute call or of the launch.
+template <typename Draw>
+inline int sample_embed_launch(Draw draw, const float* loc,
+                               const float* kappa, int kap_row_stride,
+                               int kap_col_stride, float* x, float* theta,
+                               float* u, float* v, int R, int d,
+                               void* stream) {
+  if (fft_is_pow2(d))
+    return fft_wide_launch(sample_embed_fft_kernel<Draw>, R, d, stream, draw,
+                           loc, kappa, kap_row_stride, kap_col_stride, x,
+                           theta, u, v, R, d);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = torus_embed_smem_bytes(d);
+  cudaError_t err = torus_allow_smem(sample_embed_table_kernel<Draw>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + kTorusRows - 1) / kTorusRows,
+                  (2 * d + kTorusCols - 1) / kTorusCols);
+  sample_embed_table_kernel<Draw><<<grid, kTorusThreads, smem, st>>>(
+      draw, loc, kappa, kap_row_stride, kap_col_stride, x, theta, u, v, R, d);
+  return (int)cudaGetLastError();
 }

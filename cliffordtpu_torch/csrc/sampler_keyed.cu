@@ -2,7 +2,7 @@
 //
 // Replaces cliffordtpu/kernels/sampler_pallas.py::_keyed_sample_embed_kernel
 // (the pallas_call in _keyed_sample_embed_call).  The sampler, the
-// embedding and the tiling are those of circle_sampler.cuh; this file
+// embedding and both forms are those of circle_sampler.cuh; this file
 // supplies the uniforms:
 //
 //   u, v   threefry-2x32 on jax's partitionable counters (hi = 0,
@@ -18,11 +18,23 @@
 // adds row0*d to every counter, in uint32 arithmetic, exact while the
 // global draw stays below 2**32 counters (the wrapper checks it).
 //
-// What bounds it: operations.  At the flagship shape (R = 4096, d = 16) it
-// moves about 1.5 MB, under half a microsecond of HBM time, against two
-// threefry draws per angle; at R = 64, d = 4096 it moves 5.2 MB against
-// 8.6 GFLOP of embedding (0.13 ms at the CUDA cores' float32 peak) and the
-// draws repeated per column tile.
+// Two forms, chosen by d (kernels/torus.py::form says which ran):
+//
+// * FFT form, d a power of two (circle_sampler.cuh::
+//   sample_embed_fft_kernel, as sampler_rng.cu): a row's threads draw,
+//   sample and pack the angle pairs (k, d - k), each angle once per
+//   launch, then the inverse real FFT of torus_fft.cuh gives x, stored as
+//   float4.  An angle is two threefry calls (40 rounds) and the sampler's
+//   accurate logf / expm1f / atanf / cosf / sincosf, some 400 dependent
+//   instructions, spread over up to 1024 threads a row
+//   (torus_fft.cuh::fft_wide_threads).  What bounds the
+//   function is its bytes (loc read; x, theta, u, v written: 25 MB at R =
+//   256, d = 4096, 7.5 us at 3.35 TB/s); at these sizes a thread's
+//   dependent chain and the launch bound the kernel.
+//
+// * Table form, any other d (5 and 40 in the MNIST sweeps, 513 in the
+//   checks): the tiled dense product of circle_sampler.cuh, whose blocks
+//   each draw their rows' angles again, one per column tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,36 +68,31 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
-__global__ void __launch_bounds__(kTorusThreads) keyed_sample_embed_kernel(
-    const float* __restrict__ loc, const float* __restrict__ kappa,
-    int kap_row_stride, int kap_col_stride, float* __restrict__ x,
-    float* __restrict__ theta, float* __restrict__ u_out,
-    float* __restrict__ v_out, int R, int d, int row0, uint32_t ku0,
-    uint32_t ku1, uint32_t kv0, uint32_t kv1) {
-  extern __shared__ __align__(16) float smem[];
-  const uint32_t base = (uint32_t)row0 * (uint32_t)d;
-  sample_embed_tile(
-      [&](uint32_t ctr, float* u, float* v) {
-        uint32_t a0 = 0u, a1 = base + ctr, b0 = 0u, b1 = base + ctr;
-        threefry2x32(ku0, ku1, a0, a1);
-        threefry2x32(kv0, kv1, b0, b1);
-        // jax: max(minval, f * (maxval - minval) + minval), (1 - 1e-12f) == 1
-        *u = fmaxf(1e-12f, __fadd_rn(__fmul_rn(unit_float(a0 ^ a1),
-                                               1.0f - 1e-12f),
-                                     1e-12f));
-        *v = unit_float(b0 ^ b1);
-      },
-      loc, kappa, kap_row_stride, kap_col_stride, x, theta, u_out, v_out, R,
-      d, smem);
-}
+// The generator of this file: element ctr of the launch is element
+// base + ctr of the global draw; u from the first key, v from the second.
+struct KeyedDraw {
+  uint32_t base, ku0, ku1, kv0, kv1;
+  __device__ __forceinline__ void operator()(uint32_t ctr, float* u,
+                                             float* v) const {
+    uint32_t a0 = 0u, a1 = base + ctr, b0 = 0u, b1 = base + ctr;
+    threefry2x32(ku0, ku1, a0, a1);
+    threefry2x32(kv0, kv1, b0, b1);
+    // jax: max(minval, f * (maxval - minval) + minval), (1 - 1e-12f) == 1
+    *u = fmaxf(1e-12f, __fadd_rn(__fmul_rn(unit_float(a0 ^ a1),
+                                           1.0f - 1e-12f),
+                                 1e-12f));
+    *v = unit_float(b0 ^ b1);
+  }
+};
 
 }  // namespace
 
 // C ABI, bound with ctypes by cliffordtpu_torch/kernels/sampler.py.
 // loc (R, d), kappa read at r*kap_row_stride + k*kap_col_stride, outputs
-// x (R, 2d) and theta/u/v (R, d-1), all float32 and contiguous; the rows
-// are rows row0.. of the global draw.  The wrapper keeps the global R*d
-// below 2**32.  Returns the CUDA error of the
+// x (R, 2d) and theta/u/v (R, d-1), all float32 and contiguous, x 16-byte
+// aligned; the rows are rows row0.. of the global draw.  The wrapper keeps
+// the global R*d below 2**32.  The FFT form for d a power of two, else the
+// table form (sample_embed_launch).  Returns the CUDA error of the
 // shared-memory attribute call or of the launch.
 extern "C" int keyed_sample_embed(const float* loc, const float* kappa,
                                   int kap_row_stride, int kap_col_stride,
@@ -93,14 +100,7 @@ extern "C" int keyed_sample_embed(const float* loc, const float* kappa,
                                   int R, int d, int row0, uint32_t ku0,
                                   uint32_t ku1, uint32_t kv0, uint32_t kv1,
                                   void* stream) {
-  const size_t smem = torus_embed_smem_bytes(d);
-  cudaError_t err = torus_allow_smem(keyed_sample_embed_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((R + kTorusRows - 1) / kTorusRows,
-                  (2 * d + kTorusCols - 1) / kTorusCols);
-  keyed_sample_embed_kernel<<<grid, kTorusThreads, smem,
-                              (cudaStream_t)stream>>>(
-      loc, kappa, kap_row_stride, kap_col_stride, x, theta, u, v, R, d, row0,
-      ku0, ku1, kv0, kv1);
-  return (int)cudaGetLastError();
+  return sample_embed_launch(
+      KeyedDraw{(uint32_t)row0 * (uint32_t)d, ku0, ku1, kv0, kv1}, loc, kappa,
+      kap_row_stride, kap_col_stride, x, theta, u, v, R, d, stream);
 }

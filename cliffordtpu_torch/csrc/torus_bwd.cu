@@ -10,8 +10,7 @@
 //   gc = sum_col g[r, col] C[k, col],  gs = sum_col g[r, col] S[k, col]
 //   dtheta[r, k] = -sin(theta[r, k]) gc + cos(theta[r, k]) gs
 //
-// with the basis looked up in the shared-memory table of torus_basis.cuh
-// (the roles of k and col swapped against the forward).  When the sampler's
+// with the real-DFT basis of torus_basis.cuh.  When the sampler's
 // residuals u, v and its concentration kappa are given, the same launch
 // also writes
 //
@@ -27,22 +26,76 @@
 // (R, d) with column 0 set to zero for the sampler's (angle 0 is pinned, so
 // loc[:, 0] and kappa[:, 0] get no gradient).
 //
-// What bounds it: operations.  At R = 64, d = 4096 the function moves
-// 7.3 MB with the epilogue (2 microseconds of HBM time) and does 8.6 GFLOP
-// of float32 multiply-adds (0.13 ms at the CUDA cores' peak); at the
-// flagship shape (R = 4096, d = 16) both are under a microsecond and the
-// launch is what is left.  One block owns 64 rows x 32 angles: a warp owns 2
-// angles, lane l rows l and l + 32, so a basis lookup is one address per
-// warp shared by 64 rows and 8 accumulators.  The block walks the 2d
-// columns of its rows' g in chunks of 64 staged through shared memory
-// (each block reads its rows' g once; the 128 angle tiles of a row tile at
-// d = 4096 read it from L2).
+// Two forms, chosen by d (kernels/torus.py::form says which ran):
+//
+// * FFT form, d a power of two.  With n = 2d, G = the forward real DFT of
+//   the row of g, gc = (2/n) Re G_k and gs = (2/n) Im G_k, so
+//     dtheta_k = (1/d) Im(G_k exp(-i theta_k)).
+//   The n-point real transform is one d-point complex one: the row packed
+//   as z_m = g[2m] + i g[2m+1], Z its forward DFT, taken as the conjugate
+//   of torus_fft.cuh's inverse of conj(z) (no second FFT), and with
+//   w_k = exp(i pi k / d), E = (Z_k + conj Z_{d-k}) / 2 and
+//   O = (Z_k - conj Z_{d-k}) / 2,
+//     G_k = E - i conj(w_k) O,  G_{d-k} = conj(E + i conj(w_k) O).
+//   A thread owns the pair (k, d-k), as the forward's packing does in
+//   reverse, and runs the epilogue of both angles.  That epilogue (the
+//   accurate sincosf, logf, expm1f, cosf, sqrtf: some hundred dependent
+//   instructions an angle) would cost a thread of the passes (d/16 a row)
+//   more than the passes do, so a row has up to one thread a pair, 1024
+//   at most, half as many where R rows of them would not all be resident
+//   (torus_fft.cuh::fft_wide_threads), and the row's first d/16 run the
+//   passes.  What bounds
+//   the function is its bytes (g, theta, u, v, kappa read; dtheta, dkappa
+//   written: 29 MB at R = 256, d = 4096 with the epilogue, 8.8 us at
+//   3.35 TB/s); at these sizes a thread's dependent chain and the launch
+//   bound the kernel.
+//
+// * Table form, any other d: the dense product against the basis looked
+//   up in the shared-memory table of torus_basis.cuh (the roles of k and
+//   col swapped against the forward): 8.6 GFLOP of float32 multiply-adds
+//   at R = 64, d = 4096 (0.13 ms at the CUDA cores' peak).  One block owns
+//   64 rows x 32 angles: a warp owns 2 angles, lane l rows l and l + 32, so
+//   a basis lookup is one address per warp shared by 64 rows and 8
+//   accumulators.  The block walks the 2d columns of its rows' g in chunks
+//   of 64 staged through shared memory.
 
 #include <cuda_runtime.h>
 
 #include "torus_basis.cuh"
+#include "torus_fft.cuh"
 
 namespace {
+
+// Angle k of row r, from gc = (g C^T)_k and gs = (g S^T)_k: writes d theta
+// and, when dkappa is given, d kappa (column 0 zeroed with angle 1 when
+// off is 1).
+__device__ __forceinline__ void torus_bwd_angle(
+    const float* __restrict__ theta, float gc, float gs,
+    float* __restrict__ dtheta, int ld, int off, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ kappa,
+    int kap_row_stride, int kap_col_stride, float* __restrict__ dkappa,
+    int r, int k, int d) {
+  const size_t i = (size_t)r * (d - 1) + (k - 1);
+  float st, ct;
+  sincosf(theta[i], &st, &ct);
+  const float dth = -st * gc + ct * gs;
+  const size_t o = (size_t)r * ld + off + (k - 1);
+  dtheta[o] = dth;
+  if (off > 0 && k == 1) dtheta[(size_t)r * ld] = 0.0f;
+  if (dkappa == nullptr) return;
+  const float kap =
+      kappa[(size_t)r * kap_row_stride + (size_t)k * kap_col_stride];
+  const float nu = 2.0f * (kap + 1e-7f) + 1.0f;
+  const float lnu = logf(u[i]);
+  const float w = expm1f((-2.0f / nu) * lnu);
+  const float c = cosf((float)6.283185307179586476925 * v[i]);
+  const float sqw = sqrtf(fmaxf(w, 1e-30f));
+  const float dth_dnu = (2.0f * c / (1.0f + c * c * w)) *
+                        (1.0f / (2.0f * sqw)) *
+                        ((2.0f * lnu / (nu * nu)) * (1.0f + w));
+  dkappa[o] = dth * dth_dnu * 2.0f;  // d nu / d kappa = 2
+  if (off > 0 && k == 1) dkappa[(size_t)r * ld] = 0.0f;
+}
 
 __global__ void __launch_bounds__(kTorusThreads) torus_bwd_kernel(
     const float* __restrict__ theta, const float* __restrict__ g,
@@ -109,30 +162,52 @@ __global__ void __launch_bounds__(kTorusThreads) torus_bwd_kernel(
     for (int half = 0; half < 2; ++half) {
       const int r = row0 + lane + 32 * half;
       if (r >= R) continue;
-      const float gc = half ? gc1[j] : gc0[j];
-      const float gs = half ? gs1[j] : gs0[j];
-      const size_t i = (size_t)r * m + (k - 1);
-      float st, ct;
-      sincosf(theta[i], &st, &ct);
-      const float dth = -st * gc + ct * gs;
-      const size_t o = (size_t)r * ld + off + (k - 1);
-      dtheta[o] = dth;
-      if (off > 0 && k == 1) dtheta[(size_t)r * ld] = 0.0f;
-      if (dkappa != nullptr) {
-        const float kap =
-            kappa[(size_t)r * kap_row_stride + (size_t)k * kap_col_stride];
-        const float nu = 2.0f * (kap + 1e-7f) + 1.0f;
-        const float lnu = logf(u[i]);
-        const float w = expm1f((-2.0f / nu) * lnu);
-        const float c = cosf((float)6.283185307179586476925 * v[i]);
-        const float sqw = sqrtf(fmaxf(w, 1e-30f));
-        const float dth_dnu = (2.0f * c / (1.0f + c * c * w)) *
-                              (1.0f / (2.0f * sqw)) *
-                              ((2.0f * lnu / (nu * nu)) * (1.0f + w));
-        dkappa[o] = dth * dth_dnu * 2.0f;  // d nu / d kappa = 2
-        if (off > 0 && k == 1) dkappa[(size_t)r * ld] = 0.0f;
-      }
+      torus_bwd_angle(theta, half ? gc1[j] : gc0[j], half ? gs1[j] : gs0[j],
+                      dtheta, ld, off, u, v, kappa, kap_row_stride,
+                      kap_col_stride, dkappa, r, k, d);
     }
+  }
+}
+
+// The FFT form: DT threads a row (fft_wide_threads), the block's rows
+// side by side, two padded buffers per row.
+__global__ void __launch_bounds__(kFftRowThreads) torus_bwd_fft_kernel(
+    const float* __restrict__ theta, const float* __restrict__ g,
+    float* __restrict__ dtheta, int ld, int off, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ kappa,
+    int kap_row_stride, int kap_col_stride, float* __restrict__ dkappa, int R,
+    int d, int DT) {
+  extern __shared__ __align__(16) float2 buf[];
+  const FftWideRow w = fft_wide_row(buf, R, d, DT);
+  const int row = w.row;
+  if (w.live) {
+    const float* gr = g + (size_t)row * 2 * d;
+    for (int m = w.t; m < d; m += w.DT)  // conj(z_m)
+      w.a[fft_pad(m)] = make_float2(gr[2 * m], -gr[2 * m + 1]);
+  }
+  // y = the inverse DFT of conj(z) = conj(Z)
+  const float2* y = fft_inverse(w.a, w.b, d, w.t, w.T, w.live && w.t < w.T);
+  if (!w.live) return;
+  const float inv_d = 1.0f / (float)d;  // a power of two: exact
+  for (int k = 1 + w.t; k <= d / 2; k += w.DT) {
+    const float2 yk = y[fft_pad(k)];      // conj Z_k
+    const float2 yr = y[fft_pad(d - k)];  // conj Z_{d-k}
+    // E = (Z_k + conj Z_{d-k}) / 2, O = (Z_k - conj Z_{d-k}) / 2
+    const float ex = 0.5f * (yk.x + yr.x), ey = 0.5f * (yr.y - yk.y);
+    const float ox = 0.5f * (yk.x - yr.x), oy = -0.5f * (yk.y + yr.y);
+    // P = i conj(w_k) O
+    float sw, cw;
+    sincospif((float)k / (float)d, &sw, &cw);
+    const float px = sw * ox - cw * oy, py = cw * ox + sw * oy;
+    // G_k = E - P, then G_{d-k} = conj(E + P): gc = Re G / d,
+    // gs = Im G / d.  One call site, so one copy of the epilogue (two
+    // inlined copies spilled registers at the 64 the launch bound allows)
+#pragma unroll 1
+    for (int h = 0; h < (k != d - k ? 2 : 1); ++h)
+      torus_bwd_angle(theta, (h ? ex + px : ex - px) * inv_d,
+                      (h ? -(ey + py) : ey - py) * inv_d, dtheta, ld, off, u,
+                      v, kappa, kap_row_stride, kap_col_stride, dkappa, row,
+                      h ? d - k : k, d);
   }
 }
 
@@ -143,12 +218,17 @@ __global__ void __launch_bounds__(kTorusThreads) torus_bwd_kernel(
 // r*ld + off + (k-1), with column 0 zeroed when off is 1.  u, v (R, d-1),
 // kappa (read at r*kap_row_stride + k*kap_col_stride, k = 1..d-1) and
 // dkappa (laid out as dtheta) are all given or all null.  Returns the CUDA
-// error of the shared-memory attribute call or of the launch.
+// error of the shared-memory attribute call or of the launch.  The FFT
+// form for d a power of two, else the table form.
 extern "C" int torus_bwd(const float* theta, const float* g, float* dtheta,
                          int ld, int off, const float* u, const float* v,
                          const float* kappa, int kap_row_stride,
                          int kap_col_stride, float* dkappa, int R, int d,
                          void* stream) {
+  if (fft_is_pow2(d))
+    return fft_wide_launch(torus_bwd_fft_kernel, R, d, stream, theta, g,
+                           dtheta, ld, off, u, v, kappa, kap_row_stride,
+                           kap_col_stride, dkappa, R, d);
   const size_t smem = torus_smem_bytes(d, 1);
   cudaError_t err = torus_allow_smem(torus_bwd_kernel, smem);
   if (err != cudaSuccess) return (int)err;

@@ -28,6 +28,8 @@
 
 #include <cuda_runtime.h>
 
+#include "torus_basis.cuh"
+
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
 }
@@ -197,4 +199,98 @@ __device__ __forceinline__ float2* fft_inverse(float2* a, float2* b, int d,
   }
   __syncthreads();
   return a;
+}
+
+// A kernel with a long dependent chain per angle around the transform
+// (a draw and the sampler in front of it, the samplers' concentration
+// gradient behind it: a few hundred instructions an angle) spreads that
+// chain over more threads than the passes use: one per angle pair, up to
+// kFftRowThreads a row (fft_wide_row_threads; 1024 at d = 4096, two
+// pairs a thread), and a block of at least kFftMinBlock threads.  Where
+// R rows of that many threads are more than the card keeps resident
+// (kFftSmThreads a multiprocessor: these kernels take 64 registers), a
+// row takes half as many (fft_wide_threads), so that more rows' fills,
+// passes and barriers overlap at once; on an H100 that cut the torus
+// backward 35% at R = 16384, d = 256 and 24% at R = 256, d = 4096, where
+// at R = 128, d = 256 or R = 4096, d = 16 half the threads were 10-25%
+// slower.  The row's first fft_row_threads(d) threads run the passes;
+// the others only meet their barriers.
+constexpr int kFftRowThreads = 1024;
+constexpr int kFftMinBlock = 256;
+constexpr int kFftSmThreads = 1024;
+
+__host__ __device__ constexpr int fft_wide_row_threads(int d) {
+  return d / 2 < 1 ? 1 : d / 2 < kFftRowThreads ? d / 2 : kFftRowThreads;
+}
+// The threads a row of R rows takes on a card that keeps `resident`
+// threads at once.
+__host__ __device__ constexpr int fft_wide_threads(int R, int d,
+                                                   long long resident) {
+  return (long long)R * fft_wide_row_threads(d) > resident &&
+                 fft_wide_row_threads(d) / 2 >= fft_row_threads(d)
+             ? fft_wide_row_threads(d) / 2
+             : fft_wide_row_threads(d);
+}
+__host__ __device__ constexpr int fft_wide_block_threads(int DT) {
+  return DT > kFftMinBlock ? DT : kFftMinBlock;
+}
+// Two padded buffers for each row of a block of rows of DT threads.
+__host__ __device__ constexpr size_t fft_wide_smem_bytes(int d, int DT) {
+  return sizeof(float2) * 2 * (size_t)(fft_wide_block_threads(DT) / DT) *
+         (size_t)fft_pitch(d);
+}
+
+static_assert(fft_row_threads(kTorusMaxDim) <=
+                  fft_wide_row_threads(kTorusMaxDim) / 2,
+              "a row's FFT threads must be among its threads");
+static_assert(fft_wide_smem_bytes(kTorusMaxDim,
+                                  fft_wide_row_threads(kTorusMaxDim) / 2) <=
+                  kTorusMaxSmem,
+              "a row's two buffers must fit a block at the largest d");
+
+// Where a thread of a wide kernel stands: DT threads a row, the first T
+// of them run the passes; t its index among them, row its row (live when
+// row < R) and a, b the row's two buffers, the block's rows side by side.
+struct FftWideRow {
+  int DT, T, t, row;
+  bool live;
+  float2 *a, *b;
+};
+
+__device__ __forceinline__ FftWideRow fft_wide_row(float2* buf, int R,
+                                                   int d, int DT) {
+  const int rows = blockDim.x / DT;
+  const int pitch = fft_pitch(d);
+  const int lr = threadIdx.x / DT;
+  const int row = blockIdx.x * rows + lr;
+  return {DT,  fft_row_threads(d),  (int)threadIdx.x % DT,
+          row, row < R,  buf + lr * pitch,  buf + (rows + lr) * pitch};
+}
+
+// Launch a wide kernel over R rows of d, its threads a row (DT, the
+// kernel's last argument) chosen by fft_wide_threads for the current
+// card.  Returns the CUDA error of the device query, of the shared-memory
+// attribute call or of the launch.
+template <typename Kernel, typename... Args>
+inline int fft_wide_launch(Kernel kernel, int R, int d, void* stream,
+                           Args... args) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int DT = fft_wide_threads(R, d, (long long)sms * kFftSmThreads);
+  const int threads = fft_wide_block_threads(DT);
+  const int rows = threads / DT;
+  const size_t smem = fft_wide_smem_bytes(d, DT);
+  err = torus_allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(R + rows - 1) / rows, threads, smem, (cudaStream_t)stream>>>(
+      args..., DT);
+  return (int)cudaGetLastError();
+}
+
+// The kernels take the FFT form at exactly these d.
+__host__ __device__ constexpr bool fft_is_pow2(int d) {
+  return d >= 2 && (d & (d - 1)) == 0;
 }

@@ -12,7 +12,7 @@
 // dense product c + cos(theta) C + sin(theta) S with the basis of
 // torus_basis.cuh.  x is written at (R, 2d) exactly.
 //
-// Two forms, chosen by d (kernels/torus.py::fwd_form says which ran):
+// Two forms, chosen by d (kernels/torus.py::form says which ran):
 //
 // * FFT form, d a power of two (every latent the models and scripts run:
 //   16, 128..4096).  The n-point real transform is one d-point complex
@@ -114,8 +114,6 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-constexpr bool is_pow2(int d) { return d >= 2 && (d & (d - 1)) == 0; }
-
 // Block threads of the FFT form, and its shared memory.
 constexpr int fft_threads(int d) { return d >= 256 ? 256 : 64; }
 constexpr size_t fft_smem_bytes(int d) {
@@ -134,7 +132,7 @@ static_assert(fft_smem_bytes(kTorusMaxDim) <= kTorusMaxSmem,
 // launch.
 extern "C" int torus_fwd(const float* theta, float* x, int R, int d,
                          void* stream) {
-  if (is_pow2(d)) {
+  if (fft_is_pow2(d)) {
     const int threads = fft_threads(d);
     const int rows = threads / fft_row_threads(d);
     const size_t smem = fft_smem_bytes(d);

@@ -5,7 +5,9 @@
 ``sample_embed_keyed`` launches ``csrc/sampler_keyed.cu`` for CUDA tensors
 and runs ``sample_embed_keyed_plain`` for CPU tensors; any other device
 raises.  Both draw the same threefry stream as ``jax.random`` (see
-``cliffordtpu_torch/random.py``), so u and v agree bit for bit.
+``cliffordtpu_torch/random.py``), so u and v agree bit for bit.  Its kernel
+draws in front of the torus forward's FFT form for a power-of-two d and
+keeps the table form otherwise (``torus.form``).
 
 ``sample_embed_rng`` launches ``csrc/sampler_rng.cu`` and runs
 ``sample_embed_rng_plain`` alike.  Where the TPU kernel draws from its
@@ -13,9 +15,8 @@ core's hardware generator, these draw Philox-4x32-10 words keyed by the
 caller's key folded with ``RNG_FOLD`` (the TPU package's seed words) and
 counted by the flat element index: a different stream from ``jax.random``
 by design, the same in the kernel and in the plain version bit for bit,
-and independent of how the launch is tiled.  Its kernel draws in front of
-the torus forward's FFT form for a power-of-two d and keeps the table form
-otherwise (``rng_form``).
+and independent of how the launch is tiled.  Its kernel takes the same
+forms.
 
 When ``loc`` or ``kappa`` needs a gradient, either CUDA path is a
 ``torch.autograd.Function`` whose backward is one launch of
@@ -80,13 +81,6 @@ def sample_embed_keyed_plain(key, loc: torch.Tensor, kappa: torch.Tensor,
     return angles_to_torus_matmul(theta), theta[:, 1:], u[:, 1:], v[:, 1:]
 
 
-def rng_form(d: int) -> str:
-    """Which form ``csrc/sampler_rng.cu`` takes for latent dim d: ``"fft"``
-    for a power of two, else ``"table"`` (the kernel's own dispatch, the
-    same as the torus forward's)."""
-    return torus.fwd_form(d)
-
-
 def rng_seed_words(key):
     """The two Philox key words of a caller's key: ``jax.random.fold_in(key,
     RNG_FOLD)``, the words the TPU package seeds its generator with."""
@@ -138,8 +132,11 @@ def _rng_kernel():
 
 
 def _outputs(loc):
+    """x, theta, u, v for a launch; the FFT form stores x as float4."""
     R, d = loc.shape
     x = torch.empty((R, 2 * d), dtype=torch.float32, device=loc.device)
+    if x.data_ptr() % 16:
+        raise ValueError("the sampler kernels store x 16-byte aligned")
     theta, u, v = (torch.empty((R, d - 1), dtype=torch.float32,
                                device=loc.device) for _ in range(3))
     return x, theta, u, v

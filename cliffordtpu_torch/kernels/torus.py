@@ -11,9 +11,10 @@ _sample_embed_bwd``).
 gradient as its epilogue (plain version: ``sampler_bwd_plain``).
 ``torus_embed`` is the differentiable embedding (forward kernel, backward
 kernel) that ``ops/torus.py::angles_to_torus`` routes large latents to.
-The forward kernel computes a power-of-two d as an inverse real FFT in
-shared memory and any other d as the dense product on a shared-memory
-basis table (``fwd_form``).
+Both kernels compute a power-of-two d in shared memory as an FFT (the
+forward an inverse real FFT, the backward a forward real FFT of the
+gradient rows) and any other d as the dense product on a shared-memory
+basis table (``form``, which the samplers' kernels follow too).
 Forward launches count in ``fwd_launches``, backward launches (with or
 without the epilogue) in ``launches``.
 """
@@ -36,9 +37,11 @@ launches = 0  # csrc/torus_bwd.cu
 PS_EPS = 1e-7  # power_spherical.py _EPS
 
 
-def fwd_form(d: int) -> str:
-    """Which form ``csrc/torus_fwd.cu`` takes for latent dim d: ``"fft"``
-    for a power of two, else ``"table"`` (the kernel's own dispatch)."""
+def form(d: int) -> str:
+    """Which form the torus-family kernels (``csrc/torus_fwd.cu``,
+    ``torus_bwd.cu``, ``sampler_keyed.cu``, ``sampler_rng.cu``) take for
+    latent dim d: ``"fft"`` for a power of two, else ``"table"``
+    (``torus_fft.cuh::fft_is_pow2``, their own dispatch)."""
     return "fft" if d >= 2 and d & (d - 1) == 0 else "table"
 
 

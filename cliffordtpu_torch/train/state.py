@@ -57,16 +57,27 @@ def _local(t) -> torch.Tensor:
     return t.to_local() if _is_sharded(t) else t
 
 
+def _whole(t) -> bool:
+    """A plain tensor, or a DTensor on a mesh of one rank (its shard is all
+    of it)."""
+    return not _is_sharded(t) or t.device_mesh.size() == 1
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(sum of squares over all tensors) (``optax.global_norm``), as a
-    scalar tensor on their device.  A DTensor (a sharded gradient) counts
-    whole: its norm is reduced over the ranks that hold its shards."""
+    float32 scalar tensor on their device.  A tensor held whole on this
+    rank takes the one-device norm (``torch._foreach_norm``); a DTensor
+    sharded over ranks counts whole: its norm is reduced over the ranks
+    that hold its shards.  The tensors' norms are summed in float64, where
+    their squares are exact, so the effect of their order (a sharded
+    optimizer orders its parameters by kind) sits far below float32
+    rounding: a mesh of one rank clips as one device does."""
     tensors = list(tensors)
-    plain = [t for t in tensors if not _is_sharded(t)]
-    norms = list(torch._foreach_norm(plain)) if plain else []
+    whole = [_local(t) for t in tensors if _whole(t)]
+    norms = list(torch._foreach_norm(whole)) if whole else []
     norms += [torch.linalg.vector_norm(t).full_tensor()
-              for t in tensors if _is_sharded(t)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+              for t in tensors if not _whole(t)]
+    return torch.linalg.vector_norm(torch.stack(norms).double()).float()
 
 
 def lane_norms(tensors) -> torch.Tensor:

@@ -38,15 +38,14 @@ def main(argv=None) -> int:
     from cliffordtpu_torch.nn import conv_vae, mlp_vae, vit_vae
     from cliffordtpu_torch.ops import rope
 
+    exports = chip_smoke.HOST_EXPORTS
     if argv:
         labels = argv[0].split(",")
-        unknown = set(labels) - set(chip_smoke.HOST_EXPORTS)
+        unknown = set(labels) - set(exports)
         if unknown:
             print(f"unknown labels {sorted(unknown)}", file=sys.stderr)
             return 2
-        chip_smoke.HOST_EXPORTS = {k: v for k, v in
-                                   chip_smoke.HOST_EXPORTS.items()
-                                   if k in labels}
+        exports = {k: v for k, v in exports.items() if k in labels}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(
@@ -55,8 +54,8 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as work:
         chip_smoke.native_phase(
-            (serving, vit_vae, conv_vae, mlp_vae, trandom, rope, kbuild,
-             nbuild, knative), ROOT, work)
+            (serving, vit_vae, conv_vae, mlp_vae, trandom, rope, knative),
+            ROOT, work, exports, chip_smoke.native_builds(kbuild, nbuild))
     return 0
 
 

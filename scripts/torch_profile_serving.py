@@ -35,7 +35,7 @@ BATCH = 64
 REQUESTS = 5  # traced per (dtype, entry point), after 3 warm-up calls
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("attention_kernel", ("attention_fwd_",)),
-    ("sampler_kernel", ("keyed_sample_embed", "rng_sample_embed")),
+    ("sampler_kernel", ("sample_embed_",)),
     ("torus_fwd_kernel", ("torus_fwd_",)),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "implicit", "winograd",
               "nchw", "nhwc")),

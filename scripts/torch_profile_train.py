@@ -2,7 +2,8 @@
 """Where a train step's time goes in the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile_train.py [--out-dir profiles]
-        [--config flagship32|cnn4096|image256|hybrid_fashion4096|mnist_mlp]
+        [--config flagship32|cnn4096|image256|hybrid_fashion4096|mnist_mlp|
+                  runner_fashion4096]
         [--distribution clifford|gaussian|powerspherical|normal]
 
 Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``), with
@@ -11,7 +12,11 @@ each of its three sampler routes), or with ``--config image256`` the
 ``CliffordARVAE`` of ``default_config(256)`` (batch 4, S 260: the dense
 attention route), or with ``--config hybrid_fashion4096`` the Fashion
 runner's ``HybridVAE`` at latent 256 per token (64 tokens, batch 256,
-AdamW lr 1e-3, float32 only), with the ``--distribution`` latent, seeded random
+AdamW lr 1e-3, float32 only), or with ``--config runner_fashion4096`` the
+Fashion runner's ``CNNVAE`` at latent 4096 as ``cnn_runner.build_model``
+makes it from ``fashion_train``'s defaults (l1 reconstruction, batch 256,
+AdamW at its lr 1e-3, beta 0.1, float32 only: the step of chip_smoke's
+``runner_step``), with the ``--distribution`` latent, seeded random
 weights, in float32 and in bfloat16 compute, takes 3 warm-up AdamW steps
 at batch 64 (lr 1e-4, clip 1), times 5 steps without the profiler, then
 traces 5 more with ``torch.profiler``.  For each dtype it prints one JSON
@@ -57,8 +62,8 @@ STEPS = 5  # timed, then traced, after 3 warm-up steps
 CLASSES = (  # first match wins, on the lower-cased kernel name
     ("attention_bwd_kernel", ("attention_bwd_",)),
     ("attention_fwd_kernel", ("attention_fwd_",)),
-    ("sampler_kernel", ("keyed_sample_embed", "rng_sample_embed")),
-    ("torus_bwd_kernel", ("torus_bwd_kernel",)),
+    ("sampler_kernel", ("sample_embed_",)),
+    ("torus_bwd_kernel", ("torus_bwd_",)),
     ("torus_fwd_kernel", ("torus_fwd_",)),
     ("optimizer", ("adam", "multi_tensor", "foreach", "lpnorm")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit",
@@ -194,7 +199,8 @@ def main() -> int:
                          "are taken from the repository root)")
     ap.add_argument("--config", default="flagship32",
                     choices=("flagship32", "cnn4096", "image256",
-                             "hybrid_fashion4096", "mnist_mlp"))
+                             "hybrid_fashion4096", "mnist_mlp",
+                             "runner_fashion4096"))
     ap.add_argument("--distribution", default="clifford",
                     choices=("clifford", "gaussian", "powerspherical",
                              "normal"))
@@ -227,18 +233,30 @@ def main() -> int:
     if args.config == "mnist_mlp":
         return profile_mnist(args, out_dir, gen)
     hybrid = args.config == "hybrid_fashion4096"
+    runner = args.config == "runner_fashion4096"
     shape = ((4, 256, 256, 3) if args.config == "image256"
-             else (256 if hybrid else BATCH, 32, 32, 1))
+             else (256 if hybrid or runner else BATCH, 32, 32, 1))
     x = torch.rand(*shape, generator=gen, device="cuda") * 2 - 1
-    beta = torch.ones((), device="cuda")
+    beta = torch.full((), 0.1 if runner else 1.0, device="cuda")
     dist = args.distribution
     routes = (("keyed", "unfused", "rng")
               if args.config == "cnn4096" and dist == "clifford"
               else (None,))
 
-    dtypes = (torch.float32,) if hybrid else (torch.float32, torch.bfloat16)
+    dtypes = ((torch.float32,) if hybrid or runner
+              else (torch.float32, torch.bfloat16))
     for dtype, route in ((dt, r) for dt in dtypes for r in routes):
-        if hybrid:
+        lr = 1e-3 if hybrid else 1e-4
+        if runner:
+            from cliffordtpu_torch.runners import cnn_runner
+            from cliffordtpu_torch.scripts import fashion_train
+
+            rargs = fashion_train.build_parser().parse_args(
+                ["--dataset", "mnist32", "--arch", "cnn", "--batch_size",
+                 str(x.shape[0])])
+            model = cnn_runner.build_model(rargs, dist, 4096, 1, seed=0)
+            lr = rargs.lr
+        elif hybrid:
             model = HybridVAE(latent_dim=256, in_channels=1, img_size=32,
                               distribution=dist, seed=0)
         elif args.config == "cnn4096":
@@ -253,8 +271,7 @@ def main() -> int:
             model = CliffordARVAE(latent_dim=16, image_size=32,
                                   in_channels=1, distribution=dist,
                                   compute_dtype=dtype, seed=0)
-        st = create_train_state(model, optimizer="adamw",
-                                lr=1e-3 if hybrid else 1e-4)
+        st = create_train_state(model, optimizer="adamw", lr=lr)
         step = make_cnn_train_step(st.model, st.optimizer)
 
         def timed_steps(first_key):

@@ -149,6 +149,43 @@ def test_mesh_spec_and_rows():
     assert x.dtype == torch.float32 and x.device.type == "cpu"
 
 
+def test_a_one_rank_mesh_takes_the_one_device_norm():
+    """A gradient on a mesh of one rank is all of it: ``global_norm``
+    takes the one-device norm of its shard, bit for bit, in any order of
+    the tensors, so a world of one clips exactly as one device does (the
+    world-1 FSDP2 step of chip_smoke is held to the single device at
+    1e-6)."""
+    from cliffordtpu_torch.train import state
+
+    class Mesh:
+        def __init__(self, n):
+            self.n = n
+
+        def size(self):
+            return self.n
+
+    class Sharded:  # the two attributes global_norm reads of a DTensor
+        def __init__(self, t):
+            self.t, self.device_mesh = t, Mesh(1)
+
+        def to_local(self):
+            return self.t
+
+    gen = torch.Generator().manual_seed(5)
+    grads = [torch.randn(s, generator=gen) * 3 for s in ((64, 33), (7,),
+                                                          (5, 4, 3))]
+    want = state.global_norm(grads)
+    assert want.dtype == torch.float32
+    assert torch.equal(state.global_norm([Sharded(g) for g in grads]), want)
+    # a sharded optimizer holds its parameters in another order
+    assert torch.equal(state.global_norm([Sharded(g) for g in grads[::-1]]),
+                       want)
+    assert state._whole(grads[0]) and state._whole(Sharded(grads[0]))
+    two = Sharded(grads[0])
+    two.device_mesh = Mesh(2)
+    assert not state._whole(two)
+
+
 def _free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))

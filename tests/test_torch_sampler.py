@@ -138,3 +138,82 @@ def test_rows_per_block_fits_shared_memory(d):
     assert k["kTorusMaxDim"] == MATMUL_MAX_DIM >= d
     staged = 2 * 4 * k["kTorusChunk"] * k["kTorusPitch"]
     assert 16 * d + staged <= k["kTorusMaxSmem"] <= 227 * 1024
+
+
+def _keyed_draw_then_fft(key, loc, kappa, row0=0):
+    """The FFT form of csrc/sampler_keyed.cu in torch: a row's angle pairs
+    (k, d - k), k = 1..d/2, each angle drawn from counter (row0 + r) d + k
+    (threefry-2x32 on (0, counter), x0 ^ x1, under each half of the split
+    key), sampled and written at column k - 1 (k = d - k once); the pair
+    packed as Z_k = A_k + i w_k B_k, Z_{d-k} = conj(A_k - i w_k B_k), A_k =
+    X_k + conj X_{d-k}, B_k = X_k - conj X_{d-k}, X_k = e^{i theta_k}, w_k =
+    e^{i pi k / d}, Z_0 = 2; z the unnormalised inverse d-point DFT of Z
+    (in float64); x_{2m} = Re z_m / n, x_{2m+1} = Im z_m / n, n = 2d.
+    Returns (x, theta, u, v) and how often each angle was written."""
+    R, d = loc.shape
+    kap = torch.broadcast_to(kappa, (R, d))
+    keys = trandom.split_words(key)
+    k = torch.arange(1, d // 2 + 1)
+    outs = [torch.zeros(R, d - 1) for _ in range(3)]  # theta, u, v
+    written = torch.zeros(R, d - 1, dtype=torch.int64)
+    for cols in (k, (d - k)[d - k != k]):
+        q = (row0 + torch.arange(R))[:, None] * d + cols[None, :]
+        (a0, a1), (b0, b1) = (trandom.threefry2x32(k0, k1,
+                                                   torch.zeros_like(q), q)
+                              for k0, k1 in keys)
+        u = trandom.uniform_from_bits(a0 ^ a1, minval=sampler.U_MIN)
+        v = trandom.uniform_from_bits(b0 ^ b1)
+        theta = sampler.circle_angles(loc[:, cols], kap[:, cols], u, v)
+        for out, val in zip(outs, (theta, u, v)):
+            out[:, cols - 1] = val
+        written[:, cols - 1] += 1
+    X = torch.polar(torch.ones(R, d - 1, dtype=torch.float64),
+                    outs[0].double())
+    Xk, Xr = X[:, k - 1], X[:, d - k - 1]
+    w = torch.polar(torch.ones(len(k), dtype=torch.float64),
+                    (torch.pi / d) * k.double())
+    A, Bw = Xk + Xr.conj(), 1j * w * (Xk - Xr.conj())
+    Z = torch.zeros(R, d, dtype=torch.complex128)
+    Z[:, 0] = 2
+    Z[:, d - k] = (A - Bw).conj()
+    Z[:, k] = A + Bw  # k = d/2 last: Z_{d/2} = A + i w B
+    z = torch.fft.ifft(Z, dim=1) * d / (2 * d)
+    x = torch.stack([z.real, z.imag], dim=2).reshape(R, 2 * d).float()
+    return (x, *outs), written
+
+
+@pytest.mark.parametrize("d,row0", [(2, 0), (16, 0), (256, 0), (16, 7),
+                                    (256, 3)])
+def test_keyed_draw_then_fft_equals_the_plain_version(d, row0):
+    """The keyed kernel's FFT form (each angle pair drawn, sampled and
+    packed by one thread, then the inverse FFT) draws every angle exactly
+    once and gives ``sample_embed_keyed_plain``'s theta, u and v bit for
+    bit and its x within 1e-6, also for rows row0.. of a larger draw."""
+    R = 3
+    rng = np.random.default_rng(800 + d + row0)
+    loc = torch.from_numpy(rng.uniform(-np.pi, np.pi, (R, d))
+                           .astype(np.float32))
+    kappa = torch.from_numpy(rng.uniform(0.03, 10.0, (R, 1))
+                             .astype(np.float32))
+    key = (0, 31 + d)
+    got, written = _keyed_draw_then_fft(key, loc, kappa, row0)
+    want = sampler.sample_embed_keyed_plain(
+        key, loc, kappa, rows=(row0, row0 + R + 2) if row0 else None)
+    assert bool((written == 1).all())
+    for name, g, w in zip(("theta", "u", "v"), got[1:], want[1:]):
+        assert torch.equal(g, w), name
+    np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-6,
+                               rtol=0)
+
+
+def test_form_is_the_kernels_dispatch():
+    """``torus.form`` names the form that the kernels' own dispatch
+    (``torus_fft.cuh::fft_is_pow2``) takes, at every d up to the largest."""
+    text = (pathlib.Path(torus.__file__).parents[1] / "csrc"
+            / "torus_fft.cuh").read_text()
+    expr = re.search(r"fft_is_pow2\(int d\) \{\s*return ([^;]+);",
+                     text).group(1)
+    expr = expr.replace("&&", " and ")
+    for d in range(1, 4097):
+        want = "fft" if eval(expr, {}, {"d": d}) else "table"
+        assert torus.form(d) == want, d

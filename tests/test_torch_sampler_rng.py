@@ -310,7 +310,7 @@ def test_draw_then_fft_equals_the_plain_version(d):
     """The FFT form's pipeline (each angle pair drawn, sampled and packed
     by one thread, then the inverse FFT) draws every angle exactly once,
     gives the plain version's theta, u and v bit for bit and its x within
-    1e-5; ``rng_form`` sends exactly the powers of two to it."""
+    1e-5; ``torus.form`` sends exactly the powers of two to it."""
     rows = 3
     loc, kap = _inputs(d, rows, 500 + d, per_row=d != 16)
     got, written = _draw_then_fft((0, 9 + d), loc, kap)
@@ -320,6 +320,6 @@ def test_draw_then_fft_equals_the_plain_version(d):
         assert torch.equal(g, w), name
     np.testing.assert_allclose(got[0].numpy(), want[0].numpy(), atol=1e-5,
                                rtol=0)
-    assert sampler.rng_form(d) == "fft"
-    assert [sampler.rng_form(n) for n in (3, 513, 2047, 4095)] == \
+    assert torus.form(d) == "fft"
+    assert [torus.form(n) for n in (3, 513, 2047, 4095)] == \
         ["table"] * 4

@@ -227,3 +227,143 @@ def test_rows_per_block_fits_shared_memory(d):
     assert k["kTorusMaxDim"] == MATMUL_MAX_DIM >= d
     staged = 1 * 4 * k["kTorusChunk"] * k["kTorusPitch"]
     assert 16 * d + staged <= k["kTorusMaxSmem"] <= 227 * 1024
+
+
+def _fft_form_bwd(theta, g, u=None, v=None, kappa=None):
+    """The FFT form of csrc/torus_bwd.cu in torch, step for step: pack a row
+    of g as z_m = g[2m] + i g[2m+1]; y = the unnormalised inverse d-point
+    DFT of conj(z), which is conj(Z), Z the forward DFT of z; for the pair
+    (k, d - k), k = 1..d/2, E = (Z_k + conj Z_{d-k}) / 2, O = (Z_k -
+    conj Z_{d-k}) / 2, P = i conj(w_k) O with w_k = e^{i pi k / d}, G_k =
+    E - P and G_{d-k} = conj(E + P) (the real DFT of the row, n = 2d);
+    gc = Re G_k / d, gs = Im G_k / d, d theta = -sin(theta) gc +
+    cos(theta) gs; with u, v and kappa the epilogue's d kappa, both (R, d)
+    with column 0 zero, as ``sampler_bwd``."""
+    R, d = g.shape[0], g.shape[1] // 2
+    y = torch.fft.ifft(torch.complex(g[:, 0::2], -g[:, 1::2]), dim=1) * d
+    k = torch.arange(1, d // 2 + 1)
+    zk, zr = y[:, k].conj(), y[:, d - k].conj()
+    e, o = (zk + zr.conj()) / 2, (zk - zr.conj()) / 2
+    w = torch.polar(torch.ones(len(k), dtype=g.dtype),
+                    (torch.pi / d) * k.to(g.dtype))
+    p = 1j * w.conj() * o
+    G = torch.zeros(R, d, dtype=y.dtype)
+    G[:, d - k] = (e + p).conj()
+    G[:, k] = e - p  # k = d/2 last: its angle is G_k alone
+    dth = (-torch.sin(theta) * G.real[:, 1:]
+           + torch.cos(theta) * G.imag[:, 1:]) / d
+    if u is None:
+        return dth
+    kap = torch.broadcast_to(kappa, (R, d))[:, 1:]
+    zero = torch.zeros((R, 1), dtype=dth.dtype)
+    return (torch.cat([zero, dth], 1),
+            torch.cat([zero, dth * torus.dtheta_dkappa(u, v, kap)], 1))
+
+
+def _exact_dense_bwd(theta, g):
+    """d theta from a float64 basis of the exact phases (k col) mod n: the
+    plain version's product without its float32 basis."""
+    d = g.shape[1] // 2
+    n = 2 * d
+    phase = (torch.arange(1, d)[:, None] * torch.arange(n)[None, :]) % n
+    angle = (2 * np.pi / n) * phase.double()
+    gc = g @ ((2 / n) * torch.cos(angle)).T
+    gs = g @ (-(2 / n) * torch.sin(angle)).T
+    return -torch.sin(theta) * gc + torch.cos(theta) * gs
+
+
+@pytest.mark.parametrize("d", [2, 4, 16, 256])
+def test_fft_form_matches_the_plain_backward(d):
+    """In float64 the FFT form's steps give the dense product to 1e-9
+    (exact phases), and ``torus_bwd_plain`` / ``sampler_bwd_plain`` to
+    1e-7, the error of their float32 basis, with the epilogue and
+    column 0 as ``sampler_bwd`` writes them."""
+    rng = np.random.default_rng(600 + d)
+    R = 5
+    theta = torch.from_numpy(rng.uniform(-np.pi, np.pi, (R, d - 1)))
+    g = torch.from_numpy(rng.normal(size=(R, 2 * d)))
+    u = torch.from_numpy(rng.uniform(1e-6, 1.0, (R, d - 1)))
+    v = torch.from_numpy(rng.uniform(0.0, 1.0, (R, d - 1)))
+    kappa = torch.from_numpy(rng.uniform(0.03, 10.0, (R, 1)))
+    got = _fft_form_bwd(theta, g)
+    np.testing.assert_allclose(got.numpy(), _exact_dense_bwd(theta, g)
+                               .numpy(), atol=1e-9, rtol=0)
+    np.testing.assert_allclose(got.numpy(), torus.torus_bwd_plain(theta, g)
+                               .numpy(), atol=1e-7, rtol=0)
+    got = _fft_form_bwd(theta, g, u, v, kappa)
+    want = torus.sampler_bwd_plain(theta, u, v, kappa, g)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape == (R, d) and (a[:, 0] == 0).all()
+        np.testing.assert_allclose(a.numpy(), b.numpy(),
+                                   atol=1e-7 * max(1.0, b.abs().max()),
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("d", [16, 256])
+def test_fft_form_matches_jax_grad(d):
+    """In float32, as the kernel computes, the FFT form's steps give
+    jax.grad of the embedding within the plain version's bar (1e-5)."""
+    angles, g = _torus_inputs(d, 700 + d)
+    want = np.asarray(jax.grad(lambda a: jnp.sum(
+        jax_angles_to_torus(a, method="matmul") * g))(jnp.asarray(angles)))
+    got = _fft_form_bwd(torch.from_numpy(angles[:, 1:]), torch.from_numpy(g))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want[:, 1:], atol=1e-5, rtol=0)
+
+
+def test_bwd_form_takes_fft_at_powers_of_two():
+    assert [torus.form(d) for d in (16, 256, 4096)] == ["fft"] * 3
+    assert [torus.form(d) for d in (5, 40, 513)] == ["table"] * 3
+
+
+def _fft_header_constants():
+    """The ``constexpr int`` constants of csrc/torus_fft.cuh (the FFT
+    forms' threads) beside those of csrc/torus_basis.cuh."""
+    text = (pathlib.Path(torus.__file__).parents[1] / "csrc"
+            / "torus_fft.cuh").read_text()
+    consts = _header_constants()
+    for name, expr in re.findall(r"^constexpr int (k\w+) = ([^;]+);", text,
+                                 re.M):
+        consts[name] = eval(expr, {}, consts)
+    return consts
+
+
+def _wide_threads(R, d, resident, k):
+    """torus_fft.cuh::fft_wide_threads: one thread per angle pair, up to
+    kFftRowThreads a row, halved (down to no fewer than the passes' d/16)
+    where R rows of them are more than the card keeps resident."""
+    most = max(1, min(d // 2, k["kFftRowThreads"]))
+    if R * most > resident and most // 2 >= max(1, d // 16):
+        return most // 2
+    return most
+
+
+@pytest.mark.parametrize("d", [2, 16, 256, 4096])
+@pytest.mark.parametrize("R", [1, 1 << 20])
+def test_fft_form_rows_fit_shared_memory(d, R):
+    """The FFT forms of D, E and F (fft_wide_*), at either thread count a
+    row: a block of at least kFftMinBlock threads and whole rows; the
+    row's d/16 FFT threads are among them; the block's two padded buffers
+    a row (fft_pitch points of 8 bytes) fit what a block can opt in to,
+    up to the largest d."""
+    k = _fft_header_constants()
+    assert k["kFftRowThreads"] == 1024 and k["kFftMinBlock"] == 256
+    row = _wide_threads(R, d, 132 * k["kFftSmThreads"], k)
+    block = max(row, k["kFftMinBlock"])
+    assert block % row == 0 and block <= 1024  # the launch bound
+    assert max(1, d // 16) <= row
+    pitch = d + (d // 16 if d >= 16 else 1)
+    assert 8 * 2 * (block // row) * pitch <= k["kTorusMaxSmem"]
+    assert d <= k["kTorusMaxDim"]
+
+
+@pytest.mark.parametrize("R,d,want", [
+    (16384, 256, 64), (256, 4096, 512), (200, 4096, 512), (64, 4096, 1024),
+    (4096, 16, 8), (16384, 8, 4), (128, 256, 128), (256, 128, 64)])
+def test_fft_form_halves_a_rows_threads_past_the_resident(R, d, want):
+    """On an H100 (132 multiprocessors of kFftSmThreads resident threads)
+    the shapes of the port's paths take these threads a row: half as many
+    where R rows of one thread a pair would not all be resident."""
+    k = _fft_header_constants()
+    assert k["kFftSmThreads"] == 1024
+    assert _wide_threads(R, d, 132 * k["kFftSmThreads"], k) == want

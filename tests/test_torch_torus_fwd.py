@@ -172,11 +172,11 @@ def _stockham_inverse(Z: np.ndarray) -> np.ndarray:
 @pytest.mark.parametrize("d", [2, 8, 16, 32, 2048, 4096])
 def test_fft_kernel_pass_schedule_is_the_inverse_dft(d):
     """The kernel's Stockham passes (one, or 16 x 2, or three of 16 ...)
-    compute the unnormalised inverse DFT; and ``fwd_form`` routes exactly
+    compute the unnormalised inverse DFT; and ``torus.form`` routes exactly
     the powers of two to the FFT form."""
     Z = np.random.default_rng(d).normal(size=(2, d, 2)).view(
         np.complex128)[..., 0]
     np.testing.assert_allclose(_stockham_inverse(Z),
                                np.fft.ifft(Z, axis=1) * d, atol=1e-9)
-    assert torus.fwd_form(d) == "fft"
-    assert [torus.fwd_form(n) for n in (3, 513, 2047, 4095)] == ["table"] * 4
+    assert torus.form(d) == "fft"
+    assert [torus.form(n) for n in (3, 513, 2047, 4095)] == ["table"] * 4
