@@ -22,10 +22,10 @@ scripts and its artifact helpers, against the JAX package where one runs:
   on a saved tiny ``MLPVAE``.
 The whole JAX runner is not run here (tests/test_runners.py runs it)."""
 
-import importlib.util
 import json
 import math
 import os
+import sys
 
 import jax
 import numpy as np
@@ -35,7 +35,6 @@ import torch
 
 from cliffordtpu.runners import cnn_runner as jrunner
 from cliffordtpu.serving import _flatten_params
-from cliffordtpu.train.state import create_train_state as jax_train_state
 from cliffordtpu.utils import artifacts as jartifacts
 from cliffordtpu_torch.data import load_dataset
 from cliffordtpu_torch.nn import param_import
@@ -48,6 +47,9 @@ from cliffordtpu_torch.train.state import ClippedOptimizer, \
     create_train_state
 from cliffordtpu_torch.utils import artifacts
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_jax_once  # noqa: E402
+
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,14 +59,6 @@ TINY = ["--epochs", "1", "--warmup_epochs", "1", "--batch_size", "16",
         "--no_wandb", "--cycle_epochs", "2", "--patience", "0",
         "--device", "cpu"]
 LOSS_BAR, PARAM_BAR = 1e-4, 5e-4
-
-
-def _jax_script(name):
-    spec = importlib.util.spec_from_file_location(
-        f"jax_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _train_pair(monkeypatch, runner, dataset, n_train):
@@ -78,17 +72,18 @@ def _train_pair(monkeypatch, runner, dataset, n_train):
     in_ch = x_train.shape[-1]
     argv = ["--epochs", "1", "--batch_size", "16", "--warmup_epochs", "1",
             "--cycle_epochs", "2", "--patience", "0"]
-    jargs = _jax_script(runner.__name__.rsplit(".", 1)[-1]) \
+    jargs = torch_jax_once.jax_script(runner.__name__.rsplit(".", 1)[-1]) \
         .build_parser().parse_args(argv)
     args = runner.build_parser().parse_args(argv + ["--device", "cpu"])
     for a in (jargs, args):
         a.cur_lr, a.arch = a.lr, "cnn"
     run_key = jax.random.fold_in(jax.random.PRNGKey(0), 12345)
     jmodel = jrunner.build_model(jargs, "clifford", 16, in_ch)
+    torch_jax_once.patch(monkeypatch)  # the JAX runs share one compile
     init = param_import.from_jax(_flatten_params(jax.device_get(
-        jax_train_state(run_key, jmodel, x_train[:2], optimizer="adamw",
-                        lr=jargs.cur_lr, clip_norm=1.0).params)),
-        "clifford")
+        torch_jax_once.created_once(
+            run_key, jmodel, x_train[:2], optimizer="adamw",
+            lr=jargs.cur_lr, clip_norm=1.0).params)), "clifford")
 
     def run_jax(images):
         jstate, jbest, _ = jrunner.train_model(jargs, jmodel, images, x_test,
@@ -191,7 +186,8 @@ def test_train_model_at_the_fashion_lr_parts_as_jax_from_itself(
     ("hybrid", "powerspherical"), ("vit", "clifford")])
 def test_build_model_takes_the_jax_arguments(arch, dist):
     argv = ["--arch", arch, "--recon_loss", "mse", "--l1_weight", "0.5"]
-    jargs = _jax_script("fashion_train").build_parser().parse_args(argv)
+    jargs = torch_jax_once.jax_script("fashion_train").build_parser() \
+        .parse_args(argv)
     args = fashion_train.build_parser().parse_args(argv)
     in_ch = 3 if arch == "cnn" else 1
     want = jrunner.build_model(jargs, dist, 64, in_ch)
@@ -275,30 +271,40 @@ def test_corrupt_sidecar_is_kept_and_writes_are_atomic(tmp_path):
         == {"a": [1.5, 2.0], "b": [0.25, 3.0]}
 
 
-def test_cnn_runner_inprocess_smoke(tmp_path, monkeypatch):
+@pytest.fixture(scope="module")
+def tiny_run(tmp_path_factory):
+    """The TINY clifford run with no flag, in process on the CPU: its
+    output directory.  The smoke below adds a gaussian run to it."""
+    out = tmp_path_factory.mktemp("tiny")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("CLIFFORDTPU_DATA_DIR", str(out / "none"))
+        _flag_run(fashion_train, [], out, "smoke")
+    return out
+
+
+def test_cnn_runner_inprocess_smoke(tiny_run, monkeypatch):
     """Train + the in-process battery at a tiny config on the CPU; the
     artifact contract; a second per-family run aggregates."""
+    tmp_path = tiny_run
     monkeypatch.setenv("CLIFFORDTPU_DATA_DIR", str(tmp_path / "none"))
+    exp = tmp_path / "results" / "fashionmnist-clifford-d8-l1"
+    metrics = json.loads((exp / "metrics.json").read_text())
+    assert math.isfinite(metrics["final_best_total_loss"])
+    assert metrics["fid_features"] == "random_conv"
+    vsa = json.loads((exp / "vsa_raw.json").read_text())
+    assert set(vsa) == {"bundle_cap", "role_filler", "self_binding_star",
+                        "self_binding_dagger"}
+    assert vsa["bundle_cap"].get("k")
+    assert vsa["self_binding_star"]["k_sims"]
+    assert (tmp_path / "fashionmnist_results.csv").exists()
+    assert (tmp_path / "smoke_timing.json").exists()
     cwd = os.getcwd()
     try:
-        for dist in ("clifford", "gaussian"):
-            args = fashion_train.build_parser().parse_args(
-                TINY + ["--distributions", dist, "--outdir", str(tmp_path)])
-            cnn_runner.run_cnn_experiments(args, "fashionmnist", "smoke",
-                                           full_eval=False)
-            if dist == "clifford":
-                exp = tmp_path / "results" / "fashionmnist-clifford-d8-l1"
-                metrics = json.loads((exp / "metrics.json").read_text())
-                assert math.isfinite(metrics["final_best_total_loss"])
-                assert metrics["fid_features"] == "random_conv"
-                vsa = json.loads((exp / "vsa_raw.json").read_text())
-                assert set(vsa) == {"bundle_cap", "role_filler",
-                                    "self_binding_star",
-                                    "self_binding_dagger"}
-                assert vsa["bundle_cap"].get("k")
-                assert vsa["self_binding_star"]["k_sims"]
-                assert (tmp_path / "fashionmnist_results.csv").exists()
-                assert (tmp_path / "smoke_timing.json").exists()
+        args = fashion_train.build_parser().parse_args(
+            TINY + ["--distributions", "gaussian", "--outdir",
+                    str(tmp_path)])
+        cnn_runner.run_cnn_experiments(args, "fashionmnist", "smoke",
+                                       full_eval=False)
     finally:
         os.chdir(cwd)
     csv_text = (tmp_path / "fashionmnist_results.csv").read_text()
@@ -315,19 +321,19 @@ def test_cnn_runner_inprocess_smoke(tmp_path, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def plain_run(tmp_path_factory):
+def plain_run(tiny_run):
     """The TINY clifford run with no flag: its best loss."""
-    out = tmp_path_factory.mktemp("plain")
-    return _flag_run(fashion_train, [], out)
+    return json.loads((tiny_run / "results" / "fashionmnist-clifford-d8-l1"
+                       / "metrics.json").read_text())["final_best_total_loss"]
 
 
-def _flag_run(script, flags, out):
+def _flag_run(script, flags, out, timing_name="x"):
     cwd = os.getcwd()
     try:
         args = script.build_parser().parse_args(
             TINY + flags + ["--distributions", "clifford", "--outdir",
                             str(out)])
-        cnn_runner.run_cnn_experiments(args, "fashionmnist", "x",
+        cnn_runner.run_cnn_experiments(args, "fashionmnist", timing_name,
                                        full_eval=False)
     finally:
         os.chdir(cwd)
