@@ -18,8 +18,11 @@ Phases, each printing one JSON line and each fatal when it fails:
             odd ones (attention at S 17 without RoPE, 16-row padding in
             bfloat16; d 2048; the table forms at d 513; the keyed sampler
             and the torus backward at the MNIST MLP's R 128, d 5, 40 and
-            256), with the form that
-            ran (attention forward and backward: "mma" or "simt"; torus
+            256; attention forward and backward at image 256's B 4, S 260,
+            where the key-tiled forms run, and those forms at flagship32's
+            shape for the record), with the form that
+            ran (attention forward and backward: "mma" or "simt", with
+            "_tiled" for the key-tiled form; torus
             forward and backward, both samplers: "fft" or "table"), its
             device time
             (CUDA events, median after warm-up; see ``cuda_ms``), the plain
@@ -66,17 +69,20 @@ Phases, each printing one JSON line and each fatal when it fails:
             and another for another;
 8. attention_route  ``fused_attention`` at image 256's shape (B 4, S 260,
             8 heads of 64, RoPE) in each dtype, with and without a
-            gradient: the bfloat16 forward without a gradient must take
-            kernel A, every other case the dense route (``attention_dense``,
-            SDPA after the rotation), read from the counts; outputs and
-            gradients against the plain versions at the attention bars;
+            gradient, and at S 400 (beyond the JAX package's
+            ``attention_supported``) with one: at S 260 every case must
+            take the kernels (the bfloat16 forward without a gradient in
+            the whole-sequence form, the rest key-tiled), at S 400 the
+            dense route (``attention_dense``, SDPA after the rotation),
+            read from the counts; outputs and gradients against the plain
+            versions at the attention bars;
 9. image256  ``CliffordARVAE(image_size=256)`` (``default_config(256)``: 6
             + 12 blocks of S 260), clifford latent 16, batch 4: one request
-            of each entry point and one train step per dtype; bfloat16
-            serving launches A 6 / 6 / 12 times, float32 serving takes the
-            dense route 6 / 6 / 12 times, and every step 18 times with no
-            launch of A or B; the bfloat16 first loss within
-            ``TRAIN_BARS`` of the float32 one;
+            of each entry point and one train step per dtype; serving
+            launches A 6 / 6 / 12 times (float32 in the tiled form,
+            bfloat16 in the whole one), every step 18 tiled A and 18 tiled
+            B, and nothing takes the dense route; the bfloat16 first loss
+            within ``TRAIN_BARS`` of the float32 one;
 10. heads   the gaussian and powerspherical heads, batch 64, per dtype: one
             request of each entry point and ``HEAD_STEPS`` steps after a
             warm-up, on the cnn4096 ``CNNVAE`` (no launch of any kernel;
@@ -207,7 +213,8 @@ then the ``sweep`` and ``figures`` phases (``sweep_phase``,
             and the C++ host (``native/serve.cc``) built from the
             checkout at once, neither linking libpython; each operator's
             CUDA implementation against its CPU one at the serving
-            shapes (u and v bit for bit, ``HOST_OP_BAR``); the
+            shapes (u and v bit for bit, ``HOST_OP_BAR``; the attention
+            also at image 256's S 260 in float32, its key-tiled form); the
             ``HOST_EXPORTS`` bundles (flagship32 in float32 and bfloat16
             compute, cnn4096 by each sampler route and with the gaussian
             and powerspherical heads, the vMF ``MLPVAE`` at z_dim 41)
@@ -356,10 +363,27 @@ def check(ok: bool, what: str):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def attention_form(attention, direction, dtype, S, H, hd, tiled=False):
+    """The form kernel A ("fwd") or B ("bwd") takes at this shape, or its
+    key-tiled form with ``tiled``.  A checkout from before the tiled forms
+    names a form by its dtype alone, one from before the tensor-core forms
+    has one form."""
+    if tiled:
+        return attention.fwd_form(dtype) + "_tiled"
+    if hasattr(attention, "route"):
+        return (attention.fwd_form(dtype, S, H, hd) if direction == "fwd"
+                else attention.bwd_form(dtype, S, H, hd))
+    if direction == "fwd":
+        return getattr(attention, "fwd_form", lambda dt: "simt")(dtype)
+    return getattr(attention, "bwd_form", lambda dt: "scalar")(dtype)
+
+
 def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
-                   packed=False):
+                   packed=False, tiled=False):
     """Kernel A against its plain version; ``packed``: q, k, v the views
-    of one (B, S, H, 3, hd) projection (``fused_proj``), read in place."""
+    of one (B, S, H, 3, hd) projection (``fused_proj``), read in place;
+    ``tiled``: the key-tiled form (with the log-sum-exp, as under
+    autograd) whatever form the route gives the shape."""
     dev = DEVICE
     if packed:
         qkv = torch.randn(B, S, H, 3, hd, generator=gen, device=dev).to(dtype)
@@ -372,7 +396,12 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
         c, s = rope.rope_2d_cos_sin(32, math.isqrt(S - 4), hd,
                                     cls_token_num=4)
         cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(s).to(dev)
+    cs = (None, None) if cos is None else (cos[:S].contiguous(),
+                                           sin[:S].contiguous())
+
     def call():
+        if tiled:
+            return attention._launch_fwd_tiled(q, k, v, *cs)[0]
         if packed:
             return attention.fused_attention_qkv(qkv, cos, sin)
         return attention.fused_attention(q, k, v, cos, sin)
@@ -400,8 +429,7 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
     kernel = cuda_ms(call)
     plain = cuda_ms(lambda: attention.attention_plain(q, k, v, cos, sin))
     library = cuda_ms(lambda: sdpa(qh, kh, vh))
-    # a checkout from before the tensor-core form had the CUDA-core one only
-    form = getattr(attention, "fwd_form", lambda dt: "simt")(dtype)
+    form = attention_form(attention, "fwd", dtype, S, H, hd, tiled)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
         rope=use_rope, form=form, layout="packed" if packed else "contiguous",
@@ -410,9 +438,12 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
 
 
 def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
-                       packed=False):
+                       packed=False, tiled=False):
     """Kernel B against its plain version; ``packed``: q, k, v the views of
-    one (B, S, H, 3, hd) projection, the gradient one packed dqkv."""
+    one (B, S, H, 3, hd) projection, the gradient one packed dqkv.  The
+    tiled form (where the route gives it, or with ``tiled``) reads the
+    tiled forward's output and log-sum-exp, made once before it is
+    timed."""
     dev = DEVICE
     if packed:
         qkv = torch.randn(B, S, H, 3, hd, generator=gen, device=dev).to(dtype)
@@ -426,7 +457,21 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
         c, s = rope.rope_2d_cos_sin(32, math.isqrt(S - 4), hd,
                                     cls_token_num=4)
         cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(s).to(dev)
-    got = attention.fused_attention_bwd(q, k, v, cos, sin, d_out)
+    form = attention_form(attention, "bwd", dtype, S, H, hd, tiled)
+    cs = (None, None) if cos is None else (cos[:S].contiguous(),
+                                           sin[:S].contiguous())
+    saved = {}  # the tiled forward's output and log-sum-exp
+    if form.endswith("_tiled"):
+        saved = dict(zip(("out", "lse"),
+                         attention._launch_fwd_tiled(q, k, v, *cs)))
+
+    def bwd():
+        if tiled:
+            return attention._launch_bwd_tiled(q, k, v, *cs, saved["out"],
+                                               saved["lse"], d_out)
+        return attention.fused_attention_bwd(q, k, v, cos, sin, d_out,
+                                             **saved)
+    got = bwd()
     want = attention.attention_bwd_plain(q, k, v, cos, sin, d_out)
     torch.cuda.synchronize()
     errs, scales = {}, {}
@@ -437,9 +482,12 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
             1.0, scales[name])
         check(bool(torch.isfinite(a).all()) and errs[name] <= bar,
               f"attention_bwd {dtype} S={S} {name}: err {errs[name]} > {bar}")
-    # through autograd, as the model reaches the kernel
+    # through autograd, as the model reaches the kernel (in the form the
+    # route gives the shape)
     before = attention.bwd_launches
-    if packed:
+    if tiled:
+        pass
+    elif packed:
         check(got[0]._base is not None and got[0].stride() == q.stride(),
               "the packed backward did not write one packed gradient")
         qkvg = qkv.clone().requires_grad_()
@@ -451,10 +499,12 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
         auto = torch.autograd.grad(
             attention.fused_attention(qg, kg, vg, cos, sin), (qg, kg, vg),
             d_out)
-    check(attention.bwd_launches == before + 1,
-          "autograd of fused_attention did not launch the backward kernel")
-    check(all(torch.equal(a, b) for a, b in zip(auto, got)),
-          "autograd of fused_attention differs from fused_attention_bwd")
+    if not tiled:
+        check(attention.bwd_launches == before + 1,
+              "autograd of fused_attention did not launch the backward "
+              "kernel")
+        check(all(torch.equal(a, b) for a, b in zip(auto, got)),
+              "autograd of fused_attention differs from fused_attention_bwd")
     # the library yardstick: autograd through SDPA on the already-rotated
     # heads (B, H, S, hd), graph retained
     qr, kr = q, k
@@ -469,14 +519,11 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
     nbytes = 7 * q.numel() * q.element_size() + (
         0 if cos is None else 2 * cos.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 10.0 * B * H * S * S * hd, dtype)
-    kernel = cuda_ms(
-        lambda: attention.fused_attention_bwd(q, k, v, cos, sin, d_out))
+    kernel = cuda_ms(bwd)
     plain = cuda_ms(
         lambda: attention.attention_bwd_plain(q, k, v, cos, sin, d_out))
     library = cuda_ms(lambda: torch.autograd.grad(
         out, (qh, kh, vh), doh, retain_graph=True))
-    # a checkout from before the redesign had one scalar form
-    form = getattr(attention, "bwd_form", lambda dt: "scalar")(dtype)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
         rope=use_rope, form=form, layout="packed" if packed else "contiguous",
@@ -743,6 +790,9 @@ def launch_counts(attention, sampler, torus):
     route (``attention_dense``, not a kernel of this repository)."""
     return {"attention_fwd": attention.launches,
             "attention_bwd": attention.bwd_launches,
+            # the share of A's and B's launches in the key-tiled form
+            "attention_fwd_tiled": attention.tiled_launches,
+            "attention_bwd_tiled": attention.tiled_bwd_launches,
             "attention_dense": attention.dense_calls,
             "torus_fwd": torus.fwd_launches, "torus_bwd": torus.launches,
             "sampler_keyed": sampler.launches,
@@ -751,6 +801,7 @@ def launch_counts(attention, sampler, torus):
 
 def zero_counts(attention, sampler, torus):
     attention.launches = attention.bwd_launches = attention.dense_calls = 0
+    attention.tiled_launches = attention.tiled_bwd_launches = 0
     torus.fwd_launches = torus.launches = 0
     sampler.launches = sampler.rng_launches = 0
 
@@ -983,61 +1034,86 @@ def train_check(kmods, ops_torus, conv_vae, make_model, images, label,
 
 def attention_route(attention, rope, gen):
     """``fused_attention`` at image 256's shape (B 4, S 260, H 8, hd 64,
-    RoPE) in each dtype, with and without a gradient: the route each took
-    (read from the counts), against the expected ones, and the outputs and
-    gradients against the plain versions at the attention bars."""
-    B, S, H, hd = 4, 260, 8, 64
-    c, s_ = rope.rope_2d_cos_sin(256, 16, hd, cls_token_num=4)
-    cos, sin = torch.from_numpy(c).to(DEVICE), torch.from_numpy(s_).to(DEVICE)
+    RoPE) in each dtype, with and without a gradient, and at S 400 (beyond
+    the JAX package's ``attention_supported`` at 8 heads of 64) with one:
+    the route and form each took (read from the counts) against the
+    expected ones, and the outputs and gradients against the plain
+    versions at the attention bars."""
+    B, H, hd = 4, 8, 64
+    # S 260: every case on the kernels, the bfloat16 forward without a
+    # gradient in the whole-sequence form (it fits), the rest key-tiled;
+    # S 400: the dense route for both directions
+    expected = {(260, torch.float32, False): "tiled",
+                (260, torch.float32, True): "tiled",
+                (260, torch.bfloat16, False): "whole",
+                (260, torch.bfloat16, True): "tiled",
+                (400, torch.float32, True): "dense",
+                (400, torch.bfloat16, True): "dense"}
+    routes = {(1, 0, 0, 0, 0): "whole", (1, 0, 1, 0, 0): "tiled",
+              (1, 1, 1, 1, 0): "tiled", (1, 1, 0, 0, 0): "whole",
+              (0, 0, 0, 0, 1): "dense"}
+
+    def counts():
+        return (attention.launches, attention.bwd_launches,
+                attention.tiled_launches, attention.tiled_bwd_launches,
+                attention.dense_calls)
+
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for (S, dtype, grad), want_route in expected.items():
+        grid = math.ceil(math.sqrt(S - 4))
+        c, s_ = rope.rope_2d_cos_sin(256, grid, hd, cls_token_num=4)
+        cos = torch.from_numpy(c).to(DEVICE)
+        sin = torch.from_numpy(s_).to(DEVICE)
         q, k, v, d_out = (torch.randn(B, S, H, hd, generator=gen,
                                       device=DEVICE).to(dtype)
                           for _ in range(4))
-        for grad in (False, True):
-            qg, kg, vg = (t.clone().requires_grad_(grad) for t in (q, k, v))
-            before = (attention.launches, attention.bwd_launches,
-                      attention.dense_calls)
-            out = attention.fused_attention(qg, kg, vg, cos, sin)
-            grads = (torch.autograd.grad(out, (qg, kg, vg), d_out) if grad
-                     else None)
-            torch.cuda.synchronize()
-            moved = tuple(a - b for a, b in zip(
-                (attention.launches, attention.bwd_launches,
-                 attention.dense_calls), before))
-            route = {(1, 0, 0): "kernel", (1, 1, 0): "kernel",
-                     (0, 0, 1): "dense"}.get(moved, f"counts {moved}")
-            want_route = ("kernel" if dtype == torch.bfloat16 and not grad
-                          else "dense")
-            check(route == want_route, f"attention_route {dtype} grad={grad}"
-                                       f": took {route}, expected "
-                                       f"{want_route}")
-            want = attention.attention_plain(q, k, v, cos, sin)
-            err = (out.detach().float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            bar = 1e-5 if dtype == torch.float32 else 2e-2 * scale
-            check(err <= bar, f"attention_route {dtype} grad={grad}: output "
-                              f"error {err} > {bar}")
-            row = dict(dtype=str(dtype).replace("torch.", ""), grad=grad,
-                       route=route, max_abs_err=err, bar=bar)
-            if grad:
-                ref = attention.attention_bwd_plain(q, k, v, cos, sin, d_out)
-                errs = {}
-                for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
-                    errs[name] = (a.float() - b.float()).abs().max().item()
-                    gbar = (1e-5 if dtype == torch.float32 else 2e-2) * max(
-                        1.0, b.float().abs().max().item())
-                    check(errs[name] <= gbar,
-                          f"attention_route {dtype}: {name} error "
-                          f"{errs[name]} > {gbar}")
-                row["grad_errors"] = errs
-            rows.append(row)
-    emit("attention_route", B=B, S=S, H=H, hd=hd, cases=rows,
+        qg, kg, vg = (t.clone().requires_grad_(grad) for t in (q, k, v))
+        before = counts()
+        out = attention.fused_attention(qg, kg, vg, cos, sin)
+        grads = (torch.autograd.grad(out, (qg, kg, vg), d_out) if grad
+                 else None)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(counts(), before))
+        route = routes.get(moved, f"counts {moved}")
+        check(route == want_route, f"attention_route S={S} {dtype} "
+                                   f"grad={grad}: took {route}, expected "
+                                   f"{want_route}")
+        want = attention.attention_plain(q, k, v, cos, sin)
+        err = (out.detach().float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        bar = 1e-5 if dtype == torch.float32 else 2e-2 * scale
+        check(err <= bar, f"attention_route S={S} {dtype} grad={grad}: "
+                          f"output error {err} > {bar}")
+        row = dict(S=S, dtype=str(dtype).replace("torch.", ""), grad=grad,
+                   route=route, max_abs_err=err, bar=bar)
+        if grad:
+            ref = attention.attention_bwd_plain(q, k, v, cos, sin, d_out)
+            errs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+                errs[name] = (a.float() - b.float()).abs().max().item()
+                gbar = (1e-5 if dtype == torch.float32 else 2e-2) * max(
+                    1.0, b.float().abs().max().item())
+                check(errs[name] <= gbar,
+                      f"attention_route S={S} {dtype}: {name} error "
+                      f"{errs[name]} > {gbar}")
+            row["grad_errors"] = errs
+        rows.append(row)
+    S = 260
+    emit("attention_route", B=B, H=H, hd=hd, cases=rows,
+         jax_supported={n: attention.jax_supported(n, H, hd)
+                        for n in (260, 400)},
          smem_bytes={"fwd_f32": attention.smem_bytes(S, hd),
                      "fwd_bf16": attention.smem_bytes(S, hd, torch.bfloat16),
                      "bwd_f32": attention.bwd_smem_bytes(S, hd),
                      "bwd_bf16": attention.bwd_smem_bytes(
-                         S, hd, torch.bfloat16)},
+                         S, hd, torch.bfloat16),
+                     "tiled_fwd_f32": attention.tiled_smem_bytes(hd),
+                     "tiled_bwd_f32": attention.tiled_smem_bytes(
+                         hd, torch.float32, True),
+                     "tiled_fwd_bf16": attention.tiled_smem_bytes(
+                         hd, torch.bfloat16),
+                     "tiled_bwd_bf16": attention.tiled_smem_bytes(
+                         hd, torch.bfloat16, True)},
          smem_max=attention._SMEM_MAX)
 
 
@@ -1053,8 +1129,9 @@ def image256(vit_vae, dtype):
 
 def image256_phase(kmods, serving, vit_vae, state, loop, gen):
     """Serve one request of each entry point and take one train step per
-    dtype: bfloat16 serving takes the forward kernel (it fits at S 260),
-    float32 serving and every train step the dense route."""
+    dtype, every attention on the kernels: float32 serving in the key-tiled
+    forward, bfloat16 serving in the whole-sequence one (it fits at S
+    260), and every train step in the tiled forward and backward."""
     images = torch.rand(IMAGE256_BATCH, 256, 256, 3, generator=gen,
                         device=DEVICE) * 2 - 1
     requests = {
@@ -1067,13 +1144,16 @@ def image256_phase(kmods, serving, vit_vae, state, loop, gen):
                        {"attention_fwd": 12})},
         "float32": {
             "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0],
-                          {"attention_dense": 6}),
+                          {"attention_fwd": 6, "attention_fwd_tiled": 6}),
             "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0],
-                         {"attention_dense": 6, "sampler_keyed": 1}),
+                         {"attention_fwd": 6, "attention_fwd_tiled": 6,
+                          "sampler_keyed": 1}),
             "decode": (FLAGSHIP_REQUESTS["decode"][0],
-                       {"attention_dense": 12})},
+                       {"attention_fwd": 12, "attention_fwd_tiled": 12})},
     }
-    per_step = {"attention_dense": 18, "sampler_keyed": 1, "torus_bwd": 1}
+    per_step = {"attention_fwd": 18, "attention_fwd_tiled": 18,
+                "attention_bwd": 18, "attention_bwd_tiled": 18,
+                "sampler_keyed": 1, "torus_bwd": 1}
     first, path_counts = {}, {}
     for label, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
@@ -3470,7 +3550,8 @@ def host_expected(label, fn):
 def native_op_checks(knative, rope, gen):
     """Each C++ operator's CUDA implementation against its CPU one on the
     same inputs at the serving paths' shapes: the attention at flagship32's
-    (B 64, S 68, 8 heads of 64, RoPE), ``sample_embed`` at flagship32's and
+    (B 64, S 68, 8 heads of 64, RoPE) and, in float32, at image 256's (B 4,
+    S 260: the key-tiled form), ``sample_embed`` at flagship32's and
     cnn4096's rows by every route (u and v bit for bit), ``draw_latent``
     of the other families at cnn4096's and the vMF MLP's.  Returns (the
     errors, the CUDA operators' device times (``cuda_ms``) by kernel row:
@@ -3492,6 +3573,21 @@ def native_op_checks(knative, rope, gen):
         out[f"attention_fwd/{dtype}".replace("torch.", "")] = err
         op_ms["attention_fwd", dtype] = cuda_ms(
             lambda: ops.attention_fwd(q, k, v, cos, sin))
+    # image 256's shape in float32: the operator's key-tiled form of A (a
+    # generator of its own leaves the other cases' draws as they were)
+    c, s = rope.rope_2d_cos_sin(256, 16, 64, cls_token_num=4)
+    cos, sin = torch.from_numpy(c).to(DEVICE), torch.from_numpy(s).to(DEVICE)
+    g260 = torch.Generator(device=DEVICE).manual_seed(260)
+    q, k, v = (torch.randn(IMAGE256_BATCH, 260, 8, 64, generator=g260,
+                           device=DEVICE) for _ in range(3))
+    got = ops.attention_fwd(q, k, v, cos, sin).cpu()
+    want = ops.attention_fwd(q.cpu(), k.cpu(), v.cpu(), cos.cpu(), sin.cpu())
+    err = (got - want).abs().max().item()
+    check(err <= 1e-5, f"native attention_fwd float32 S=260: CUDA vs CPU "
+                       f"(attention_plain) {err} > 1e-5")
+    out["attention_fwd/float32/S260"] = err
+    op_ms["attention_fwd", torch.float32, 260] = cuda_ms(
+        lambda: ops.attention_fwd(q, k, v, cos, sin))
     key = torch.tensor([3, 1234], dtype=torch.int64)
     for R, d in ((BATCH * 64, 16), (BATCH, CNN_LATENT)):
         loc = (torch.rand(R, d, generator=gen, device=DEVICE) * 2 - 1) \
@@ -4886,10 +4982,31 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
              for name in ("sampler_keyed", "torus_bwd")
              for d in MNIST_RUNNER_DIMS})
-    att["bf16_image256"] = attention_case(attention, rope, IMAGE256_BATCH,
-                                          260, 8, 64, torch.bfloat16, True,
-                                          gen)
-    emit("kernel", kernel="attention_fwd", **att["bf16_image256"])
+    # A and B at image 256's shape (B 4, S 260, 8 heads of 64): the
+    # whole-sequence bfloat16 forward of serving, the tiled forms of float32
+    # serving and of every train step, and the bfloat16 tiled forward timed
+    # beside the whole one; then the tiled forms at flagship32's shape, for
+    # the record (the route gives that shape the whole-sequence forms)
+    i256 = (attention, rope, IMAGE256_BATCH, 260, 8, 64)
+    att["bf16_image256"] = attention_case(*i256, torch.bfloat16, True, gen)
+    att["f32_image256"] = attention_case(*i256, torch.float32, True, gen)
+    att["bf16_image256_tiled"] = attention_case(*i256, torch.bfloat16, True,
+                                                gen, tiled=True)
+    for label in ("bf16_image256", "f32_image256", "bf16_image256_tiled"):
+        emit("kernel", kernel="attention_fwd", shape="image256",
+             **att[label])
+    for label, dtype in (("f32_image256", torch.float32),
+                         ("bf16_image256", torch.bfloat16)):
+        att_b[label] = attention_bwd_case(*i256, dtype, True, gen)
+        emit("kernel", kernel="attention_bwd", shape="image256",
+             **att_b[label])
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, case in (("attention_fwd", attention_case),
+                           ("attention_bwd", attention_bwd_case)):
+            emit("kernel", kernel=name, shape="flagship32 (tiled form, for "
+                                              "the record)",
+                 **case(attention, rope, BATCH, 68, 8, 64, dtype, True, gen,
+                        tiled=True))
 
     def launched(name, path, dtype=None):
         """Launches on a main path, serving plus training, in one compute
@@ -4940,10 +5057,14 @@ def main() -> int:
 
     def entry(name, path, source, replaces, case, dtype=None):
         tag = f"{dtype},{path}" if dtype else path
+        launches = launched(name, path, dtype)
+        if name in ("attention_fwd", "attention_bwd"):
+            # the whole-sequence form's share; the tiled form has its rows
+            launches -= launched(f"{name}_tiled", path, dtype)
         return {"name": f"{name}[{tag}]", "route": "cuda",
                 "source": f"cliffordtpu_torch/csrc/{source}",
                 "replaces": f"cliffordtpu/kernels/{replaces}",
-                "launches": launched(name, path, dtype),
+                "launches": launches,
                 **{k: case[k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by",
                                         "library_ms")},
@@ -4970,6 +5091,14 @@ def main() -> int:
               att_b["bf16"], "bfloat16"),
         entry("attention_fwd", "image256", att_src, att_tpu,
               att["bf16_image256"], "bfloat16"),
+        entry("attention_fwd_tiled", "image256", att_src, att_tpu,
+              att["f32_image256"], "float32"),
+        entry("attention_fwd_tiled", "image256", att_src, att_tpu,
+              att["bf16_image256_tiled"], "bfloat16"),
+        entry("attention_bwd_tiled", "image256", att_b_src, att_b_tpu,
+              att_b["f32_image256"], "float32"),
+        entry("attention_bwd_tiled", "image256", att_b_src, att_b_tpu,
+              att_b["bf16_image256"], "bfloat16"),
         entry("torus_fwd", "cnn4096", "torus_fwd.cu", "torus_pallas.py:126",
               tor_f["cnn4096"]),
         entry("torus_bwd", "flagship32", "torus_bwd.cu",

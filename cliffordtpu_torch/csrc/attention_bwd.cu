@@ -22,7 +22,8 @@
 // dq, dk, dv slices and needs no atomics; it reads its rows with 16-byte
 // loads, rotates q and k in float32 as it stages them in shared memory,
 // and takes the softmax over the S real keys.  No log-sum-exp is saved by
-// the forward, so P is recomputed here.
+// the whole-sequence forward, so P is recomputed here.  The key-tiled
+// forms (section "tiled" below) take the sequences that fit no block.
 //
 // What bounds it: at B = 64, H = 8, S = 68, hd = 64 the function moves
 // seven tensors, 31.2 MB in bfloat16 (62.4 MB in float32), and does five
@@ -747,6 +748,620 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
   }
 }
 
+// -------------------------------------------------------------- tiled --
+//
+// The key-tiled forms (attention_bwd_tiled_f32, attention_bwd_tiled_bf16)
+// replace the same pallas_call (_attn_bwd) at the shapes whose whole
+// sequence does not fit one block's shared memory (S 260 at image 256:
+// 832,000 bytes in float32, 461,312 in bfloat16 above).  They compute what
+// _bwd_kernel computes, with P recomputed tile by tile from the forward's
+// log-sum-exp (attention_fwd.cu, tiled section) and the softmax's row term
+// taken as delta = rowsum(dO o O), which equals rowsum(dP o P):
+//
+//   P = exp(scale Qr Kr^T - lse),  dS = P o (dO V^T - delta) scale
+//   dV = P^T dO,  dKr = dS^T Qr,  dQr = dS Kr,  then rot(-theta)
+//
+// One launch, two kinds of block, no atomics: grid (batch x head, 2 x
+// tiles).  A block of the first kind owns a query tile and walks the key
+// tiles, summing dQr in a fixed order; a block of the second kind owns a
+// key tile and walks the query tiles, summing dKr and dV.  Each gradient
+// row is written by one block, so the gradients are the same bits on every
+// run (the port's bit-equal resume rests on it).  Each kind stages the
+// delta of its query rows itself from O and dO.  Keys and queries past S
+// get P = dS = 0.  Shared memory does not depend on S.
+//
+// What bounds it: at image 256's shape (B 4, S 260, H 8, hd 64) the
+// function moves seven (B, S, H, hd) tensors and the tables, 15.0 MB in
+// float32 (7.5 MB in bfloat16), and does five S x S x hd products, 10 B H
+// S^2 hd = 1.4 GFLOP: the float32 form is bound by the CUDA cores' rate
+// (20.7 us at 67 TFLOP/s; its bytes take 4.5 us), the bfloat16 form by HBM
+// bandwidth (2.2 us; the tensor cores need 1.4 us).  The two kinds
+// recompute the scores and dP each, seven products where the fused form
+// does five.
+//
+// float32 (attention_bwd_tiled_simt): tiles of 32, 128 threads.  A thread
+// computes 2 query rows x 4 keys of the scores and of dP (float4 reads),
+// then P and dS in place; the products dQr (2 rows x 8 columns a thread),
+// dV and dKr (4 keys x 8 columns, an outer product over the queries) sum
+// in shared memory, their columns c..c+3 and c+hd/2..c+hd/2+3 so that the
+// inverse rotation needs no exchange.  Six row tiles of hd + 4 floats, P
+// and dS (32 x 36): 61.7 KB at hd 64.
+//
+// bfloat16 (attention_bwd_tiled_mma): tiles of 64, four warps of 16 rows,
+// products on mma.sync as in the whole-sequence form.  A query-tile warp
+// holds its Qr and dO rows as A fragments, computes scores and dP against
+// each staged key tile, and sums dQr += dS Kr with dS's accumulators as
+// its A fragment.  A key-tile warp holds its Kr and v rows as A fragments
+// and computes the transposed tiles S^T = Kr Qr^T and dP^T = V dO^T
+// against each staged query tile, so that P^T and dS^T come out as A
+// fragments for dV += P^T dO and dKr += dS^T Qr (dO and Qr read with
+// ldmatrix.trans).  Gradients leave from the fragments, 4 bytes a lane.
+// Four tiles of hd + 8 bfloat16 and the tile's lse and delta: 37.4 KB at
+// hd 64.
+
+// The tiles, rotate4, stage_f32 and stage_mma are those of
+// attention_fwd.cu's tiled section (each source builds alone).
+constexpr int kTileF32 = 32;  // float32 tiled form: queries and keys a tile
+constexpr int kTiledF32Threads = 128;
+constexpr int kTileMma = 64;  // bfloat16 tiled form
+constexpr int kTiledMmaWarps = kTileMma / 16;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// floats of shared memory of the float32 tiled backward: six row tiles of
+// hd + 4, P and dS in rows of 36, the tile's lse and delta
+__host__ __device__ inline size_t tiled_simt_floats(int hd) {
+  return (size_t)6 * kTileF32 * (hd + 4) + 2 * kTileF32 * (kTileF32 + 4) +
+         2 * kTileF32;
+}
+
+__device__ __forceinline__ void rotate4(float4& x0, float4& x1, float4 c,
+                                        float4 s) {
+  const float4 a = x0, b = x1;
+  x0 = make_float4(a.x * c.x - b.x * s.x, a.y * c.y - b.y * s.y,
+                   a.z * c.z - b.z * s.z, a.w * c.w - b.w * s.w);
+  x1 = make_float4(a.x * s.x + b.x * c.x, a.y * s.y + b.y * c.y,
+                   a.z * s.z + b.z * c.z, a.w * s.w + b.w * c.w);
+}
+
+// Rows t0..t0+31 of x (tokens at stride ld from xbase) into xs (rows of
+// hd + 4), rotated when cos_t is given; rows past S zero.
+__device__ __forceinline__ void stage_f32(float* xs, const float* __restrict__ x,
+                                          size_t xbase, size_t ld, int t0,
+                                          int S, int hd,
+                                          const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t) {
+  const int half = hd / 2;
+  const int CH = half / 4;
+  const int pitch = hd + 4;
+  for (int e = threadIdx.x; e < kTileF32 * CH; e += blockDim.x) {
+    const int r = e / CH;
+    const int col = (e % CH) * 4;
+    const int s = t0 + r;
+    float4 x0 = make_float4(0, 0, 0, 0), x1 = x0;
+    if (s < S) {
+      const size_t g = xbase + (size_t)s * ld + col;
+      x0 = ld4(x + g);
+      x1 = ld4(x + g + half);
+      if (cos_t != nullptr)
+        rotate4(x0, x1, ld4(cos_t + s * half + col),
+                ld4(sin_t + s * half + col));
+    }
+    *reinterpret_cast<float4*>(xs + r * pitch + col) = x0;
+    *reinterpret_cast<float4*>(xs + r * pitch + col + half) = x1;
+  }
+}
+
+// lse and delta = rowsum(dO o O) of rows t0..t0+31, a warp a row; rows
+// past S get 0
+__device__ __forceinline__ void stage_rows_lse_delta_f32(
+    float* lse_s, float* delta_s, const float* __restrict__ lse,
+    const float* __restrict__ o, const float* __restrict__ d_out, size_t base,
+    size_t tok, size_t lbase, int t0, int S, int hd) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < kTileF32; i += blockDim.x / 32) {
+    const int s = t0 + i;
+    float d = 0.0f;
+    if (s < S)
+      for (int c = 4 * lane; c < hd; c += 128)
+        d = dot4(ld4(o + base + (size_t)s * tok + c),
+                 ld4(d_out + base + (size_t)s * tok + c), d);
+    for (int off = 16; off > 0; off >>= 1)
+      d += __shfl_xor_sync(0xffffffffu, d, off);
+    if (lane == 0) {
+      delta_s[i] = d;
+      lse_s[i] = s < S ? lse[lbase + s] : 0.0f;
+    }
+  }
+}
+
+// P and dS of query rows i = ti + 16 a and keys j = tj + 8 c of the staged
+// tiles (qs, os: queries from token q0; ks, vs: keys from token k0), the
+// masked ones 0; P to ps (when given) and dS to ds, rows of 36
+__device__ __forceinline__ void probabilities_f32(
+    float* ps, float* ds, const float* qs, const float* os, const float* ks,
+    const float* vs, const float* lse_s, const float* delta_s, int q0, int k0,
+    int S, int hd, float scale) {
+  constexpr int PP = kTileF32 + 4;
+  const int QP = hd + 4;
+  for (int e = threadIdx.x; e < 16 * 8; e += blockDim.x) {
+    const int ti = e / 8;
+    const int tj = e % 8;
+    float sc[2][4] = {}, dp[2][4] = {};
+    for (int d = 0; d < hd; d += 4) {
+      float4 qa[2], oa[2], kb[4], vb[4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        qa[a] = ld4(qs + (ti + 16 * a) * QP + d);
+        oa[a] = ld4(os + (ti + 16 * a) * QP + d);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        kb[c] = ld4(ks + (tj + 8 * c) * QP + d);
+        vb[c] = ld4(vs + (tj + 8 * c) * QP + d);
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sc[a][c] = dot4(qa[a], kb[c], sc[a][c]);
+          dp[a][c] = dot4(oa[a], vb[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = ti + 16 * a;
+        const int j = tj + 8 * c;
+        const float p = q0 + i < S && k0 + j < S
+                            ? expf(scale * sc[a][c] - lse_s[i])
+                            : 0.0f;
+        if (ps != nullptr) ps[i * PP + j] = p;
+        ds[i * PP + j] = p * (dp[a][c] - delta_s[i]) * scale;
+      }
+  }
+}
+
+__global__ void __launch_bounds__(kTiledF32Threads)
+    attention_bwd_tiled_simt(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ cos_t,
+        const float* __restrict__ sin_t, const float* __restrict__ o,
+        const float* __restrict__ lse, const float* __restrict__ d_out,
+        float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+        int S, int H, int hd, int ld_tok, int ld_head, float scale) {
+  constexpr int T = kTileF32;
+  constexpr int PP = T + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int QP = hd + 4;
+  const int R = T * QP;  // floats of a row tile; six of them first
+  float* ps = smem + 6 * R;
+  float* ds = ps + T * PP;
+  float* lse_s = ds + T * PP;
+  float* delta_s = lse_s + T;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const size_t tok = (size_t)H * hd;
+  const size_t base = (size_t)b * S * tok + (size_t)h * hd;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
+  const size_t lbase = (size_t)bh * S;
+  const int half = hd / 2;
+  const int C8 = hd / 8;
+  const int ntiles = (S + T - 1) / T;
+  const bool dq_kind = (int)blockIdx.y < ntiles;
+  const int t0 = (dq_kind ? blockIdx.y : blockIdx.y - ntiles) * T;
+
+  if (dq_kind) {
+    float *qs = smem, *os = smem + R, *ks = smem + 2 * R, *vs = smem + 3 * R,
+          *acc = smem + 4 * R;
+    stage_f32(qs, q, ibase, ld_tok, t0, S, hd, cos_t, sin_t);
+    stage_f32(os, d_out, base, tok, t0, S, hd, nullptr, nullptr);
+    stage_rows_lse_delta_f32(lse_s, delta_s, lse, o, d_out, base, tok, lbase,
+                             t0, S, hd);
+    for (int e = threadIdx.x; e < T * QP; e += blockDim.x) acc[e] = 0.0f;
+    for (int k0 = 0; k0 < S; k0 += T) {
+      __syncthreads();  // the last key tile and dS are no longer read
+      stage_f32(ks, k, ibase, ld_tok, k0, S, hd, cos_t, sin_t);
+      stage_f32(vs, v, ibase, ld_tok, k0, S, hd, nullptr, nullptr);
+      __syncthreads();
+      probabilities_f32(nullptr, ds, qs, os, ks, vs, lse_s, delta_s, t0, k0,
+                        S, hd, scale);
+      __syncthreads();
+      // dQr += dS Kr: rows ti + 16 a, columns c0..c0+3, c0+half..+3
+      for (int e = threadIdx.x; e < 16 * C8; e += blockDim.x) {
+        const int ti = e / C8;
+        const int c0 = 4 * (e % C8);
+        float4 a0[2], a1[2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          a0[a] = ld4(acc + (ti + 16 * a) * QP + c0);
+          a1[a] = ld4(acc + (ti + 16 * a) * QP + c0 + half);
+        }
+        for (int j = 0; j < T; j += 4) {
+          float4 da[2];
+#pragma unroll
+          for (int a = 0; a < 2; ++a) da[a] = ld4(ds + (ti + 16 * a) * PP + j);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float4 k0v = ld4(ks + (j + jj) * QP + c0);
+            const float4 k1v = ld4(ks + (j + jj) * QP + c0 + half);
+#pragma unroll
+            for (int a = 0; a < 2; ++a) {
+              const float w = jj == 0   ? da[a].x
+                              : jj == 1 ? da[a].y
+                              : jj == 2 ? da[a].z
+                                        : da[a].w;
+              axpy4(w, k0v, a0[a]);
+              axpy4(w, k1v, a1[a]);
+            }
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          *reinterpret_cast<float4*>(acc + (ti + 16 * a) * QP + c0) = a0[a];
+          *reinterpret_cast<float4*>(acc + (ti + 16 * a) * QP + c0 + half) =
+              a1[a];
+        }
+      }
+    }
+    __syncthreads();
+    // dq = rot^-1(dQr)
+    for (int e = threadIdx.x; e < T * C8; e += blockDim.x) {
+      const int r = e / C8;
+      const int c0 = 4 * (e % C8);
+      const int s = t0 + r;
+      if (s >= S) continue;
+      float4 x0 = ld4(acc + r * QP + c0), x1 = ld4(acc + r * QP + c0 + half);
+      if (cos_t != nullptr) {
+        const float4 c = ld4(cos_t + s * half + c0);
+        const float4 sn = ld4(sin_t + s * half + c0);
+        const float4 y0 = rotate_back0(x0, x1, c, sn);
+        x1 = rotate_back1(x0, x1, c, sn);
+        x0 = y0;
+      }
+      float* dst = dq + ibase + (size_t)s * ld_tok + c0;
+      *reinterpret_cast<float4*>(dst) = x0;
+      *reinterpret_cast<float4*>(dst + half) = x1;
+    }
+    return;
+  }
+
+  float *ks = smem, *vs = smem + R, *dk_acc = smem + 2 * R,
+        *dv_acc = smem + 3 * R, *qs = smem + 4 * R, *os = smem + 5 * R;
+  stage_f32(ks, k, ibase, ld_tok, t0, S, hd, cos_t, sin_t);
+  stage_f32(vs, v, ibase, ld_tok, t0, S, hd, nullptr, nullptr);
+  for (int e = threadIdx.x; e < T * QP; e += blockDim.x)
+    dk_acc[e] = dv_acc[e] = 0.0f;
+  const int n1 = (T / 4) * C8;
+  for (int q0 = 0; q0 < S; q0 += T) {
+    __syncthreads();  // the last query tile, P and dS are no longer read
+    stage_f32(qs, q, ibase, ld_tok, q0, S, hd, cos_t, sin_t);
+    stage_f32(os, d_out, base, tok, q0, S, hd, nullptr, nullptr);
+    stage_rows_lse_delta_f32(lse_s, delta_s, lse, o, d_out, base, tok, lbase,
+                             q0, S, hd);
+    __syncthreads();
+    probabilities_f32(ps, ds, qs, os, ks, vs, lse_s, delta_s, q0, t0, S, hd,
+                      scale);
+    __syncthreads();
+    // dV += P^T dO, dKr += dS^T Qr: keys 4 tr + a, columns c0.., c0+half..
+    for (int e = threadIdx.x; e < 2 * n1; e += blockDim.x) {
+      const int kind = e / n1;  // 0 dV, 1 dK
+      const int e2 = e - kind * n1;
+      const int tr = e2 / C8;
+      const int c0 = 4 * (e2 % C8);
+      const float* A = kind == 0 ? ps : ds;
+      const float* Bm = kind == 0 ? os : qs;
+      float* accp = kind == 0 ? dv_acc : dk_acc;
+      float4 a0[4], a1[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        a0[a] = ld4(accp + (4 * tr + a) * QP + c0);
+        a1[a] = ld4(accp + (4 * tr + a) * QP + c0 + half);
+      }
+      for (int i = 0; i < T; ++i) {
+        const float4 w = ld4(A + i * PP + 4 * tr);
+        const float4 b0 = ld4(Bm + i * QP + c0);
+        const float4 b1 = ld4(Bm + i * QP + c0 + half);
+        axpy4(w.x, b0, a0[0]);
+        axpy4(w.x, b1, a1[0]);
+        axpy4(w.y, b0, a0[1]);
+        axpy4(w.y, b1, a1[1]);
+        axpy4(w.z, b0, a0[2]);
+        axpy4(w.z, b1, a1[2]);
+        axpy4(w.w, b0, a0[3]);
+        axpy4(w.w, b1, a1[3]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        *reinterpret_cast<float4*>(accp + (4 * tr + a) * QP + c0) = a0[a];
+        *reinterpret_cast<float4*>(accp + (4 * tr + a) * QP + c0 + half) =
+            a1[a];
+      }
+    }
+  }
+  __syncthreads();
+  // dv, and dk = rot^-1(dKr)
+  for (int e = threadIdx.x; e < 2 * T * C8; e += blockDim.x) {
+    const int kind = e / (T * C8);  // 0 dV, 1 dK
+    const int e2 = e - kind * T * C8;
+    const int r = e2 / C8;
+    const int c0 = 4 * (e2 % C8);
+    const int s = t0 + r;
+    if (s >= S) continue;
+    const float* accp = kind == 0 ? dv_acc : dk_acc;
+    float4 x0 = ld4(accp + r * QP + c0), x1 = ld4(accp + r * QP + c0 + half);
+    if (kind == 1 && cos_t != nullptr) {
+      const float4 c = ld4(cos_t + s * half + c0);
+      const float4 sn = ld4(sin_t + s * half + c0);
+      const float4 y0 = rotate_back0(x0, x1, c, sn);
+      x1 = rotate_back1(x0, x1, c, sn);
+      x0 = y0;
+    }
+    float* dst = (kind == 0 ? dv : dk) + ibase + (size_t)s * ld_tok + c0;
+    *reinterpret_cast<float4*>(dst) = x0;
+    *reinterpret_cast<float4*>(dst + half) = x1;
+  }
+}
+
+// Rows t0..t0+63 of x (tokens at stride ld from xbase) into xs (rows of
+// hd + 8), rotated in float32 when cos_t is given; rows past S zero.
+template <int HD>
+__device__ __forceinline__ void stage_mma(__nv_bfloat16* xs,
+                                          const __nv_bfloat16* __restrict__ x,
+                                          size_t xbase, size_t ld, int t0,
+                                          int S,
+                                          const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t) {
+  constexpr int P = mma_pitch<HD>();
+  constexpr int HALF = HD / 2;
+  constexpr int CH = HALF / 8;
+  for (int e = threadIdx.x; e < kTileMma * CH; e += blockDim.x) {
+    const int r = e / CH;
+    const int col = (e % CH) * 8;
+    const int s = t0 + r;
+    uint4 x0 = make_uint4(0, 0, 0, 0), x1 = x0;
+    if (s < S) {
+      const size_t g = xbase + (size_t)s * ld + col;
+      x0 = *reinterpret_cast<const uint4*>(x + g);
+      x1 = *reinterpret_cast<const uint4*>(x + g + HALF);
+      if (cos_t != nullptr) {
+        const float4* cp =
+            reinterpret_cast<const float4*>(cos_t + s * HALF + col);
+        const float4* sp =
+            reinterpret_cast<const float4*>(sin_t + s * HALF + col);
+        rotate8(x0, x1, cp[0], cp[1], sp[0], sp[1]);
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + r * P + col) = x0;
+    *reinterpret_cast<uint4*>(xs + r * P + col + HALF) = x1;
+  }
+}
+
+// lse in base 2 and delta = rowsum(dO o O) (float32 sums of the bfloat16
+// values) of rows t0..t0+63, a thread a row; rows past S get 0
+template <int HD>
+__device__ __forceinline__ void stage_rows_lse_delta_mma(
+    float* lse2_s, float* delta_s, const float* __restrict__ lse,
+    const __nv_bfloat16* __restrict__ o,
+    const __nv_bfloat16* __restrict__ d_out, size_t base, size_t tok,
+    size_t lbase, int t0, int S) {
+  for (int r = threadIdx.x; r < kTileMma; r += blockDim.x) {
+    const int s = t0 + r;
+    float d = 0.0f, l2 = 0.0f;
+    if (s < S) {
+      const __nv_bfloat16* orow = o + base + (size_t)s * tok;
+      const __nv_bfloat16* grow = d_out + base + (size_t)s * tok;
+      for (int c = 0; c < HD; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 w = *reinterpret_cast<const uint4*>(grow + c);
+        const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+        const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          d = fmaf(bf16_lo(av[i]), bf16_lo(wv[i]), d);
+          d = fmaf(bf16_hi(av[i]), bf16_hi(wv[i]), d);
+        }
+      }
+      l2 = lse[lbase + s] * kLog2e;
+    }
+    lse2_s[r] = l2;
+    delta_s[r] = d;
+  }
+}
+
+// A fragments (hd/16 of them) of rows r0..r0+15 of xs
+template <int HD>
+__device__ __forceinline__ void load_rows(uint32_t (&a)[HD / 16][4],
+                                          const __nv_bfloat16* xs, int r0,
+                                          int lane) {
+  constexpr int P = mma_pitch<HD>();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(a[kk], xs + (r0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+}
+
+// A 16-row accumulator tile of tokens r0.. to `out` (at stride ld from
+// obase) as bfloat16, 4 bytes a lane; rows past S are not written
+template <int HD>
+__device__ __forceinline__ void store_fragments(
+    const float (&acc)[HD / 8][4], __nv_bfloat16* __restrict__ out,
+    size_t obase, size_t ld, int r0, int S, int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= S) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(out + obase + (size_t)row * ld + n * 8 +
+                                   2 * t) =
+          pack_bf16(acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTiledMmaWarps * 32)
+    attention_bwd_tiled_mma(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t,
+                            const __nv_bfloat16* __restrict__ o,
+                            const float* __restrict__ lse,
+                            const __nv_bfloat16* __restrict__ d_out,
+                            __nv_bfloat16* __restrict__ dq,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int S, int H,
+                            int ld_tok, int ld_head, float scale_log2,
+                            float scale) {
+  constexpr int P = mma_pitch<HD>();
+  constexpr int R = kTileMma * P;  // elements of a tile; four of them first
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  float* lse2_s = reinterpret_cast<float*>(sm + 4 * R);
+  float* delta_s = lse2_s + kTileMma;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const size_t tok = (size_t)H * HD;
+  const size_t base = (size_t)b * S * tok + (size_t)h * HD;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
+  const size_t lbase = (size_t)bh * S;
+  const int ntiles = (S + kTileMma - 1) / kTileMma;
+  const bool dq_kind = (int)blockIdx.y < ntiles;
+  const int t0 = (dq_kind ? blockIdx.y : blockIdx.y - ntiles) * kTileMma;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = warp * 16;  // the warp's rows of its own tile
+  const bool active = t0 + m0 < S;
+
+  if (dq_kind) {
+    __nv_bfloat16 *qs = sm, *os = sm + R, *ks = sm + 2 * R, *vs = sm + 3 * R;
+    stage_mma<HD>(qs, q, ibase, ld_tok, t0, S, cos_t, sin_t);
+    stage_mma<HD>(os, d_out, base, tok, t0, S, nullptr, nullptr);
+    stage_rows_lse_delta_mma<HD>(lse2_s, delta_s, lse, o, d_out, base, tok,
+                                 lbase, t0, S);
+    __syncthreads();
+    uint32_t qa[HD / 16][4], oa[HD / 16][4];
+    float lr[2], dr[2];
+    bool row_ok[2];
+    if (active) {
+      load_rows<HD>(qa, qs, m0, lane);
+      load_rows<HD>(oa, os, m0, lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lr[r] = lse2_s[m0 + g + 8 * r];
+      dr[r] = delta_s[m0 + g + 8 * r];
+      row_ok[r] = t0 + m0 + g + 8 * r < S;
+    }
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+    for (int k0 = 0; k0 < S; k0 += kTileMma) {
+      __syncthreads();  // the last key tile is no longer read
+      stage_mma<HD>(ks, k, ibase, ld_tok, k0, S, cos_t, sin_t);
+      stage_mma<HD>(vs, v, ibase, ld_tok, k0, S, nullptr, nullptr);
+      __syncthreads();
+      if (!active) continue;
+      const int rest = (S - k0 + 15) & ~15;
+      const int nk = rest < kTileMma ? rest : kTileMma;
+      for (int n0 = 0; n0 < nk; n0 += 16) {
+        float sc[2][4], dp[2][4];
+        row_products<HD>(sc, qa, ks, n0, lane);
+        row_products<HD>(dp, oa, vs, n0, lane);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int key = k0 + n0 + nt * 8 + 2 * t + (e & 1);
+            const float p = key < S && row_ok[r]
+                                ? exp2f(sc[nt][e] * scale_log2 - lr[r])
+                                : 0.0f;
+            dp[nt][e] = p * (dp[nt][e] - dr[r]) * scale;
+          }
+        const uint32_t da[4] = {pack_bf16(dp[0][0], dp[0][1]),
+                                pack_bf16(dp[0][2], dp[0][3]),
+                                pack_bf16(dp[1][0], dp[1][1]),
+                                pack_bf16(dp[1][2], dp[1][3])};
+        times_rows<HD>(acc, da, ks, n0, lane);
+      }
+    }
+    if (!active) return;
+    unrotate<HD>(acc, cos_t, sin_t, t0 + m0, g, t, S);
+    store_fragments<HD>(acc, dq, ibase, ld_tok, t0 + m0, S, g, t);
+    return;
+  }
+
+  __nv_bfloat16 *ks = sm, *vs = sm + R, *qs = sm + 2 * R, *os = sm + 3 * R;
+  stage_mma<HD>(ks, k, ibase, ld_tok, t0, S, cos_t, sin_t);
+  stage_mma<HD>(vs, v, ibase, ld_tok, t0, S, nullptr, nullptr);
+  __syncthreads();
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
+  if (active) {
+    load_rows<HD>(ka, ks, m0, lane);
+    load_rows<HD>(va, vs, m0, lane);
+  }
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) key_ok[r] = t0 + m0 + g + 8 * r < S;
+  float av[HD / 8][4], ak[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.0f;
+    ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.0f;
+  }
+  for (int q0 = 0; q0 < S; q0 += kTileMma) {
+    __syncthreads();  // the last query tile is no longer read
+    stage_mma<HD>(qs, q, ibase, ld_tok, q0, S, cos_t, sin_t);
+    stage_mma<HD>(os, d_out, base, tok, q0, S, nullptr, nullptr);
+    stage_rows_lse_delta_mma<HD>(lse2_s, delta_s, lse, o, d_out, base, tok,
+                                 lbase, q0, S);
+    __syncthreads();
+    if (!active) continue;
+    const int rest = (S - q0 + 15) & ~15;
+    const int ni = rest < kTileMma ? rest : kTileMma;
+    for (int i0 = 0; i0 < ni; i0 += 16) {
+      // S^T and dP^T: rows the warp's keys, columns queries i0..i0+15
+      float sc[2][4], dp[2][4];
+      row_products<HD>(sc, ka, qs, i0, lane);
+      row_products<HD>(dp, va, os, i0, lane);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = i0 + nt * 8 + 2 * t + (e & 1);
+          const float p = q0 + qi < S && key_ok[e >> 1]
+                              ? exp2f(sc[nt][e] * scale_log2 - lse2_s[qi])
+                              : 0.0f;
+          sc[nt][e] = p;
+          dp[nt][e] = p * (dp[nt][e] - delta_s[qi]) * scale;
+        }
+      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
+                              pack_bf16(sc[0][2], sc[0][3]),
+                              pack_bf16(sc[1][0], sc[1][1]),
+                              pack_bf16(sc[1][2], sc[1][3])};
+      const uint32_t da[4] = {pack_bf16(dp[0][0], dp[0][1]),
+                              pack_bf16(dp[0][2], dp[0][3]),
+                              pack_bf16(dp[1][0], dp[1][1]),
+                              pack_bf16(dp[1][2], dp[1][3])};
+      times_rows<HD>(av, pa, os, i0, lane);
+      times_rows<HD>(ak, da, qs, i0, lane);
+    }
+  }
+  if (!active) return;
+  unrotate<HD>(ak, cos_t, sin_t, t0 + m0, g, t, S);
+  store_fragments<HD>(ak, dk, ibase, ld_tok, t0 + m0, S, g, t);
+  store_fragments<HD>(av, dv, ibase, ld_tok, t0 + m0, S, g, t);
+}
+
 // --------------------------------------------------------------- launch --
 
 // A kernel's dynamic shared-memory limit is raised to the device's opt-in
@@ -789,6 +1404,30 @@ int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
       (const __nv_bfloat16*)v, cos_t, sin_t, (const __nv_bfloat16*)d_out,
       (__nv_bfloat16*)dq, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H,
       ld_tok, ld_head, 1.4426950408889634f * scale, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tiled_mma(const void* q, const void* k, const void* v,
+                     const float* cos_t, const float* sin_t, const void* o,
+                     const float* lse, const void* d_out, void* dq, void* dk,
+                     void* dv, int B, int S, int H, int ld_tok, int ld_head,
+                     void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_bwd_tiled_mma<HD>, raised);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem =
+      sizeof(__nv_bfloat16) * 4 * (size_t)kTileMma * mma_pitch<HD>() +
+      sizeof(float) * 2 * kTileMma;
+  const dim3 grid(B * H, 2 * ((S + kTileMma - 1) / kTileMma));
+  const float scale = 1.0f / sqrtf((float)HD);
+  attention_bwd_tiled_mma<HD>
+      <<<grid, kTiledMmaWarps * 32, smem, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, cos_t, sin_t, (const __nv_bfloat16*)o,
+          lse, (const __nv_bfloat16*)d_out, (__nv_bfloat16*)dq,
+          (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H, ld_tok, ld_head,
+          kLog2e * scale, scale);
   return (int)cudaGetLastError();
 }
 
@@ -840,6 +1479,55 @@ extern "C" int attention_bwd_bf16(const void* q, const void* k, const void* v,
     case 128:
       return launch_mma<128>(q, k, v, cos_t, sin_t, d_out, dq, dk, dv, B, S,
                              H, ld_tok, ld_head, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The key-tiled forms (the "tiled" section above), with the same layout
+// rules; o is the forward's output (contiguous (B, S, H, hd)) and lse its
+// float32 (B, H, S) log-sum-exp (attention_fwd_tiled_*).  float32 takes hd
+// a multiple of 8 whose tiles fit the shared memory (kernels/attention.py::
+// tiled_smem_bytes), bfloat16 hd 16, 32, 64 or 128.
+extern "C" int attention_bwd_tiled_f32(const void* q, const void* k,
+                                       const void* v, const float* cos_t,
+                                       const float* sin_t, const void* o,
+                                       const float* lse, const void* d_out,
+                                       void* dq, void* dk, void* dv, int B,
+                                       int S, int H, int hd, int ld_tok,
+                                       int ld_head, void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_bwd_tiled_simt, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, 2 * ((S + kTileF32 - 1) / kTileF32));
+  attention_bwd_tiled_simt<<<grid, kTiledF32Threads,
+                             sizeof(float) * tiled_simt_floats(hd),
+                             (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
+      (const float*)o, lse, (const float*)d_out, (float*)dq, (float*)dk,
+      (float*)dv, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int attention_bwd_tiled_bf16(const void* q, const void* k,
+                                        const void* v, const float* cos_t,
+                                        const float* sin_t, const void* o,
+                                        const float* lse, const void* d_out,
+                                        void* dq, void* dk, void* dv, int B,
+                                        int S, int H, int hd, int ld_tok,
+                                        int ld_head, void* stream) {
+  switch (hd) {
+    case 16:
+      return launch_tiled_mma<16>(q, k, v, cos_t, sin_t, o, lse, d_out, dq,
+                                  dk, dv, B, S, H, ld_tok, ld_head, stream);
+    case 32:
+      return launch_tiled_mma<32>(q, k, v, cos_t, sin_t, o, lse, d_out, dq,
+                                  dk, dv, B, S, H, ld_tok, ld_head, stream);
+    case 64:
+      return launch_tiled_mma<64>(q, k, v, cos_t, sin_t, o, lse, d_out, dq,
+                                  dk, dv, B, S, H, ld_tok, ld_head, stream);
+    case 128:
+      return launch_tiled_mma<128>(q, k, v, cos_t, sin_t, o, lse, d_out, dq,
+                                   dk, dv, B, S, H, ld_tok, ld_head, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,7 +11,9 @@
 // rows straight from the (B, S, H, hd) strides with 16-byte loads (no
 // transpose or pad in HBM), rotates q and k in float32 as it stages them
 // in shared memory, and takes the softmax over the S real keys.  Scores
-// never touch HBM.
+// never touch HBM.  These whole-sequence forms take the shapes whose
+// sequence fits one block; the key-tiled forms (section "tiled" below)
+// take the longer sequences that JAX's attention_supported admits.
 //
 // q, k and v are read at a token stride ld_tok and a head stride ld_head
 // (elements; the batch stride is S ld_tok): H hd and hd for contiguous
@@ -476,6 +478,414 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
   }
 }
 
+// -------------------------------------------------------------- tiled --
+//
+// The key-tiled forms (attention_fwd_tiled_f32, attention_fwd_tiled_bf16)
+// replace the same pallas_call (_attn_fwd_call) at the shapes whose whole
+// sequence does not fit one block's shared memory: S 260 at image 256
+// (default_config(256), 8 heads of 64) needs 482,560 bytes in the float32
+// form above, and JAX's attention_supported admits up to about S 330 at 8
+// heads of 64.  One block per (query tile, batch x head) keeps its query
+// tile, rotated on load, and walks the keys one tile at a time: K rotated
+// on load, V, then an online softmax (a running maximum and sum per row in
+// float32, the partial output rescaled by exp(m_old - m_new)).  Keys past S
+// are masked to -1e30 (attention_pallas.py::_NEG); query rows past S are
+// zero and never stored.  Shared memory does not depend on S.  With a
+// non-null lse the block also writes each row's log-sum-exp of the scaled
+// scores, float32 (B, H, S), which the tiled backward reads to recompute P.
+//
+// What bounds it: at image 256's shape (B 4, S 260, H 8, hd 64) the
+// function moves 8.6 MB in float32 (q, k, v, out, the tables; 4.3 MB in
+// bfloat16) and does 4 B H S^2 hd = 0.55 GFLOP: the float32 form is bound
+// by the CUDA cores' rate (8.3 us at 67 TFLOP/s; its bytes take 2.6 us),
+// the bfloat16 form by HBM bandwidth (1.3 us at 3.35 TB/s; the tensor
+// cores need 0.56 us).
+//
+// float32 (attention_fwd_tiled_simt): tiles of 32 queries and 32 keys, 128
+// threads.  A thread computes 2 query rows x 4 keys of the scores (rows
+// ti, ti + 16, keys tj + 8c) from float4 reads; the softmax takes one warp
+// per row, lane j on key j; the partial output lives in shared memory and
+// a thread updates 2 rows x 4 columns of it per key tile.  Four row tiles
+// of hd + 4 floats, the 32 x 36 probabilities and three row vectors: 39.8
+// KB at hd 64, so several blocks share an SM.
+//
+// bfloat16 (attention_fwd_tiled_mma): tiles of 64 queries (four warps of
+// 16 rows) and 64 keys.  Each warp keeps its rotated q rows as A fragments
+// and runs the whole-sequence form's inner loop (scores on mma.sync, the
+// online softmax on the fragments, P reused in registers for P v) over
+// each staged key tile.  A warp whose 16 rows lie past S stages and
+// synchronises with the others but computes nothing.  q, k and v tiles in
+// rows of hd + 8: 27.6 KB at hd 64.
+
+constexpr float kNeg = -1e30f;  // attention_pallas.py::_NEG
+constexpr int kTileF32 = 32;    // float32 tiled form: queries and keys a tile
+constexpr int kTiledF32Threads = 128;
+constexpr int kTileMma = 64;    // bfloat16 tiled form: queries and keys a tile
+constexpr int kTiledMmaWarps = kTileMma / 16;
+
+// floats of shared memory of the float32 tiled forward: q, k, v and the
+// partial output in rows of hd + 4, the probabilities in rows of 36, and
+// the running maximum, sum and correction of each row
+__host__ __device__ inline size_t tiled_simt_floats(int hd) {
+  return (size_t)4 * kTileF32 * (hd + 4) + kTileF32 * (kTileF32 + 4) +
+         3 * kTileF32;
+}
+
+__device__ __forceinline__ void rotate4(float4& x0, float4& x1, float4 c,
+                                        float4 s) {
+  const float4 a = x0, b = x1;
+  x0 = make_float4(a.x * c.x - b.x * s.x, a.y * c.y - b.y * s.y,
+                   a.z * c.z - b.z * s.z, a.w * c.w - b.w * s.w);
+  x1 = make_float4(a.x * s.x + b.x * c.x, a.y * s.y + b.y * c.y,
+                   a.z * s.z + b.z * c.z, a.w * s.w + b.w * c.w);
+}
+
+// Rows t0..t0+31 of x (tokens at stride ld from xbase) into xs (rows of
+// hd + 4), rotated when cos_t is given; rows past S zero.
+__device__ __forceinline__ void stage_f32(float* xs, const float* __restrict__ x,
+                                          size_t xbase, size_t ld, int t0,
+                                          int S, int hd,
+                                          const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t) {
+  const int half = hd / 2;
+  const int CH = half / 4;
+  const int pitch = hd + 4;
+  for (int e = threadIdx.x; e < kTileF32 * CH; e += blockDim.x) {
+    const int r = e / CH;
+    const int col = (e % CH) * 4;
+    const int s = t0 + r;
+    float4 x0 = make_float4(0, 0, 0, 0), x1 = x0;
+    if (s < S) {
+      const size_t g = xbase + (size_t)s * ld + col;
+      x0 = ld4(x + g);
+      x1 = ld4(x + g + half);
+      if (cos_t != nullptr)
+        rotate4(x0, x1, ld4(cos_t + s * half + col),
+                ld4(sin_t + s * half + col));
+    }
+    *reinterpret_cast<float4*>(xs + r * pitch + col) = x0;
+    *reinterpret_cast<float4*>(xs + r * pitch + col + half) = x1;
+  }
+}
+
+__global__ void __launch_bounds__(kTiledF32Threads)
+    attention_fwd_tiled_simt(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ cos_t,
+                             const float* __restrict__ sin_t,
+                             float* __restrict__ out, float* __restrict__ lse,
+                             int S, int H, int hd, int ld_tok, int ld_head,
+                             float scale) {
+  constexpr int T = kTileF32;
+  constexpr int PP = T + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int QP = hd + 4;
+  float* qs = smem;
+  float* ks = qs + T * QP;
+  float* vs = ks + T * QP;
+  float* os = vs + T * QP;  // the partial output
+  float* ps = os + T * QP;  // scores, then probabilities
+  float* m_s = ps + T * PP;
+  float* l_s = m_s + T;
+  float* corr_s = l_s + T;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.y * T;
+  const size_t tok = (size_t)H * hd;
+  const size_t base = (size_t)b * S * tok + (size_t)h * hd;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
+  const int C4 = hd / 4;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int nwarps = blockDim.x / 32;
+
+  stage_f32(qs, q, ibase, ld_tok, q0, S, hd, cos_t, sin_t);
+  for (int e = threadIdx.x; e < T * QP; e += blockDim.x) os[e] = 0.0f;
+  for (int r = threadIdx.x; r < T; r += blockDim.x) {
+    m_s[r] = -INFINITY;
+    l_s[r] = 0.0f;
+  }
+  for (int k0 = 0; k0 < S; k0 += T) {
+    __syncthreads();  // the last tile's k, v and P are no longer read
+    stage_f32(ks, k, ibase, ld_tok, k0, S, hd, cos_t, sin_t);
+    stage_f32(vs, v, ibase, ld_tok, k0, S, hd, nullptr, nullptr);
+    __syncthreads();
+    // 1. scores of rows ti + 16 a (a < 2) and keys tj + 8 c (c < 4)
+    for (int e = threadIdx.x; e < 16 * 8; e += blockDim.x) {
+      const int ti = e / 8;
+      const int tj = e % 8;
+      float acc[2][4] = {};
+      for (int d = 0; d < hd; d += 4) {
+        float4 qa[2], kb[4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) qa[a] = ld4(qs + (ti + 16 * a) * QP + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) kb[c] = ld4(ks + (tj + 8 * c) * QP + d);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[a][c] = dot4(qa[a], kb[c], acc[a][c]);
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int key = tj + 8 * c;
+          ps[(ti + 16 * a) * PP + key] =
+              k0 + key < S ? scale * acc[a][c] : kNeg;
+        }
+    }
+    __syncthreads();
+    // 2. online softmax, a warp a row, lane j on key j
+    for (int i = warp; i < T; i += nwarps) {
+      const float s = ps[i * PP + lane];
+      float mt = s;
+      for (int o = 16; o > 0; o >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_old = m_s[i];
+      const float m_new = fmaxf(m_old, mt);  // finite: key k0 is real
+      const float p = expf(s - m_new);
+      float sum = p;
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      ps[i * PP + lane] = p;
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        corr_s[i] = corr;
+        l_s[i] = l_s[i] * corr + sum;
+        m_s[i] = m_new;
+      }
+    }
+    __syncthreads();
+    // 3. O = O corr + P v: rows ti + 16 a, columns 4 tc .. 4 tc + 3
+    for (int e = threadIdx.x; e < 16 * C4; e += blockDim.x) {
+      const int ti = e / C4;
+      const int tc = e % C4;
+      float4 acc[2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        const int r = ti + 16 * a;
+        const float c = corr_s[r];
+        const float4 o = ld4(os + r * QP + 4 * tc);
+        acc[a] = make_float4(o.x * c, o.y * c, o.z * c, o.w * c);
+      }
+      for (int j = 0; j < T; j += 4) {
+        float4 pa[2], vb[4];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) pa[a] = ld4(ps + (ti + 16 * a) * PP + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) vb[jj] = ld4(vs + (j + jj) * QP + 4 * tc);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          axpy4(pa[a].x, vb[0], acc[a]);
+          axpy4(pa[a].y, vb[1], acc[a]);
+          axpy4(pa[a].z, vb[2], acc[a]);
+          axpy4(pa[a].w, vb[3], acc[a]);
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+        *reinterpret_cast<float4*>(os + (ti + 16 * a) * QP + 4 * tc) = acc[a];
+    }
+  }
+  __syncthreads();
+  // 4. out = O / l, and the log-sum-exp m + log l
+  for (int e = threadIdx.x; e < T * C4; e += blockDim.x) {
+    const int r = e / C4;
+    const int tc = e % C4;
+    if (q0 + r >= S) continue;
+    const float inv = 1.0f / l_s[r];
+    const float4 o = ld4(os + r * QP + 4 * tc);
+    *reinterpret_cast<float4*>(out + base + (size_t)(q0 + r) * tok + 4 * tc) =
+        make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+  }
+  if (lse != nullptr)
+    for (int r = threadIdx.x; r < T; r += blockDim.x)
+      if (q0 + r < S) lse[(size_t)bh * S + q0 + r] = m_s[r] + logf(l_s[r]);
+}
+
+// Rows t0..t0+63 of x (tokens at stride ld from xbase) into xs (rows of
+// hd + 8), rotated in float32 when cos_t is given; rows past S zero.
+template <int HD>
+__device__ __forceinline__ void stage_mma(__nv_bfloat16* xs,
+                                          const __nv_bfloat16* __restrict__ x,
+                                          size_t xbase, size_t ld, int t0,
+                                          int S,
+                                          const float* __restrict__ cos_t,
+                                          const float* __restrict__ sin_t) {
+  constexpr int P = mma_pitch<HD>();
+  constexpr int HALF = HD / 2;
+  constexpr int CH = HALF / 8;
+  for (int e = threadIdx.x; e < kTileMma * CH; e += blockDim.x) {
+    const int r = e / CH;
+    const int col = (e % CH) * 8;
+    const int s = t0 + r;
+    uint4 x0 = make_uint4(0, 0, 0, 0), x1 = x0;
+    if (s < S) {
+      const size_t g = xbase + (size_t)s * ld + col;
+      x0 = *reinterpret_cast<const uint4*>(x + g);
+      x1 = *reinterpret_cast<const uint4*>(x + g + HALF);
+      if (cos_t != nullptr) {
+        const float4* cp =
+            reinterpret_cast<const float4*>(cos_t + s * HALF + col);
+        const float4* sp =
+            reinterpret_cast<const float4*>(sin_t + s * HALF + col);
+        rotate8(x0, x1, cp[0], cp[1], sp[0], sp[1]);
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + r * P + col) = x0;
+    *reinterpret_cast<uint4*>(xs + r * P + col + HALF) = x1;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTiledMmaWarps * 32)
+    attention_fwd_tiled_mma(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t,
+                            __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ lse, int S, int H, int ld_tok,
+                            int ld_head, float scale_log2) {
+  constexpr int P = mma_pitch<HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kTileMma * P;
+  __nv_bfloat16* vs = ks + kTileMma * P;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = blockIdx.y * kTileMma;
+  const size_t tok = (size_t)H * HD;
+  const size_t base = (size_t)b * S * tok + (size_t)h * HD;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = warp * 16;  // the warp's rows of the tile
+  const bool active = q0 + m0 < S;
+
+  stage_mma<HD>(qs, q, ibase, ld_tok, q0, S, cos_t, sin_t);
+  __syncthreads();
+  uint32_t qa[HD / 16][4];
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ldsm_x4(qa[kk], qs + (m0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+  }
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0;
+  float mx[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int k0 = 0; k0 < S; k0 += kTileMma) {
+    __syncthreads();  // the last tile's k and v are no longer read
+    stage_mma<HD>(ks, k, ibase, ld_tok, k0, S, cos_t, sin_t);
+    stage_mma<HD>(vs, v, ibase, ld_tok, k0, S, nullptr, nullptr);
+    __syncthreads();
+    if (!active) continue;
+    const int rest = (S - k0 + 15) & ~15;
+    const int nk = rest < kTileMma ? rest : kTileMma;
+    for (int n0 = 0; n0 < nk; n0 += 16) {
+      float sc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
+        mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
+      }
+      float rmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n0 + nt * 8 + 2 * t + (e & 1);
+          sc[nt][e] = key < S ? sc[nt][e] * scale_log2 : kNeg;
+          rmax[e >> 1] = fmaxf(rmax[e >> 1], sc[nt][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+        const float m_new = fmaxf(mx[r], rmax[r]);
+        corr[r] = exp2f(mx[r] - m_new);
+        mx[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = exp2f(sc[nt][e] - mx[e >> 1]);
+          l[e >> 1] += sc[nt][e];
+        }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
+                              pack_bf16(sc[0][2], sc[0][3]),
+                              pack_bf16(sc[1][0], sc[1][1]),
+                              pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs + (n0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                              dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+  if (!active) return;
+
+  // normalise; the log-sum-exp in natural units; the output staged in the
+  // warp's own q rows (read by this warp alone) and stored 16 bytes a lane
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.0f / l[r];
+    const int row = q0 + m0 + g + 8 * r;
+    if (lse != nullptr && t == 0 && row < S)
+      lse[(size_t)bh * S + row] = (mx[r] + log2f(l[r])) * 0.6931471805599453f;
+  }
+  __nv_bfloat16* os = qs + m0 * P;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(os + g * P + col) =
+        pack_bf16(o[n][0] * inv[0], o[n][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(os + (g + 8) * P + col) =
+        pack_bf16(o[n][2] * inv[1], o[n][3] * inv[1]);
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * (HD / 8); e += 32) {
+    const int r = e / (HD / 8);
+    const int col = (e % (HD / 8)) * 8;
+    if (q0 + m0 + r < S)
+      *reinterpret_cast<uint4*>(out + base + (size_t)(q0 + m0 + r) * tok +
+                                col) =
+          *reinterpret_cast<const uint4*>(os + r * P + col);
+  }
+}
+
 // --------------------------------------------------------------- launch --
 
 // A kernel's dynamic shared-memory limit is raised to the device's opt-in
@@ -514,6 +924,25 @@ int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, cos_t, sin_t, (__nv_bfloat16*)out, S, H,
       ld_tok, ld_head, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_tiled_mma(const void* q, const void* k, const void* v,
+                     const float* cos_t, const float* sin_t, void* out,
+                     float* lse, int B, int S, int H, int ld_tok, int ld_head,
+                     void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_fwd_tiled_mma<HD>, raised);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem =
+      sizeof(__nv_bfloat16) * 3 * (size_t)kTileMma * mma_pitch<HD>();
+  const dim3 grid(B * H, (S + kTileMma - 1) / kTileMma);
+  attention_fwd_tiled_mma<HD>
+      <<<grid, kTiledMmaWarps * 32, smem, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, cos_t, sin_t, (__nv_bfloat16*)out, lse, S,
+          H, ld_tok, ld_head, 1.4426950408889634f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
@@ -562,6 +991,51 @@ extern "C" int attention_fwd_bf16(const void* q, const void* k, const void* v,
     case 128:
       return launch_mma<128>(q, k, v, cos_t, sin_t, out, B, S, H, ld_tok,
                              ld_head, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The key-tiled forms (the "tiled" section above), with the same layout
+// rules; lse is null, or float32 (B, H, S) contiguous, which receives each
+// row's log-sum-exp of the scaled scores.  float32 takes hd a multiple of 8
+// whose tiles fit the shared memory (kernels/attention.py::
+// tiled_smem_bytes), bfloat16 hd 16, 32, 64 or 128.
+extern "C" int attention_fwd_tiled_f32(const void* q, const void* k,
+                                       const void* v, const float* cos_t,
+                                       const float* sin_t, void* out,
+                                       float* lse, int B, int S, int H, int hd,
+                                       int ld_tok, int ld_head, void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_fwd_tiled_simt, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + kTileF32 - 1) / kTileF32);
+  attention_fwd_tiled_simt<<<grid, kTiledF32Threads,
+                             sizeof(float) * tiled_simt_floats(hd),
+                             (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
+      (float*)out, lse, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int attention_fwd_tiled_bf16(const void* q, const void* k,
+                                        const void* v, const float* cos_t,
+                                        const float* sin_t, void* out,
+                                        float* lse, int B, int S, int H,
+                                        int hd, int ld_tok, int ld_head,
+                                        void* stream) {
+  switch (hd) {
+    case 16:
+      return launch_tiled_mma<16>(q, k, v, cos_t, sin_t, out, lse, B, S, H,
+                                  ld_tok, ld_head, stream);
+    case 32:
+      return launch_tiled_mma<32>(q, k, v, cos_t, sin_t, out, lse, B, S, H,
+                                  ld_tok, ld_head, stream);
+    case 64:
+      return launch_tiled_mma<64>(q, k, v, cos_t, sin_t, out, lse, B, S, H,
+                                  ld_tok, ld_head, stream);
+    case 128:
+      return launch_tiled_mma<128>(q, k, v, cos_t, sin_t, out, lse, B, S, H,
+                                   ld_tok, ld_head, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

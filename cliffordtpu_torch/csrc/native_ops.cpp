@@ -7,7 +7,9 @@
 // dispatcher of any process that has loaded this library:
 //
 //   attention_fwd(q, k, v, cos?, sin?)   kernel A (csrc/attention_fwd.cu) on
-//       CUDA; on the CPU kernels/attention.py::attention_plain in ATen ops.
+//       CUDA, in the form kernels/attention.py::route gives the shape
+//       without a gradient (whole-sequence where it fits, else key-tiled);
+//       on the CPU kernels/attention.py::attention_plain in ATen ops.
 //   sample_embed(key, loc, kappa, route) the clifford draw of (R, d) rows on
 //       the SAMPLING key, returning (x, theta, u, v): route 0 "keyed" is
 //       kernel F (csrc/sampler_keyed.cu), 1 "unfused" threefry uniforms, the
@@ -66,6 +68,14 @@ int attention_fwd_bf16(const void* q, const void* k, const void* v,
                        const float* cos_t, const float* sin_t, void* out,
                        int B, int S, int H, int hd, int ld_tok, int ld_head,
                        void* stream);
+int attention_fwd_tiled_f32(const void* q, const void* k, const void* v,
+                            const float* cos_t, const float* sin_t, void* out,
+                            float* lse, int B, int S, int H, int hd,
+                            int ld_tok, int ld_head, void* stream);
+int attention_fwd_tiled_bf16(const void* q, const void* k, const void* v,
+                             const float* cos_t, const float* sin_t,
+                             void* out, float* lse, int B, int S, int H,
+                             int hd, int ld_tok, int ld_head, void* stream);
 int keyed_sample_embed(const float* loc, const float* kappa,
                        int kap_row_stride, int kap_col_stride, float* x,
                        float* theta, float* u, float* v, int R, int d,
@@ -103,6 +113,7 @@ constexpr int64_t kMatmulMaxDim = 4096;         // ops/torus.py
 constexpr int64_t kKernelMinDim = 2048;
 constexpr int64_t kHostConstMaxDim = 512;
 constexpr int64_t kSmemMax = 232448;            // attention._SMEM_MAX
+constexpr int64_t kJaxWorkingMax = 6 * 1024 * 1024;  // attention.py
 
 enum Family { kNormal = 0, kPowerSpherical = 1, kVmf = 2, kClifford = 3 };
 enum Route { kNoRoute = -1, kRouteKeyed = 0, kRouteUnfused = 1, kRouteRng = 2 };
@@ -681,7 +692,10 @@ Tensor aligned(const Tensor& t) {
   return reinterpret_cast<uintptr_t>(c.data_ptr()) % 16 ? c.clone() : c;
 }
 
-// kernel A, on the shapes that kernels/attention.py::kernel_fits holds
+// kernel A, on the shapes that kernels/attention.py::kernel_fits holds,
+// in the form its route gives them without a gradient: the whole-sequence
+// form where its shared memory fits, else the key-tiled one
+// (attention.py::smem_bytes, tiled_smem_bytes, jax_supported)
 Tensor attention_fwd_cuda(const Tensor& q_in, const Tensor& k_in,
                           const Tensor& v_in,
                           const c10::optional<Tensor>& cos_t,
@@ -691,20 +705,30 @@ Tensor attention_fwd_cuda(const Tensor& q_in, const Tensor& k_in,
   const int64_t B = q_in.size(0), S = q_in.size(1), H = q_in.size(2),
                 hd = q_in.size(3);
   const bool bf16 = q_in.scalar_type() == at::kBFloat16;
-  int64_t smem;
+  int64_t whole, tiled;
   if (bf16) {
     TORCH_CHECK(hd == 16 || hd == 32 || hd == 64 || hd == 128,
                 "attention_fwd: the bfloat16 kernel takes head_dim 16, 32, "
                 "64 or 128, got ", hd);
-    smem = 2 * 3 * round_up(S, 16) * (hd + 8);
+    whole = 2 * 3 * round_up(S, 16) * (hd + 8);
+    tiled = 2 * 3 * 64 * (hd + 8);
   } else {
     TORCH_CHECK(hd % 8 == 0, "attention_fwd: the float32 kernel takes "
                 "head_dim a multiple of 8, got ", hd);
     const int64_t Sp = round_up(S, 4);
-    smem = 4 * Sp * (2 * (hd + 4) + hd + Sp + 4);
+    whole = 4 * Sp * (2 * (hd + 4) + hd + Sp + 4);
+    tiled = 4 * (4 * 32 * (hd + 4) + 32 * 36 + 3 * 32);
   }
-  TORCH_CHECK(smem <= kSmemMax, "attention_fwd: S=", S, ", hd=", hd,
-              " needs ", smem, " bytes of shared memory, above ", kSmemMax);
+  const int64_t Sj = round_up(S, 8);
+  const int64_t working = (7 * H * Sj * hd + 2 * Sj * hd + 3 * Sj * Sj) * 4;
+  TORCH_CHECK(working < kJaxWorkingMax && S >= 2, "attention_fwd: S=", S,
+              ", H=", H, ", hd=", hd, " lies beyond the JAX package's "
+              "attention_supported (its XLA branch's shapes)");
+  const bool use_tiled = whole > kSmemMax;
+  TORCH_CHECK(!use_tiled || tiled <= kSmemMax, "attention_fwd: hd=", hd,
+              " needs ", tiled, " bytes of shared memory in the tiled form "
+              "and S=", S, " does not fit the whole-sequence one, above ",
+              kSmemMax);
   Tensor q = aligned(q_in), k = aligned(k_in), v = aligned(v_in);
   Tensor c, s;
   if (cos_t.has_value()) {
@@ -712,12 +736,20 @@ Tensor attention_fwd_cuda(const Tensor& q_in, const Tensor& k_in,
     s = aligned(sin_t->narrow(0, 0, S));
   }
   Tensor out = at::empty(q.sizes(), q.options());
-  auto launch = bf16 ? attention_fwd_bf16 : attention_fwd_f32;
-  check_rc(launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  c.defined() ? c.data_ptr<float>() : nullptr,
-                  s.defined() ? s.data_ptr<float>() : nullptr, out.data_ptr(),
-                  B, S, H, hd, H * hd, hd, stream_of(q)),
-           "attention_fwd");
+  const float* cp = c.defined() ? c.data_ptr<float>() : nullptr;
+  const float* sp = s.defined() ? s.data_ptr<float>() : nullptr;
+  if (use_tiled) {
+    auto launch = bf16 ? attention_fwd_tiled_bf16 : attention_fwd_tiled_f32;
+    check_rc(launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), cp, sp,
+                    out.data_ptr(), nullptr, B, S, H, hd, H * hd, hd,
+                    stream_of(q)),
+             "attention_fwd (tiled)");
+  } else {
+    auto launch = bf16 ? attention_fwd_bf16 : attention_fwd_f32;
+    check_rc(launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), cp, sp,
+                    out.data_ptr(), B, S, H, hd, H * hd, hd, stream_of(q)),
+             "attention_fwd");
+  }
   g_launches[kAttention]++;
   return out;
 }

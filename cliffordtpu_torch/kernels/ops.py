@@ -7,10 +7,13 @@ implementation gives the output's shape, and its body runs eagerly, on the
 host, when the program runs.
 
 * ``attention_fwd(q, k, v, cos, sin)``: kernel A (``csrc/attention_fwd.cu``)
-  for CUDA tensors, ``attention_plain`` for CPU tensors.
-  ``attention.fused_attention`` calls it on both devices once its shape
-  route has chosen the kernel; under autograd ``_FusedAttention`` calls it
-  in its forward and keeps its own backward (kernel B).
+  for CUDA tensors, in the form the shape takes (the whole-sequence one
+  where it fits, else the key-tiled one), ``attention_plain`` for CPU
+  tensors.  ``attention.fused_attention`` calls it on both devices once its
+  shape route has chosen the kernels; under autograd ``_FusedAttention``
+  calls it in its whole-sequence forward and keeps its own backward (kernel
+  B); the tiled form under autograd launches A itself, to keep the
+  log-sum-exp for B.
 * ``draw_latent(rng, mu, param2, ...)``: the latent draw of serving's
   ``encode_z`` (``distributions/reparam.py::draw_flat``) on the sampling
   key ``random.sample_key(rng)``, which flax's ``make_rng("sample")``
@@ -49,7 +52,8 @@ def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   cos: Optional[torch.Tensor],
                   sin: Optional[torch.Tensor]) -> torch.Tensor:
     """The attention forward of a shape that ``attention.kernel_fits``
-    holds: kernel A on CUDA, its plain version on the CPU."""
+    holds: kernel A on CUDA (either form), its plain version on the
+    CPU."""
     if q.device.type == "cpu":
         return attention.attention_plain(q, k, v, cos, sin)
     return attention._launch_fwd(q, k, v, cos, sin)

@@ -9,8 +9,8 @@
 Builds the flagship32 ``CliffordARVAE`` (``default_config(32)``), with
 ``--config cnn4096`` the ``CNNVAE`` at latent 4096 (a clifford latent on
 each of its three sampler routes), or with ``--config image256`` the
-``CliffordARVAE`` of ``default_config(256)`` (batch 4, S 260: the dense
-attention route), or with ``--config hybrid_fashion4096`` the Fashion
+``CliffordARVAE`` of ``default_config(256)`` (batch 4, S 260: the
+key-tiled forms of kernels A and B), or with ``--config hybrid_fashion4096`` the Fashion
 runner's ``HybridVAE`` at latent 256 per token (64 tokens, batch 256,
 AdamW lr 1e-3, float32 only), or with ``--config runner_fashion4096`` the
 Fashion runner's ``CNNVAE`` at latent 4096 as ``cnn_runner.build_model``

@@ -161,5 +161,4 @@ def test_forward_kernel_head_dims_are_checked_before_launch():
         with pytest.raises(ValueError, match="kernels take head_dim"):
             attention._check(*qkv(hd, dtype), None, None)
         with pytest.raises(ValueError, match="kernels take head_dim"):
-            attention._check(*qkv(hd, dtype), None, None, fwd=False,
-                             bwd=True)
+            attention._check(*qkv(hd, dtype), None, None, bwd=True)

@@ -144,15 +144,19 @@ def test_autograd_function_routes_to_the_backward_launcher(monkeypatch,
 def test_backward_shared_memory_fits_the_flagship_and_is_refused_above():
     """S = 68, hd = 64 in float32 (the simt form: q, k, v, dO in rows of
     68, P and dS in rows of 72): 113,152 bytes, above the 48 KB default and
-    within the 227 KB opt-in limit; a sequence of 140 fits the forward
-    only."""
+    within the 227 KB opt-in limit; a sequence of 140 fits the
+    whole-sequence forward only, so under autograd it takes the key-tiled
+    forms in both directions; a shape beyond the JAX package's
+    ``attention_supported`` (S 400, 8 heads of 64) is refused."""
     assert attention.bwd_smem_bytes(68, 64) == 113152
     assert 48 * 1024 < attention.bwd_smem_bytes(68, 64) <= attention._SMEM_MAX
     assert attention.bwd_smem_bytes(140, 64) > attention._SMEM_MAX
     assert attention.smem_bytes(140, 64) <= attention._SMEM_MAX
     q = torch.zeros(1, 140, 1, 64)
-    attention._check(q, q, q, None, None)  # the forward alone fits
-    with pytest.raises(ValueError, match="for the simt backward"):
+    assert attention._check(q, q, q, None, None) == "whole"
+    assert attention._check(q, q, q, None, None, bwd=True) == "tiled"
+    q = torch.zeros(1, 400, 8, 64)
+    with pytest.raises(ValueError, match="attention_supported"):
         attention._check(q, q, q, None, None, bwd=True)
 
 
@@ -160,8 +164,9 @@ def test_backward_forms_and_their_shared_memory():
     """``bwd_form``: the tensor-core form for bfloat16, register tiles for
     float32.  The mma form keeps q, k, v, dO in rows of hd + 8 bfloat16 and
     P, dS in rows of Sk + 8 (S padded to 16): 74,240 bytes at the flagship
-    shape, three blocks per SM.  Each form is refused by its own size: S
-    136 fits the mma form and not the simt one, S 200 neither."""
+    shape, three blocks per SM.  Each whole-sequence form is bounded by
+    its own size: S 136 fits the mma form and not the simt one, S 200
+    neither; a shape beyond them takes the key-tiled form of its dtype."""
     assert attention.bwd_form(torch.bfloat16) == "mma"
     assert attention.bwd_form(torch.float32) == "simt"
     mma = attention.bwd_smem_bytes(68, 64, torch.bfloat16)
@@ -173,12 +178,14 @@ def test_backward_forms_and_their_shared_memory():
     for S, fits in ((136, {torch.bfloat16}), (200, set())):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros(1, S, 1, 64, dtype=dtype)
+            form = attention._check(q, q, q, None, None, bwd=True)
+            base = attention.bwd_form(dtype)
             if dtype in fits:
-                attention._check(q, q, q, None, None, fwd=False, bwd=True)
+                assert form == "whole"
+                assert attention.bwd_form(dtype, S, 1, 64) == base
                 continue
-            with pytest.raises(ValueError, match=f"{attention.bwd_form(dtype)}"
-                                                 f" backward"):
-                attention._check(q, q, q, None, None, fwd=False, bwd=True)
+            assert form == "tiled"
+            assert attention.bwd_form(dtype, S, 1, 64) == f"{base}_tiled"
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

@@ -82,6 +82,25 @@ def test_attention_matches_plain_and_xla(ops, B, S, H, hd, rope, dtype):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+def test_attention_takes_image256_sequence(ops):
+    """S 260 with 8 heads of 64 (``default_config(256)``), float32, whose
+    whole sequence fits no block: the operator's meta path gives the
+    shape and its CPU path answers as ``attention_plain`` (on the card the
+    shape takes the key-tiled form of kernel A)."""
+    from cliffordtpu_torch.ops.rope import rope_2d_cos_sin
+
+    g = np.random.default_rng(260)
+    q, k, v = (_t(g, 1, 260, 8, 64) for _ in range(3))
+    c, s = rope_2d_cos_sin(256, 16, 64, cls_token_num=4)
+    cos, sin = torch.from_numpy(c), torch.from_numpy(s)
+    assert attention.route(260, 8, 64, torch.float32, False) == "tiled"
+    meta = torch.ops.cliffordtpu_native.attention_fwd(
+        *(t.to("meta") for t in (q, k, v, cos, sin)))
+    assert meta.shape == q.shape and meta.dtype == torch.float32
+    got = torch.ops.cliffordtpu_native.attention_fwd(q, k, v, cos, sin)
+    assert torch.equal(got, attention.attention_plain(q, k, v, cos, sin))
+
+
 @pytest.mark.parametrize("route", ["keyed", "rng", "unfused"])
 @pytest.mark.parametrize("R,d,per_row", [(7, 9, False), (12, 16, True),
                                          (3, 600, True)])
