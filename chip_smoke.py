@@ -71,16 +71,17 @@ Phases, each printing one JSON line and each fatal when it fails:
             8 heads of 64, RoPE) in each dtype, with and without a
             gradient, and at S 400 (beyond the JAX package's
             ``attention_supported``) with one: at S 260 every case must
-            take the kernels (the bfloat16 forward without a gradient in
-            the whole-sequence form, the rest key-tiled), at S 400 the
+            take the kernels in the key-tiled forms (the whole-sequence
+            bfloat16 forward would leave the card with 32 blocks), at S 400
+            the
             dense route (``attention_dense``, SDPA after the rotation),
             read from the counts; outputs and gradients against the plain
             versions at the attention bars;
 9. image256  ``CliffordARVAE(image_size=256)`` (``default_config(256)``: 6
             + 12 blocks of S 260), clifford latent 16, batch 4: one request
             of each entry point and one train step per dtype; serving
-            launches A 6 / 6 / 12 times (float32 in the tiled form,
-            bfloat16 in the whole one), every step 18 tiled A and 18 tiled
+            launches A 6 / 6 / 12 times in the tiled form in both dtypes,
+            every step 18 tiled A and 18 tiled
             B, and nothing takes the dense route; the bfloat16 first loss
             within ``TRAIN_BARS`` of the float32 one;
 10. heads   the gaussian and powerspherical heads, batch 64, per dtype: one
@@ -363,13 +364,16 @@ def check(ok: bool, what: str):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def attention_form(attention, direction, dtype, S, H, hd, tiled=False):
+def attention_form(attention, direction, dtype, S, H, hd, tiled=False,
+                   whole=False):
     """The form kernel A ("fwd") or B ("bwd") takes at this shape, or its
-    key-tiled form with ``tiled``.  A checkout from before the tiled forms
-    names a form by its dtype alone, one from before the tensor-core forms
-    has one form."""
+    key-tiled form with ``tiled``, its whole-sequence one with ``whole``.
+    A checkout from before the tiled forms names a form by its dtype alone,
+    one from before the tensor-core forms has one form."""
     if tiled:
         return attention.fwd_form(dtype) + "_tiled"
+    if whole:
+        return attention.fwd_form(dtype)
     if hasattr(attention, "route"):
         return (attention.fwd_form(dtype, S, H, hd) if direction == "fwd"
                 else attention.bwd_form(dtype, S, H, hd))
@@ -379,11 +383,12 @@ def attention_form(attention, direction, dtype, S, H, hd, tiled=False):
 
 
 def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
-                   packed=False, tiled=False):
+                   packed=False, tiled=False, whole=False):
     """Kernel A against its plain version; ``packed``: q, k, v the views
     of one (B, S, H, 3, hd) projection (``fused_proj``), read in place;
     ``tiled``: the key-tiled form (with the log-sum-exp, as under
-    autograd) whatever form the route gives the shape."""
+    autograd), ``whole``: the whole-sequence form (where its block fits an
+    SM), whatever form the route gives the shape."""
     dev = DEVICE
     if packed:
         qkv = torch.randn(B, S, H, 3, hd, generator=gen, device=dev).to(dtype)
@@ -402,6 +407,15 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
     def call():
         if tiled:
             return attention._launch_fwd_tiled(q, k, v, *cs)[0]
+        if whole:
+            out = torch.empty_like(q)
+            rc = attention._kernel(dtype)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in cs),
+                out.data_ptr(), B, S, H, hd, *attention.input_strides(q, k, v),
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"whole-sequence attention_fwd: CUDA error {rc}")
+            return out
         if packed:
             return attention.fused_attention_qkv(qkv, cos, sin)
         return attention.fused_attention(q, k, v, cos, sin)
@@ -429,7 +443,7 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
     kernel = cuda_ms(call)
     plain = cuda_ms(lambda: attention.attention_plain(q, k, v, cos, sin))
     library = cuda_ms(lambda: sdpa(qh, kh, vh))
-    form = attention_form(attention, "fwd", dtype, S, H, hd, tiled)
+    form = attention_form(attention, "fwd", dtype, S, H, hd, tiled, whole)
     return dict(
         B=B, S=S, H=H, hd=hd, dtype=str(dtype).replace("torch.", ""),
         rope=use_rope, form=form, layout="packed" if packed else "contiguous",
@@ -438,12 +452,13 @@ def attention_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
 
 
 def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
-                       packed=False, tiled=False):
+                       packed=False, tiled=False, whole=False):
     """Kernel B against its plain version; ``packed``: q, k, v the views of
     one (B, S, H, 3, hd) projection, the gradient one packed dqkv.  The
     tiled form (where the route gives it, or with ``tiled``) reads the
-    tiled forward's output and log-sum-exp, made once before it is
-    timed."""
+    tiled forward's output and log-sum-exp, made once before it is timed;
+    ``whole`` takes the whole-sequence form (where its block fits an SM)
+    whatever the route gives."""
     dev = DEVICE
     if packed:
         qkv = torch.randn(B, S, H, 3, hd, generator=gen, device=dev).to(dtype)
@@ -457,7 +472,7 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
         c, s = rope.rope_2d_cos_sin(32, math.isqrt(S - 4), hd,
                                     cls_token_num=4)
         cos, sin = torch.from_numpy(c).to(dev), torch.from_numpy(s).to(dev)
-    form = attention_form(attention, "bwd", dtype, S, H, hd, tiled)
+    form = attention_form(attention, "bwd", dtype, S, H, hd, tiled, whole)
     cs = (None, None) if cos is None else (cos[:S].contiguous(),
                                            sin[:S].contiguous())
     saved = {}  # the tiled forward's output and log-sum-exp
@@ -469,6 +484,8 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
         if tiled:
             return attention._launch_bwd_tiled(q, k, v, *cs, saved["out"],
                                                saved["lse"], d_out)
+        if whole:
+            return attention._launch_bwd(q, k, v, *cs, d_out)
         return attention.fused_attention_bwd(q, k, v, cos, sin, d_out,
                                              **saved)
     got = bwd()
@@ -485,7 +502,7 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
     # through autograd, as the model reaches the kernel (in the form the
     # route gives the shape)
     before = attention.bwd_launches
-    if tiled:
+    if tiled or whole:
         pass
     elif packed:
         check(got[0]._base is not None and got[0].stride() == q.stride(),
@@ -499,7 +516,7 @@ def attention_bwd_case(attention, rope, B, S, H, hd, dtype, use_rope, gen,
         auto = torch.autograd.grad(
             attention.fused_attention(qg, kg, vg, cos, sin), (qg, kg, vg),
             d_out)
-    if not tiled:
+    if not (tiled or whole):
         check(attention.bwd_launches == before + 1,
               "autograd of fused_attention did not launch the backward "
               "kernel")
@@ -1040,12 +1057,12 @@ def attention_route(attention, rope, gen):
     expected ones, and the outputs and gradients against the plain
     versions at the attention bars."""
     B, H, hd = 4, 8, 64
-    # S 260: every case on the kernels, the bfloat16 forward without a
-    # gradient in the whole-sequence form (it fits), the rest key-tiled;
-    # S 400: the dense route for both directions
+    # S 260: every case on the kernels in the key-tiled forms (the
+    # bfloat16 forward's whole-sequence block needs more than half an SM's
+    # shared memory); S 400: the dense route for both directions
     expected = {(260, torch.float32, False): "tiled",
                 (260, torch.float32, True): "tiled",
-                (260, torch.bfloat16, False): "whole",
+                (260, torch.bfloat16, False): "tiled",
                 (260, torch.bfloat16, True): "tiled",
                 (400, torch.float32, True): "dense",
                 (400, torch.bfloat16, True): "dense"}
@@ -1129,28 +1146,20 @@ def image256(vit_vae, dtype):
 
 def image256_phase(kmods, serving, vit_vae, state, loop, gen):
     """Serve one request of each entry point and take one train step per
-    dtype, every attention on the kernels: float32 serving in the key-tiled
-    forward, bfloat16 serving in the whole-sequence one (it fits at S
-    260), and every train step in the tiled forward and backward."""
+    dtype, every attention on the kernels in the key-tiled forms: serving
+    in the tiled forward, every train step in the tiled forward and
+    backward."""
     images = torch.rand(IMAGE256_BATCH, 256, 256, 3, generator=gen,
                         device=DEVICE) * 2 - 1
-    requests = {
-        "bfloat16": {
-            "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0],
-                          {"attention_fwd": 6}),
-            "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0],
-                         {"attention_fwd": 6, "sampler_keyed": 1}),
-            "decode": (FLAGSHIP_REQUESTS["decode"][0],
-                       {"attention_fwd": 12})},
-        "float32": {
-            "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0],
-                          {"attention_fwd": 6, "attention_fwd_tiled": 6}),
-            "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0],
-                         {"attention_fwd": 6, "attention_fwd_tiled": 6,
-                          "sampler_keyed": 1}),
-            "decode": (FLAGSHIP_REQUESTS["decode"][0],
-                       {"attention_fwd": 12, "attention_fwd_tiled": 12})},
-    }
+    tiled = {
+        "encode_mu": (FLAGSHIP_REQUESTS["encode_mu"][0],
+                      {"attention_fwd": 6, "attention_fwd_tiled": 6}),
+        "encode_z": (FLAGSHIP_REQUESTS["encode_z"][0],
+                     {"attention_fwd": 6, "attention_fwd_tiled": 6,
+                      "sampler_keyed": 1}),
+        "decode": (FLAGSHIP_REQUESTS["decode"][0],
+                   {"attention_fwd": 12, "attention_fwd_tiled": 12})}
+    requests = {"bfloat16": tiled, "float32": tiled}
     per_step = {"attention_fwd": 18, "attention_fwd_tiled": 18,
                 "attention_bwd": 18, "attention_bwd_tiled": 18,
                 "sampler_keyed": 1, "torus_bwd": 1}
@@ -4982,17 +4991,14 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
              for name in ("sampler_keyed", "torus_bwd")
              for d in MNIST_RUNNER_DIMS})
-    # A and B at image 256's shape (B 4, S 260, 8 heads of 64): the
-    # whole-sequence bfloat16 forward of serving, the tiled forms of float32
-    # serving and of every train step, and the bfloat16 tiled forward timed
-    # beside the whole one; then the tiled forms at flagship32's shape, for
-    # the record (the route gives that shape the whole-sequence forms)
+    # A and B at image 256's shape (B 4, S 260, 8 heads of 64), in the
+    # key-tiled forms the route gives serving and every train step; then
+    # the tiled forms at flagship32's shape, for the record (the route
+    # gives that shape the whole-sequence forms)
     i256 = (attention, rope, IMAGE256_BATCH, 260, 8, 64)
     att["bf16_image256"] = attention_case(*i256, torch.bfloat16, True, gen)
     att["f32_image256"] = attention_case(*i256, torch.float32, True, gen)
-    att["bf16_image256_tiled"] = attention_case(*i256, torch.bfloat16, True,
-                                                gen, tiled=True)
-    for label in ("bf16_image256", "f32_image256", "bf16_image256_tiled"):
+    for label in ("bf16_image256", "f32_image256"):
         emit("kernel", kernel="attention_fwd", shape="image256",
              **att[label])
     for label, dtype in (("f32_image256", torch.float32),
@@ -5089,12 +5095,10 @@ def main() -> int:
               att_b["f32"], "float32"),
         entry("attention_bwd", "flagship32_heads", att_b_src, att_b_tpu,
               att_b["bf16"], "bfloat16"),
-        entry("attention_fwd", "image256", att_src, att_tpu,
-              att["bf16_image256"], "bfloat16"),
         entry("attention_fwd_tiled", "image256", att_src, att_tpu,
               att["f32_image256"], "float32"),
         entry("attention_fwd_tiled", "image256", att_src, att_tpu,
-              att["bf16_image256_tiled"], "bfloat16"),
+              att["bf16_image256"], "bfloat16"),
         entry("attention_bwd_tiled", "image256", att_b_src, att_b_tpu,
               att_b["f32_image256"], "float32"),
         entry("attention_bwd_tiled", "image256", att_b_src, att_b_tpu,

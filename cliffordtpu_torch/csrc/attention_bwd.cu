@@ -72,93 +72,18 @@
 // and dS stay float32 in shared memory: 113 KB at the flagship shape, two
 // blocks per SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kMaxDevices = 64;
 constexpr int kMmaMaxWarps = 8;  // a warp loops over 16-row tiles
 constexpr int kSimtMaxThreads = 320;  // two blocks per SM at 96 registers
 
 // ---------------------------------------------------------------- bf16 --
-// The fragment helpers are those of attention_fwd.cu.
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a b, a 16 x 16 (row), b 16 x 8 (col), bfloat16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bfloat16 x 2 (round to nearest even), the first in the
-// low half, as an mma fragment register holds them
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// a, b: two bfloat16 of the first and the second half of a row, rotated
-// in float32 by their angles' cos c0, c1 and sin s0, s1, rounded back.
-__device__ __forceinline__ void rotate2(uint32_t& a, uint32_t& b, float c0,
-                                        float c1, float s0, float s1) {
-  const float a0 = bf16_lo(a), a1 = bf16_hi(a);
-  const float b0 = bf16_lo(b), b1 = bf16_hi(b);
-  a = pack_bf16(a0 * c0 - b0 * s0, a1 * c1 - b1 * s1);
-  b = pack_bf16(a0 * s0 + b0 * c0, a1 * s1 + b1 * c1);
-}
-
-__device__ __forceinline__ void rotate8(uint4& x0, uint4& x1, float4 c0,
-                                        float4 c1, float4 s0, float4 s1) {
-  rotate2(x0.x, x1.x, c0.x, c0.y, s0.x, s0.y);
-  rotate2(x0.y, x1.y, c0.z, c0.w, s0.z, s0.w);
-  rotate2(x0.z, x1.z, c1.x, c1.y, s1.x, s1.y);
-  rotate2(x0.w, x1.w, c1.z, c1.w, s1.z, s1.w);
-}
-
+// The fragment helpers, rotate8 and mma_pitch are attention_tiles.cuh's.
 // Rows of q, k, v, dO: hd + 8 bfloat16; rows of P and dS: Sk + 8, Sk = S
 // rounded up to 16.  Both make ldmatrix's eight 16-byte row reads land on
 // eight different 4-bank groups.
-template <int HD>
-__host__ __device__ constexpr int mma_pitch() {
-  return HD + 8;
-}
 __host__ __device__ constexpr int mma_rows(int S) { return (S + 15) & ~15; }
 
 // 16 rows x 16 keys of a b^T, a's rows as A fragments (hd/16 of them), b's
@@ -197,6 +122,37 @@ __device__ __forceinline__ void times_rows(float (&acc)[HD / 8][4],
     mma_bf16(acc[2 * dp], a, b[0], b[1]);
     mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
   }
+}
+
+// The two products of a warp's 16 rows against the first nc 16-row chunks
+// of a walked tile, all chunks at once (4 NC independent m16n8 sums): c =
+// a (16 x hd, A fragments) times rows of bs transposed, d = b times rows
+// of ds transposed; chunks past nc are left 0.
+template <int HD, int NC>
+__device__ __forceinline__ void tile_products(
+    float (&c)[2 * NC][4], float (&d)[2 * NC][4],
+    const uint32_t (&a)[HD / 16][4], const uint32_t (&b)[HD / 16][4],
+    const __nv_bfloat16* bs, const __nv_bfloat16* ds, int nc, int lane) {
+  constexpr int P = mma_pitch<HD>();
+#pragma unroll
+  for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = d[n][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch)
+      if (ch < nc) {
+        const int off = (16 * ch + (lane & 7) + ((lane >> 4) << 3)) * P +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t x[4], y[4];
+        ldsm_x4(x, bs + off);
+        ldsm_x4(y, ds + off);
+        mma_bf16(c[2 * ch], a[kk], x[0], x[1]);
+        mma_bf16(c[2 * ch + 1], a[kk], x[2], x[3]);
+        mma_bf16(d[2 * ch], b[kk], y[0], y[1]);
+        mma_bf16(d[2 * ch + 1], b[kk], y[2], y[3]);
+      }
 }
 
 // The inverse rotation of a 16-row accumulator tile in place: column i of
@@ -485,25 +441,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
 }
 
 // ---------------------------------------------------------------- f32 --
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc += p * v, componentwise over v's four columns
-__device__ __forceinline__ void axpy4(float p, float4 v, float4& acc) {
-  acc.x = fmaf(p, v.x, acc.x);
-  acc.y = fmaf(p, v.y, acc.y);
-  acc.z = fmaf(p, v.z, acc.z);
-  acc.w = fmaf(p, v.w, acc.w);
-}
+// ld4, dot4 and axpy4 are attention_tiles.cuh's.
 
 __device__ __forceinline__ float4 rotate_back0(float4 x0, float4 x1, float4 c,
                                                float4 s) {
@@ -751,24 +689,31 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
 // -------------------------------------------------------------- tiled --
 //
 // The key-tiled forms (attention_bwd_tiled_f32, attention_bwd_tiled_bf16)
-// replace the same pallas_call (_attn_bwd) at the shapes whose whole
-// sequence does not fit one block's shared memory (S 260 at image 256:
-// 832,000 bytes in float32, 461,312 in bfloat16 above).  They compute what
-// _bwd_kernel computes, with P recomputed tile by tile from the forward's
-// log-sum-exp (attention_fwd.cu, tiled section) and the softmax's row term
-// taken as delta = rowsum(dO o O), which equals rowsum(dP o P):
+// replace the same pallas_call (_attn_bwd) at the shapes the route gives
+// the tiled forward (S 260 at image 256: 832,000 bytes in float32, 461,312
+// in bfloat16 above).  They compute what _bwd_kernel computes, with P
+// recomputed tile by tile from the forward's log-sum-exp (attention_fwd.cu,
+// tiled section) and the softmax's row term taken as delta = rowsum(dO o
+// O), which equals rowsum(dP o P):
 //
 //   P = exp(scale Qr Kr^T - lse),  dS = P o (dO V^T - delta) scale
 //   dV = P^T dO,  dKr = dS^T Qr,  dQr = dS Kr,  then rot(-theta)
 //
-// One launch, two kinds of block, no atomics: grid (batch x head, 2 x
-// tiles).  A block of the first kind owns a query tile and walks the key
-// tiles, summing dQr in a fixed order; a block of the second kind owns a
-// key tile and walks the query tiles, summing dKr and dV.  Each gradient
-// row is written by one block, so the gradients are the same bits on every
-// run (the port's bit-equal resume rests on it).  Each kind stages the
-// delta of its query rows itself from O and dO.  Keys and queries past S
-// get P = dS = 0.  Shared memory does not depend on S.
+// One launch, two kinds of block, no atomics: grid (batch x head, 2 nb).
+// The first nb blocks of a (batch, head) own key units and walk the query
+// tiles, summing dKr and dV; the last nb own query units and walk the key
+// tiles, summing dQr, each in a fixed order.  Each gradient row is written
+// by one block, so the gradients are the same bits on every run (the
+// port's bit-equal resume rests on it).  The key blocks come first in the
+// grid: they do four products a pair of tiles against the query blocks'
+// three, and start first.  Units, ring and preparation as in
+// attention_tiles.cuh: the walked tiles (K and V; or Qr, dO and lse) come
+// through a ring of shared-memory stages, the tables and the key blocks'
+// tile of O through one buffer for each tile in flight.  delta is
+// recomputed where it is needed, from O and dO: a query block for its own
+// rows once, a key block for each query tile by the threads that copied
+// its O and dO, so no second launch and no scratch tensor.  Keys and
+// queries past S get P = dS = 0.  Shared memory does not depend on S.
 //
 // What bounds it: at image 256's shape (B 4, S 260, H 8, hd 64) the
 // function moves seven (B, S, H, hd) tensors and the tables, 15.0 MB in
@@ -777,77 +722,437 @@ __global__ void __launch_bounds__(kSimtMaxThreads, 2)
 // (20.7 us at 67 TFLOP/s; its bytes take 4.5 us), the bfloat16 form by HBM
 // bandwidth (2.2 us; the tensor cores need 1.4 us).  The two kinds
 // recompute the scores and dP each, seven products where the fused form
-// does five.
+// does five, and each block walks the whole other side of its (batch,
+// head).  The float32 form is held by shared-memory reads and by its
+// registers (about 220 a thread: its two sets of accumulators), which cap
+// the warps an SM holds; the bfloat16 one by each walk's chain of
+// dependent steps, a tile's copies, rotation and row term, then its four
+// products.  The design: blocks of 9 units (2 a kind and (batch, head),
+// 128 blocks, one wave, one block an SM); for bfloat16, two producer warps
+// copy each walked tile into a ring four deep, rotate it and (key blocks)
+// sum its row term, while the unit warps run the products of the tiles
+// before it.
 //
-// float32 (attention_bwd_tiled_simt): tiles of 32, 128 threads.  A thread
-// computes 2 query rows x 4 keys of the scores and of dP (float4 reads),
-// then P and dS in place; the products dQr (2 rows x 8 columns a thread),
-// dV and dKr (4 keys x 8 columns, an outer product over the queries) sum
-// in shared memory, their columns c..c+3 and c+hd/2..c+hd/2+3 so that the
-// inverse rotation needs no exchange.  Six row tiles of hd + 4 floats, P
-// and dS (32 x 36): 61.7 KB at hd 64.
+// float32 (attention_bwd_tiled_simt, head_dim <= 128): walked tiles of
+// 32; scores and dP (or their transposes) in 4 x 4 register tiles, P and
+// dS (or P^T and dS^T) through the warp's scratch rows, and dQr, or dKr
+// and dV, in registers for the whole walk, at the columns c..c+3 and
+// c + hd/2..c + hd/2 + 3 of a thread, so that the inverse rotation needs
+// no exchange.  Up to head_dim 64 9 units a block, 173 KB of shared
+// memory at hd 64 (the key blocks'); up to 128 4 units.  Wider head_dims
+// (up to 280) keep the shared-memory form (attention_bwd_tiled_simt_wide).
 //
-// bfloat16 (attention_bwd_tiled_mma): tiles of 64, four warps of 16 rows,
-// products on mma.sync as in the whole-sequence form.  A query-tile warp
-// holds its Qr and dO rows as A fragments, computes scores and dP against
-// each staged key tile, and sums dQr += dS Kr with dS's accumulators as
-// its A fragment.  A key-tile warp holds its Kr and v rows as A fragments
-// and computes the transposed tiles S^T = Kr Qr^T and dP^T = V dO^T
-// against each staged query tile, so that P^T and dS^T come out as A
-// fragments for dV += P^T dO and dKr += dS^T Qr (dO and Qr read with
-// ldmatrix.trans).  Gradients leave from the fragments, 4 bytes a lane.
-// Four tiles of hd + 8 bfloat16 and the tile's lse and delta: 37.4 KB at
-// hd 64.
+// bfloat16 (attention_bwd_tiled_mma): 9 unit warps and 2 producer warps a
+// block, walked tiles of 32 in four stages (three at hd 128); a stage's
+// full and free states are named barriers (bar_arrive by the side that
+// hands it over, bar_wait by the other).  Products on mma.sync as in the
+// whole-sequence form.  A
+// query warp holds its Qr and dO rows as A fragments, computes the scores
+// and dP of a landed key tile at once (eight independent m16n8 sums) and
+// sums dQr += dS Kr with dS's accumulators as its A fragment.  A key warp
+// holds its Kr and v rows as A fragments and computes the transposed tiles
+// S^T = Kr Qr^T and dP^T = V dO^T of a landed query tile at once, so that
+// P^T and dS^T come out as A fragments for dV += P^T dO and dKr += dS^T Qr
+// (dO and Qr read with ldmatrix.trans).
+// Gradients leave from the fragments, 4 bytes a lane.  128 KB at hd 64.
 
-// The tiles, rotate4, stage_f32 and stage_mma are those of
-// attention_fwd.cu's tiled section (each source builds alone).
-constexpr int kTileF32 = 32;  // float32 tiled form: queries and keys a tile
-constexpr int kTiledF32Threads = 128;
-constexpr int kTileMma = 64;  // bfloat16 tiled form
-constexpr int kTiledMmaWarps = kTileMma / 16;
-constexpr float kLog2e = 1.4426950408889634f;
+// units a block of the float32 tiled backward: above head_dim 64 four,
+// what fits beside its wider rows
+__host__ __device__ constexpr int simt_bwd_units(int hd) {
+  return hd <= 64 ? kSimtBwdUnits : 4;
+}
 
-// floats of shared memory of the float32 tiled backward: six row tiles of
-// hd + 4, P and dS in rows of 36, the tile's lse and delta
+// floats of shared memory of the float32 tiled backward, the key block's
+// (the query block's fits in it): its key and value rows; a ring of two
+// query and output-gradient tiles with their lse and delta; one tile of
+// the forward's output and its tables; each warp's P^T and dS^T
+
 __host__ __device__ inline size_t tiled_simt_floats(int hd) {
+  const int U = simt_bwd_units(hd);
+  return (size_t)(32 * U + 5 * kSimtWalk) * (hd + 4) +
+         4 * kSimtWalk + (size_t)kSimtWalk * hd +
+         (size_t)U * 2 * 16 * kSimtScratch;
+}
+
+// floats of the wide form: six row tiles of hd + 4, P and dS in rows of
+// 36, the tile's lse and delta
+__host__ __device__ inline size_t tiled_simt_wide_floats(int hd) {
   return (size_t)6 * kTileF32 * (hd + 4) + 2 * kTileF32 * (kTileF32 + 4) +
          2 * kTileF32;
 }
 
-__device__ __forceinline__ void rotate4(float4& x0, float4& x1, float4 c,
-                                        float4 s) {
-  const float4 a = x0, b = x1;
-  x0 = make_float4(a.x * c.x - b.x * s.x, a.y * c.y - b.y * s.y,
-                   a.z * c.z - b.z * s.z, a.w * c.w - b.w * s.w);
-  x1 = make_float4(a.x * s.x + b.x * c.x, a.y * s.y + b.y * c.y,
-                   a.z * s.z + b.z * c.z, a.w * s.w + b.w * c.w);
+// bytes of the bfloat16 tiled backward, the key block's: its key and value
+// rows, a ring of query and output-gradient tiles in rows of hd + 8 with
+// their lse and delta, and for each stage its tile's O and tables
+// stages of the bfloat16 tiled backward's ring: three at head_dim 128,
+// what fits beside its wider rows
+template <int HD>
+__host__ __device__ constexpr int mma_bwd_stages() {
+  return HD <= 64 ? kMmaBwdStages : 3;
 }
 
-// Rows t0..t0+31 of x (tokens at stride ld from xbase) into xs (rows of
-// hd + 4), rotated when cos_t is given; rows past S zero.
-__device__ __forceinline__ void stage_f32(float* xs, const float* __restrict__ x,
-                                          size_t xbase, size_t ld, int t0,
-                                          int S, int hd,
-                                          const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t) {
-  const int half = hd / 2;
-  const int CH = half / 4;
-  const int pitch = hd + 4;
-  for (int e = threadIdx.x; e < kTileF32 * CH; e += blockDim.x) {
-    const int r = e / CH;
-    const int col = (e % CH) * 4;
-    const int s = t0 + r;
-    float4 x0 = make_float4(0, 0, 0, 0), x1 = x0;
-    if (s < S) {
-      const size_t g = xbase + (size_t)s * ld + col;
-      x0 = ld4(x + g);
-      x1 = ld4(x + g + half);
-      if (cos_t != nullptr)
-        rotate4(x0, x1, ld4(cos_t + s * half + col),
-                ld4(sin_t + s * half + col));
+template <int HD>
+constexpr size_t tiled_mma_bytes() {
+  constexpr size_t TW = kMmaBwdWalk, P = mma_pitch<HD>();
+  return 2 * 32 * kMmaBwdUnits * P +
+         mma_bwd_stages<HD>() * (2 * 2 * TW * P + 2 * 4 * TW) +
+         mma_bwd_stages<HD>() * (2 * TW * P + 4 * TW * HD);
+}
+
+// delta = rowsum(dO o O) of the rows whose chunks this thread's quad
+// copied (async_quads), into delta_s; four lanes a row, summed by shuffles
+// (the loop's trip count is uniform in a warp)
+__device__ __forceinline__ void row_delta_f32(float* delta_s, const float* gs,
+                                              const float* os, int pitch,
+                                              int rows, int cols, int tid,
+                                              int nthreads) {
+  for (int e = tid; e < 4 * rows; e += nthreads) {
+    const int r = e >> 2;
+    float d = 0.0f;
+    for (int c = (e & 3) * 4; c < cols; c += 16)
+      d = dot4(ld4(gs + r * pitch + c), ld4(os + r * pitch + c), d);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if ((e & 3) == 0) delta_s[r] = d;
+  }
+}
+
+// The bfloat16 counterpart: float32 sums of the bfloat16 values.
+template <int HD>
+__device__ __forceinline__ void row_delta_mma(float* delta_s,
+                                              const __nv_bfloat16* gs,
+                                              const __nv_bfloat16* os,
+                                              int rows, int tid,
+                                              int nthreads) {
+  constexpr int P = mma_pitch<HD>();
+  for (int e = tid; e < 4 * rows; e += nthreads) {
+    const int r = e >> 2;
+    float d = 0.0f;
+    for (int c = (e & 3) * 8; c < HD; c += 32) {
+      const uint4 a = *reinterpret_cast<const uint4*>(os + r * P + c);
+      const uint4 w = *reinterpret_cast<const uint4*>(gs + r * P + c);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+      const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        d = fmaf(bf16_lo(av[i]), bf16_lo(wv[i]), d);
+        d = fmaf(bf16_hi(av[i]), bf16_hi(wv[i]), d);
+      }
     }
-    *reinterpret_cast<float4*>(xs + r * pitch + col) = x0;
-    *reinterpret_cast<float4*>(xs + r * pitch + col + half) = x1;
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if ((e & 3) == 0) delta_s[r] = d;
+  }
+}
+
+template <int NP, int U>
+__global__ void __launch_bounds__(U * 32)
+    attention_bwd_tiled_simt(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ cos_t,
+        const float* __restrict__ sin_t, const float* __restrict__ o,
+        const float* __restrict__ lse, const float* __restrict__ d_out,
+        float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
+        int S, int H, int hd, int ld_tok, int ld_head, float scale) {
+  constexpr int TW = kSimtWalk;
+  constexpr int PP = kSimtScratch;
+  extern __shared__ __align__(16) float smem[];
+  const int QP = hd + 4;
+  const int half = hd / 2;
+  const int stage = 2 * TW * QP + 2 * TW;  // floats of a ring stage
+  float* xs = smem;                        // own rows: Qr (key block: Kr)
+  float* ys = xs + 16 * U * QP;   // own rows: dO (key block: V)
+  float* ring = ys + 16 * U * QP;
+  float* obuf = ring + 2 * stage;          // key block: the next tile's O
+  float* cs = obuf + TW * QP;              // the next walked tile's tables
+  float* sn = cs + TW * half;
+  float* scratch = sn + TW * half;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int nb = blocks_per_head(S, U);
+  const bool key_kind = (int)blockIdx.y < nb;
+  const UnitSpan span = unit_span((S + 15) / 16, nb,
+                                  key_kind ? blockIdx.y : blockIdx.y - nb);
+  const int warp = threadIdx.x >> 5;
+  if (warp >= span.n) return;  // no unit: leave before any barrier
+  const int tid = threadIdx.x;
+  const int nthreads = span.n * 32;
+  const int lane = tid & 31;
+  const int rg = lane >> 3;  // own rows rg + 4 a of the warp's unit
+  const int cg = lane & 7;   // walked rows cg + 8 c; columns 4 cg + 32 i
+  const int t0 = span.u0 * 16;
+  const int r0 = t0 + warp * 16;  // the warp's first own row
+  const size_t tok = (size_t)H * hd;
+  const size_t base = (size_t)b * S * tok + (size_t)h * hd;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
+  const size_t lbase = (size_t)bh * S;
+  const bool rope = cos_t != nullptr;
+  const int ntiles = (S + TW - 1) / TW;
+  const float* xw = xs + warp * 16 * QP;
+  const float* yw = ys + warp * 16 * QP;
+
+  // own accumulators at columns 4 cg + 32 i and + hd/2: dQr (query block),
+  // or dKr and dV (key block)
+  float4 a0[4][NP], a1[4][NP], b0[4][NP], b1[4][NP];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      a0[a][i] = a1[a][i] = b0[a][i] = b1[a][i] = make_float4(0, 0, 0, 0);
+
+  if (!key_kind) {
+    auto issue = [&](int j) {  // K (with its tables) and V of key tile j
+      float* st = ring + (j & 1) * stage;
+      async_pairs(st, QP, cs, sn, k, ibase, ld_tok, cos_t, sin_t, j * TW, TW,
+                  S, half, tid, nthreads);
+      async_rows(st + TW * QP, QP, v, ibase, ld_tok, j * TW, TW, S, hd, tid,
+                 nthreads);
+      cp_async_commit();
+    };
+    issue(0);
+    stage_rows_f32(xs, QP, q, ibase, ld_tok, t0, span.n * 16, S, hd, cos_t,
+                   sin_t, tid, nthreads);
+    stage_rows_f32(ys, QP, d_out, base, tok, t0, span.n * 16, S, hd,
+                   nullptr, nullptr, tid, nthreads);
+    // the own rows' lse and delta = rowsum(dO o O): a row's 8 lanes split
+    // its columns
+    float lr[4], dr[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = r0 + rg + 4 * a;
+      float d = 0.0f;
+      lr[a] = 0.0f;
+      if (row < S) {
+        for (int c = 4 * cg; c < hd; c += 32)
+          d = dot4(ld4(o + base + (size_t)row * tok + c),
+                   ld4(d_out + base + (size_t)row * tok + c), d);
+        lr[a] = lse[lbase + row];
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      d += __shfl_xor_sync(0xffffffffu, d, 4);
+      dr[a] = d;
+    }
+    float* dsw = scratch + warp * 16 * PP;
+    for (int j = 0; j < ntiles; ++j) {
+      cp_async_wait<0>();  // this thread's copies of tile j
+      float* ks = ring + (j & 1) * stage;
+      const float* vs = ks + TW * QP;
+      if (rope) rotate_pairs_f32(ks, QP, cs, sn, TW, half, tid, nthreads);
+      bar_sync(nthreads);  // tile j ready; tile j - 1, the tables unread
+      if (j + 1 < ntiles) issue(j + 1);
+      // scores and dP of own rows rg + 4 a and keys cg + 8 c
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.0f;
+#pragma unroll 4
+      for (int d = 0; d < hd; d += 4) {
+        float4 xa[4], wb[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) xa[a] = ld4(xw + (rg + 4 * a) * QP + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wb[c] = ld4(ks + (cg + 8 * c) * QP + d);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[a][c] = dot4(xa[a], wb[c], s[a][c]);
+      }
+#pragma unroll 4
+      for (int d = 0; d < hd; d += 4) {
+        float4 xa[4], wb[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) xa[a] = ld4(yw + (rg + 4 * a) * QP + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wb[c] = ld4(vs + (cg + 8 * c) * QP + d);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) dp[a][c] = dot4(xa[a], wb[c], dp[a][c]);
+      }
+      // dS = P (dP - delta) scale, P from the lse; masked entries 0
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok = r0 + rg + 4 * a < S && j * TW + cg + 8 * c < S;
+          const float p = ok ? expf(scale * s[a][c] - lr[a]) : 0.0f;
+          dsw[(rg + 4 * a) * PP + cg + 8 * c] = p * (dp[a][c] - dr[a]) * scale;
+        }
+      __syncwarp();
+      // dQr += dS Kr
+#pragma unroll 2
+      for (int jj = 0; jj < TW; jj += 4) {
+        float4 da[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) da[a] = ld4(dsw + (rg + 4 * a) * PP + jj);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float* kr = ks + (jj + u) * QP;
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            const int c = 4 * cg + 32 * i;
+            if (c >= half) continue;
+            const float4 k0v = ld4(kr + c), k1v = ld4(kr + c + half);
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const float w = comp(da[a], u);
+              axpy4(w, k0v, a0[a][i]);
+              axpy4(w, k1v, a1[a][i]);
+            }
+          }
+        }
+      }
+      __syncwarp();  // dS is rewritten by the next tile
+    }
+    // dq = rot^-1(dQr)
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int row = r0 + rg + 4 * a;
+      if (row >= S) continue;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int c = 4 * cg + 32 * i;
+        if (c >= half) continue;
+        float4 x0 = a0[a][i], x1 = a1[a][i];
+        if (rope)
+          rotate4_back(x0, x1, ld4(cos_t + row * half + c),
+                       ld4(sin_t + row * half + c));
+        float* dst = dq + ibase + (size_t)row * ld_tok + c;
+        st4(dst, x0);
+        st4(dst + half, x1);
+      }
+    }
+    return;
+  }
+
+  // key block: walks the query tiles
+  auto issue = [&](int j) {  // Q (with its tables), dO and O, lse of tile j
+    float* st = ring + (j & 1) * stage;
+    async_pairs(st, QP, cs, sn, q, ibase, ld_tok, cos_t, sin_t, j * TW, TW,
+                S, half, tid, nthreads);
+    async_quads(st + TW * QP, obuf, QP, d_out, o, base, tok, j * TW, TW, S,
+                hd, tid, nthreads);
+    async_values(st + 2 * TW * QP, lse, lbase, j * TW, TW, S, tid, nthreads);
+    cp_async_commit();
+  };
+  issue(0);
+  stage_rows_f32(xs, QP, k, ibase, ld_tok, t0, span.n * 16, S, hd, cos_t,
+                 sin_t, tid, nthreads);
+  stage_rows_f32(ys, QP, v, ibase, ld_tok, t0, span.n * 16, S, hd, nullptr,
+                 nullptr, tid, nthreads);
+  float* ptw = scratch + warp * 2 * 16 * PP;  // P^T, then dS^T
+  float* dtw = ptw + 16 * PP;
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<0>();  // this thread's copies of tile j
+    float* qs = ring + (j & 1) * stage;
+    const float* gs = qs + TW * QP;  // dO
+    const float* lse_s = gs + TW * QP;
+    float* delta_s = const_cast<float*>(lse_s) + TW;
+    if (rope) rotate_pairs_f32(qs, QP, cs, sn, TW, half, tid, nthreads);
+    row_delta_f32(delta_s, gs, obuf, QP, TW, hd, tid, nthreads);
+    bar_sync(nthreads);  // tile j ready; tile j - 1, O, the tables unread
+    if (j + 1 < ntiles) issue(j + 1);
+    // S^T and dP^T of own keys rg + 4 a and queries cg + 8 c
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = dp[a][c] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < hd; d += 4) {
+      float4 xa[4], wb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) xa[a] = ld4(xw + (rg + 4 * a) * QP + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wb[c] = ld4(qs + (cg + 8 * c) * QP + d);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] = dot4(xa[a], wb[c], s[a][c]);
+    }
+#pragma unroll 4
+    for (int d = 0; d < hd; d += 4) {
+      float4 xa[4], wb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) xa[a] = ld4(yw + (rg + 4 * a) * QP + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) wb[c] = ld4(gs + (cg + 8 * c) * QP + d);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dp[a][c] = dot4(xa[a], wb[c], dp[a][c]);
+    }
+    // P^T from the lse, dS^T = P^T (dP^T - delta) scale; masked entries 0
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int qi = cg + 8 * c;
+      const float lq = lse_s[qi];
+      const float dl = delta_s[qi];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const bool ok = r0 + rg + 4 * a < S && j * TW + qi < S;
+        const float p = ok ? expf(scale * s[a][c] - lq) : 0.0f;
+        ptw[(rg + 4 * a) * PP + qi] = p;
+        dtw[(rg + 4 * a) * PP + qi] = p * (dp[a][c] - dl) * scale;
+      }
+    }
+    __syncwarp();
+    // dV += P^T dO, dKr += dS^T Qr
+#pragma unroll 2
+    for (int jj = 0; jj < TW; jj += 4) {
+      float4 pa[4], da[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        pa[a] = ld4(ptw + (rg + 4 * a) * PP + jj);
+        da[a] = ld4(dtw + (rg + 4 * a) * PP + jj);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* gr = gs + (jj + u) * QP;
+        const float* qr = qs + (jj + u) * QP;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int c = 4 * cg + 32 * i;
+          if (c >= half) continue;
+          const float4 g0 = ld4(gr + c), g1 = ld4(gr + c + half);
+          const float4 x0 = ld4(qr + c), x1 = ld4(qr + c + half);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float w = comp(pa[a], u), z = comp(da[a], u);
+            axpy4(w, g0, b0[a][i]);
+            axpy4(w, g1, b1[a][i]);
+            axpy4(z, x0, a0[a][i]);
+            axpy4(z, x1, a1[a][i]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // P^T and dS^T are rewritten by the next tile
+  }
+  // dv, and dk = rot^-1(dKr)
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = r0 + rg + 4 * a;
+    if (row >= S) continue;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int c = 4 * cg + 32 * i;
+      if (c >= half) continue;
+      float4 x0 = a0[a][i], x1 = a1[a][i];
+      if (rope)
+        rotate4_back(x0, x1, ld4(cos_t + row * half + c),
+                     ld4(sin_t + row * half + c));
+      float* dst = dk + ibase + (size_t)row * ld_tok + c;
+      st4(dst, x0);
+      st4(dst + half, x1);
+      dst = dv + ibase + (size_t)row * ld_tok + c;
+      st4(dst, b0[a][i]);
+      st4(dst + half, b1[a][i]);
+    }
   }
 }
 
@@ -923,8 +1228,12 @@ __device__ __forceinline__ void probabilities_f32(
   }
 }
 
+// The shared-memory float32 tiled backward, for head_dims above kSimtMaxHd (no
+// model of the repo has one): tiles of 32, 128 threads; a thread computes
+// 2 query rows x 4 keys of the scores and of dP, then P and dS in place;
+// dQr, dV and dKr sum in shared memory.
 __global__ void __launch_bounds__(kTiledF32Threads)
-    attention_bwd_tiled_simt(
+    attention_bwd_tiled_simt_wide(
         const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ v, const float* __restrict__ cos_t,
         const float* __restrict__ sin_t, const float* __restrict__ o,
@@ -957,15 +1266,19 @@ __global__ void __launch_bounds__(kTiledF32Threads)
   if (dq_kind) {
     float *qs = smem, *os = smem + R, *ks = smem + 2 * R, *vs = smem + 3 * R,
           *acc = smem + 4 * R;
-    stage_f32(qs, q, ibase, ld_tok, t0, S, hd, cos_t, sin_t);
-    stage_f32(os, d_out, base, tok, t0, S, hd, nullptr, nullptr);
+    stage_rows_f32(qs, QP, q, ibase, ld_tok, t0, T, S, hd, cos_t,
+                   sin_t, threadIdx.x, blockDim.x);
+    stage_rows_f32(os, QP, d_out, base, tok, t0, T, S, hd, nullptr,
+                   nullptr, threadIdx.x, blockDim.x);
     stage_rows_lse_delta_f32(lse_s, delta_s, lse, o, d_out, base, tok, lbase,
                              t0, S, hd);
     for (int e = threadIdx.x; e < T * QP; e += blockDim.x) acc[e] = 0.0f;
     for (int k0 = 0; k0 < S; k0 += T) {
       __syncthreads();  // the last key tile and dS are no longer read
-      stage_f32(ks, k, ibase, ld_tok, k0, S, hd, cos_t, sin_t);
-      stage_f32(vs, v, ibase, ld_tok, k0, S, hd, nullptr, nullptr);
+      stage_rows_f32(ks, QP, k, ibase, ld_tok, k0, T, S, hd, cos_t,
+                     sin_t, threadIdx.x, blockDim.x);
+      stage_rows_f32(vs, QP, v, ibase, ld_tok, k0, T, S, hd, nullptr,
+                     nullptr, threadIdx.x, blockDim.x);
       __syncthreads();
       probabilities_f32(nullptr, ds, qs, os, ks, vs, lse_s, delta_s, t0, k0,
                         S, hd, scale);
@@ -1031,15 +1344,19 @@ __global__ void __launch_bounds__(kTiledF32Threads)
 
   float *ks = smem, *vs = smem + R, *dk_acc = smem + 2 * R,
         *dv_acc = smem + 3 * R, *qs = smem + 4 * R, *os = smem + 5 * R;
-  stage_f32(ks, k, ibase, ld_tok, t0, S, hd, cos_t, sin_t);
-  stage_f32(vs, v, ibase, ld_tok, t0, S, hd, nullptr, nullptr);
+  stage_rows_f32(ks, QP, k, ibase, ld_tok, t0, T, S, hd, cos_t,
+                 sin_t, threadIdx.x, blockDim.x);
+  stage_rows_f32(vs, QP, v, ibase, ld_tok, t0, T, S, hd, nullptr,
+                 nullptr, threadIdx.x, blockDim.x);
   for (int e = threadIdx.x; e < T * QP; e += blockDim.x)
     dk_acc[e] = dv_acc[e] = 0.0f;
   const int n1 = (T / 4) * C8;
   for (int q0 = 0; q0 < S; q0 += T) {
     __syncthreads();  // the last query tile, P and dS are no longer read
-    stage_f32(qs, q, ibase, ld_tok, q0, S, hd, cos_t, sin_t);
-    stage_f32(os, d_out, base, tok, q0, S, hd, nullptr, nullptr);
+    stage_rows_f32(qs, QP, q, ibase, ld_tok, q0, T, S, hd, cos_t,
+                   sin_t, threadIdx.x, blockDim.x);
+    stage_rows_f32(os, QP, d_out, base, tok, q0, T, S, hd, nullptr,
+                   nullptr, threadIdx.x, blockDim.x);
     stage_rows_lse_delta_f32(lse_s, delta_s, lse, o, d_out, base, tok, lbase,
                              q0, S, hd);
     __syncthreads();
@@ -1106,72 +1423,6 @@ __global__ void __launch_bounds__(kTiledF32Threads)
   }
 }
 
-// Rows t0..t0+63 of x (tokens at stride ld from xbase) into xs (rows of
-// hd + 8), rotated in float32 when cos_t is given; rows past S zero.
-template <int HD>
-__device__ __forceinline__ void stage_mma(__nv_bfloat16* xs,
-                                          const __nv_bfloat16* __restrict__ x,
-                                          size_t xbase, size_t ld, int t0,
-                                          int S,
-                                          const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t) {
-  constexpr int P = mma_pitch<HD>();
-  constexpr int HALF = HD / 2;
-  constexpr int CH = HALF / 8;
-  for (int e = threadIdx.x; e < kTileMma * CH; e += blockDim.x) {
-    const int r = e / CH;
-    const int col = (e % CH) * 8;
-    const int s = t0 + r;
-    uint4 x0 = make_uint4(0, 0, 0, 0), x1 = x0;
-    if (s < S) {
-      const size_t g = xbase + (size_t)s * ld + col;
-      x0 = *reinterpret_cast<const uint4*>(x + g);
-      x1 = *reinterpret_cast<const uint4*>(x + g + HALF);
-      if (cos_t != nullptr) {
-        const float4* cp =
-            reinterpret_cast<const float4*>(cos_t + s * HALF + col);
-        const float4* sp =
-            reinterpret_cast<const float4*>(sin_t + s * HALF + col);
-        rotate8(x0, x1, cp[0], cp[1], sp[0], sp[1]);
-      }
-    }
-    *reinterpret_cast<uint4*>(xs + r * P + col) = x0;
-    *reinterpret_cast<uint4*>(xs + r * P + col + HALF) = x1;
-  }
-}
-
-// lse in base 2 and delta = rowsum(dO o O) (float32 sums of the bfloat16
-// values) of rows t0..t0+63, a thread a row; rows past S get 0
-template <int HD>
-__device__ __forceinline__ void stage_rows_lse_delta_mma(
-    float* lse2_s, float* delta_s, const float* __restrict__ lse,
-    const __nv_bfloat16* __restrict__ o,
-    const __nv_bfloat16* __restrict__ d_out, size_t base, size_t tok,
-    size_t lbase, int t0, int S) {
-  for (int r = threadIdx.x; r < kTileMma; r += blockDim.x) {
-    const int s = t0 + r;
-    float d = 0.0f, l2 = 0.0f;
-    if (s < S) {
-      const __nv_bfloat16* orow = o + base + (size_t)s * tok;
-      const __nv_bfloat16* grow = d_out + base + (size_t)s * tok;
-      for (int c = 0; c < HD; c += 8) {
-        const uint4 a = *reinterpret_cast<const uint4*>(orow + c);
-        const uint4 w = *reinterpret_cast<const uint4*>(grow + c);
-        const uint32_t av[4] = {a.x, a.y, a.z, a.w};
-        const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          d = fmaf(bf16_lo(av[i]), bf16_lo(wv[i]), d);
-          d = fmaf(bf16_hi(av[i]), bf16_hi(wv[i]), d);
-        }
-      }
-      l2 = lse[lbase + s] * kLog2e;
-    }
-    lse2_s[r] = l2;
-    delta_s[r] = d;
-  }
-}
-
 // A fragments (hd/16 of them) of rows r0..r0+15 of xs
 template <int HD>
 __device__ __forceinline__ void load_rows(uint32_t (&a)[HD / 16][4],
@@ -1202,7 +1453,7 @@ __device__ __forceinline__ void store_fragments(
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kTiledMmaWarps * 32)
+__global__ void __launch_bounds__((kMmaBwdUnits + kMmaBwdProducers) * 32)
     attention_bwd_tiled_mma(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -1217,98 +1468,204 @@ __global__ void __launch_bounds__(kTiledMmaWarps * 32)
                             int ld_tok, int ld_head, float scale_log2,
                             float scale) {
   constexpr int P = mma_pitch<HD>();
-  constexpr int R = kTileMma * P;  // elements of a tile; four of them first
+  constexpr int HALF = HD / 2;
+  constexpr int TW = kMmaBwdWalk;
+  constexpr int NC = TW / 16;  // 16-row chunks of a walked tile
+  constexpr int STAGES = mma_bwd_stages<HD>();
+  // bytes of a ring stage: two row tiles, then the tile's lse and delta;
+  // of its side slot: the key block's tile of O, then the walked tile's
+  // tables
+  constexpr int STAGE = 2 * TW * P * 2 + 2 * TW * 4;
+  constexpr int SIDE = TW * P * 2 + TW * HD * 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* lse2_s = reinterpret_cast<float*>(sm + 4 * R);
-  float* delta_s = lse2_s + kTileMma;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Qr / Kr
+  __nv_bfloat16* ys = xs + 16 * kMmaBwdUnits * P;                     // dO / V
+  unsigned char* ring =
+      reinterpret_cast<unsigned char*>(ys + 16 * kMmaBwdUnits * P);
+  unsigned char* sides = ring + STAGES * STAGE;
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
+  const int nb = blocks_per_head(S, kMmaBwdUnits);
+  const bool key_kind = (int)blockIdx.y < nb;
+  const UnitSpan span = unit_span((S + 15) / 16, nb,
+                                  key_kind ? blockIdx.y : blockIdx.y - nb);
+  const int warp = threadIdx.x >> 5;
+  constexpr int PW = kMmaBwdProducers;
+  const bool producer = warp >= kMmaBwdUnits;  // the last PW warps
+  if (warp >= span.n && !producer) return;  // leave before any barrier
+  const int ring_threads = (span.n + PW) * 32;  // the ring's barriers
+  constexpr int FULL = 2, EMPTY = 2 + STAGES;  // ids, a stage each
+  const int tid = threadIdx.x;
+  const int nthreads = span.n * 32;
+  const int ptid = tid - kMmaBwdUnits * 32;  // a producer's thread
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int t0 = span.u0 * 16;
+  const int m0 = warp * 16;  // the warp's rows of the block's own rows
   const size_t tok = (size_t)H * HD;
   const size_t base = (size_t)b * S * tok + (size_t)h * HD;
   const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
   const size_t lbase = (size_t)bh * S;
-  const int ntiles = (S + kTileMma - 1) / kTileMma;
-  const bool dq_kind = (int)blockIdx.y < ntiles;
-  const int t0 = (dq_kind ? blockIdx.y : blockIdx.y - ntiles) * kTileMma;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = warp * 16;  // the warp's rows of its own tile
-  const bool active = t0 + m0 < S;
+  const bool rope = cos_t != nullptr;
+  const int ntiles = (S + TW - 1) / TW;
 
-  if (dq_kind) {
-    __nv_bfloat16 *qs = sm, *os = sm + R, *ks = sm + 2 * R, *vs = sm + 3 * R;
-    stage_mma<HD>(qs, q, ibase, ld_tok, t0, S, cos_t, sin_t);
-    stage_mma<HD>(os, d_out, base, tok, t0, S, nullptr, nullptr);
-    stage_rows_lse_delta_mma<HD>(lse2_s, delta_s, lse, o, d_out, base, tok,
-                                 lbase, t0, S);
-    __syncthreads();
-    uint32_t qa[HD / 16][4], oa[HD / 16][4];
+  auto tile = [&](int j) {  // the first row tile of stage j % STAGES
+    return reinterpret_cast<__nv_bfloat16*>(ring + (j % STAGES) * STAGE);
+  };
+  auto obuf = [&](int j) {  // tile j's O (key block)
+    return reinterpret_cast<__nv_bfloat16*>(sides + (j % STAGES) * SIDE);
+  };
+  // the producers: copy each walked tile into its stage, prepare it
+  // (rotate, and in the key block sum the row term), signal it
+  auto produce = [&](auto issue, auto prepare) {
+    for (int j = 0; j < ntiles; ++j) {
+      if (j >= STAGES) bar_wait(EMPTY + j % STAGES, ring_threads);
+      issue(j);
+      if (j > 0) {
+        cp_async_wait<1>();  // tile j - 1 landed; tile j in flight
+        prepare(j - 1);
+        bar_arrive(FULL + (j - 1) % STAGES, ring_threads);
+      }
+    }
+    cp_async_wait<0>();
+    prepare(ntiles - 1);
+    bar_arrive(FULL + (ntiles - 1) % STAGES, ring_threads);
+  };
+  auto tables = [&](int j) {  // tile j's cos, then its sin
+    return reinterpret_cast<float*>(obuf(j) + TW * P);
+  };
+
+  if (!key_kind) {
+    if (producer) {
+      produce(
+          [&](int j) {  // K (with its tables) and V of key tile j
+            async_pairs(tile(j), P, tables(j), tables(j) + TW * HALF, k,
+                        ibase, ld_tok, cos_t, sin_t, j * TW, TW, S, HALF,
+                        ptid, PW * 32);
+            async_rows(tile(j) + TW * P, P, v, ibase, ld_tok, j * TW, TW, S,
+                       HD, ptid, PW * 32);
+            cp_async_commit();
+          },
+          [&](int j) {
+            if (rope)
+              rotate_pairs_mma<HD>(tile(j), tables(j),
+                                   tables(j) + TW * HALF, TW, ptid, PW * 32);
+          });
+      return;
+    }
+    stage_rows_mma<HD>(xs, q, ibase, ld_tok, t0, span.n * 16, S, cos_t,
+                       sin_t, tid, nthreads);
+    stage_rows_mma<HD>(ys, d_out, base, tok, t0, span.n * 16, S, nullptr,
+                       nullptr, tid, nthreads);
+    // the own rows' lse in base 2 and delta = rowsum(dO o O), float32 sums
+    // of the bfloat16 values: a row's 4 lanes split its columns
     float lr[2], dr[2];
     bool row_ok[2];
-    if (active) {
-      load_rows<HD>(qa, qs, m0, lane);
-      load_rows<HD>(oa, os, m0, lane);
-    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      lr[r] = lse2_s[m0 + g + 8 * r];
-      dr[r] = delta_s[m0 + g + 8 * r];
-      row_ok[r] = t0 + m0 + g + 8 * r < S;
+      const int row = t0 + m0 + g + 8 * r;
+      row_ok[r] = row < S;
+      float d = 0.0f;
+      lr[r] = 0.0f;
+      if (row_ok[r]) {
+        for (int c = 8 * t; c < HD; c += 32) {
+          const uint4 a = *reinterpret_cast<const uint4*>(
+              o + base + (size_t)row * tok + c);
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              d_out + base + (size_t)row * tok + c);
+          const uint32_t av[4] = {a.x, a.y, a.z, a.w};
+          const uint32_t wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            d = fmaf(bf16_lo(av[i]), bf16_lo(wv[i]), d);
+            d = fmaf(bf16_hi(av[i]), bf16_hi(wv[i]), d);
+          }
+        }
+        lr[r] = lse[lbase + row] * kLog2e;
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      dr[r] = d;
     }
+    bar_sync(nthreads);  // the own rows are staged
+    uint32_t qa[HD / 16][4], oa[HD / 16][4];
+    load_rows<HD>(qa, xs, m0, lane);
+    load_rows<HD>(oa, ys, m0, lane);
     float acc[HD / 8][4];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n)
       acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-    for (int k0 = 0; k0 < S; k0 += kTileMma) {
-      __syncthreads();  // the last key tile is no longer read
-      stage_mma<HD>(ks, k, ibase, ld_tok, k0, S, cos_t, sin_t);
-      stage_mma<HD>(vs, v, ibase, ld_tok, k0, S, nullptr, nullptr);
-      __syncthreads();
-      if (!active) continue;
-      const int rest = (S - k0 + 15) & ~15;
-      const int nk = rest < kTileMma ? rest : kTileMma;
-      for (int n0 = 0; n0 < nk; n0 += 16) {
-        float sc[2][4], dp[2][4];
-        row_products<HD>(sc, qa, ks, n0, lane);
-        row_products<HD>(dp, oa, vs, n0, lane);
+    for (int j = 0; j < ntiles; ++j) {
+      bar_wait(FULL + j % STAGES, ring_threads);  // tile j landed, rotated
+      __nv_bfloat16* ks = tile(j);
+      const int k0 = j * TW;
+      const int nc = min(NC, (S - k0 + 15) >> 4);  // chunks with a real key
+      // scores and dP of the whole tile at once: 4 NC independent sums
+      float sc[2 * NC][4], dp[2 * NC][4];
+      tile_products<HD, NC>(sc, dp, qa, oa, ks, ks + TW * P, nc, lane);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+      for (int n = 0; n < 2 * NC; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const int key = k0 + n0 + nt * 8 + 2 * t + (e & 1);
-            const float p = key < S && row_ok[r]
-                                ? exp2f(sc[nt][e] * scale_log2 - lr[r])
-                                : 0.0f;
-            dp[nt][e] = p * (dp[nt][e] - dr[r]) * scale;
-          }
-        const uint32_t da[4] = {pack_bf16(dp[0][0], dp[0][1]),
-                                pack_bf16(dp[0][2], dp[0][3]),
-                                pack_bf16(dp[1][0], dp[1][1]),
-                                pack_bf16(dp[1][2], dp[1][3])};
-        times_rows<HD>(acc, da, ks, n0, lane);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int key = k0 + n * 8 + 2 * t + (e & 1);
+          const float p = key < S && row_ok[r]
+                              ? exp2f(sc[n][e] * scale_log2 - lr[r])
+                              : 0.0f;
+          dp[n][e] = p * (dp[n][e] - dr[r]) * scale;
+        }
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (c < nc) {
+          const uint32_t da[4] = {
+              pack_bf16(dp[2 * c][0], dp[2 * c][1]),
+              pack_bf16(dp[2 * c][2], dp[2 * c][3]),
+              pack_bf16(dp[2 * c + 1][0], dp[2 * c + 1][1]),
+              pack_bf16(dp[2 * c + 1][2], dp[2 * c + 1][3])};
+          times_rows<HD>(acc, da, ks, 16 * c, lane);
+        }
+      if (j + STAGES < ntiles) bar_arrive(EMPTY + j % STAGES, ring_threads);
     }
-    if (!active) return;
     unrotate<HD>(acc, cos_t, sin_t, t0 + m0, g, t, S);
     store_fragments<HD>(acc, dq, ibase, ld_tok, t0 + m0, S, g, t);
     return;
   }
 
-  __nv_bfloat16 *ks = sm, *vs = sm + R, *qs = sm + 2 * R, *os = sm + 3 * R;
-  stage_mma<HD>(ks, k, ibase, ld_tok, t0, S, cos_t, sin_t);
-  stage_mma<HD>(vs, v, ibase, ld_tok, t0, S, nullptr, nullptr);
-  __syncthreads();
-  uint32_t ka[HD / 16][4], va[HD / 16][4];
-  if (active) {
-    load_rows<HD>(ka, ks, m0, lane);
-    load_rows<HD>(va, vs, m0, lane);
+  // key block: walks the query tiles
+  if (producer) {
+    produce(
+        [&](int j) {  // Q (with its tables), dO and O, lse of tile j
+          async_pairs(tile(j), P, tables(j), tables(j) + TW * HALF, q, ibase,
+                      ld_tok, cos_t, sin_t, j * TW, TW, S, HALF, ptid,
+                      PW * 32);
+          async_quads(tile(j) + TW * P, obuf(j), P, d_out, o, base, tok,
+                      j * TW, TW, S, HD, ptid, PW * 32);
+          async_values(reinterpret_cast<float*>(tile(j) + 2 * TW * P), lse,
+                       lbase, j * TW, TW, S, ptid, PW * 32);
+          cp_async_commit();
+        },
+        [&](int j) {
+          __nv_bfloat16* qs = tile(j);
+          const __nv_bfloat16* gs = qs + TW * P;
+          float* delta_s = reinterpret_cast<float*>(qs + 2 * TW * P) + TW;
+          if (rope)
+            rotate_pairs_mma<HD>(qs, tables(j), tables(j) + TW * HALF, TW,
+                                 ptid, PW * 32);
+          row_delta_mma<HD>(delta_s, gs, obuf(j), TW, ptid, PW * 32);
+        });
+    return;
   }
+  stage_rows_mma<HD>(xs, k, ibase, ld_tok, t0, span.n * 16, S, cos_t, sin_t,
+                     tid, nthreads);
+  stage_rows_mma<HD>(ys, v, ibase, ld_tok, t0, span.n * 16, S, nullptr,
+                     nullptr, tid, nthreads);
+  bar_sync(nthreads);  // the own rows are staged
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
+  load_rows<HD>(ka, xs, m0, lane);
+  load_rows<HD>(va, ys, m0, lane);
   bool key_ok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) key_ok[r] = t0 + m0 + g + 8 * r < S;
@@ -1318,72 +1675,52 @@ __global__ void __launch_bounds__(kTiledMmaWarps * 32)
     av[n][0] = av[n][1] = av[n][2] = av[n][3] = 0.0f;
     ak[n][0] = ak[n][1] = ak[n][2] = ak[n][3] = 0.0f;
   }
-  for (int q0 = 0; q0 < S; q0 += kTileMma) {
-    __syncthreads();  // the last query tile is no longer read
-    stage_mma<HD>(qs, q, ibase, ld_tok, q0, S, cos_t, sin_t);
-    stage_mma<HD>(os, d_out, base, tok, q0, S, nullptr, nullptr);
-    stage_rows_lse_delta_mma<HD>(lse2_s, delta_s, lse, o, d_out, base, tok,
-                                 lbase, q0, S);
-    __syncthreads();
-    if (!active) continue;
-    const int rest = (S - q0 + 15) & ~15;
-    const int ni = rest < kTileMma ? rest : kTileMma;
-    for (int i0 = 0; i0 < ni; i0 += 16) {
-      // S^T and dP^T: rows the warp's keys, columns queries i0..i0+15
-      float sc[2][4], dp[2][4];
-      row_products<HD>(sc, ka, qs, i0, lane);
-      row_products<HD>(dp, va, os, i0, lane);
+  for (int j = 0; j < ntiles; ++j) {
+    bar_wait(FULL + j % STAGES, ring_threads);  // tile j landed, prepared
+    __nv_bfloat16* qs = tile(j);
+    const __nv_bfloat16* gs = qs + TW * P;  // dO
+    const float* lse_s = reinterpret_cast<const float*>(gs + TW * P);
+    const float* delta_s = lse_s + TW;
+    const int q0 = j * TW;
+    const int nc = min(NC, (S - q0 + 15) >> 4);  // chunks with a real query
+    // S^T and dP^T of the whole tile at once: rows the warp's keys,
+    // columns the tile's queries
+    float sc[2 * NC][4], dp[2 * NC][4];
+    tile_products<HD, NC>(sc, dp, ka, va, qs, gs, nc, lane);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int n = 0; n < 2 * NC; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = i0 + nt * 8 + 2 * t + (e & 1);
-          const float p = q0 + qi < S && key_ok[e >> 1]
-                              ? exp2f(sc[nt][e] * scale_log2 - lse2_s[qi])
-                              : 0.0f;
-          sc[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - delta_s[qi]) * scale;
-        }
-      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
-                              pack_bf16(sc[0][2], sc[0][3]),
-                              pack_bf16(sc[1][0], sc[1][1]),
-                              pack_bf16(sc[1][2], sc[1][3])};
-      const uint32_t da[4] = {pack_bf16(dp[0][0], dp[0][1]),
-                              pack_bf16(dp[0][2], dp[0][3]),
-                              pack_bf16(dp[1][0], dp[1][1]),
-                              pack_bf16(dp[1][2], dp[1][3])};
-      times_rows<HD>(av, pa, os, i0, lane);
-      times_rows<HD>(ak, da, qs, i0, lane);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int qi = n * 8 + 2 * t + (e & 1);
+        const float p =
+            q0 + qi < S && key_ok[e >> 1]
+                ? exp2f(sc[n][e] * scale_log2 - lse_s[qi] * kLog2e)
+                : 0.0f;
+        sc[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - delta_s[qi]) * scale;
+      }
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (c < nc) {
+        const uint32_t pa[4] = {pack_bf16(sc[2 * c][0], sc[2 * c][1]),
+                                pack_bf16(sc[2 * c][2], sc[2 * c][3]),
+                                pack_bf16(sc[2 * c + 1][0], sc[2 * c + 1][1]),
+                                pack_bf16(sc[2 * c + 1][2], sc[2 * c + 1][3])};
+        const uint32_t da[4] = {pack_bf16(dp[2 * c][0], dp[2 * c][1]),
+                                pack_bf16(dp[2 * c][2], dp[2 * c][3]),
+                                pack_bf16(dp[2 * c + 1][0], dp[2 * c + 1][1]),
+                                pack_bf16(dp[2 * c + 1][2], dp[2 * c + 1][3])};
+        times_rows<HD>(av, pa, gs, 16 * c, lane);
+        times_rows<HD>(ak, da, qs, 16 * c, lane);
+      }
+    if (j + STAGES < ntiles) bar_arrive(EMPTY + j % STAGES, ring_threads);
   }
-  if (!active) return;
   unrotate<HD>(ak, cos_t, sin_t, t0 + m0, g, t, S);
   store_fragments<HD>(ak, dk, ibase, ld_tok, t0 + m0, S, g, t);
   store_fragments<HD>(av, dv, ibase, ld_tok, t0 + m0, S, g, t);
 }
 
 // --------------------------------------------------------------- launch --
-
-// A kernel's dynamic shared-memory limit is raised to the device's opt-in
-// maximum once per (kernel, device), not on every launch; the wrapper
-// refuses shapes above that maximum.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, std::atomic<bool> (&raised)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (raised[dev].load()) return cudaSuccess;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (err != cudaSuccess) return err;
-  raised[dev].store(true);
-  return cudaSuccess;
-}
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
@@ -1416,18 +1753,53 @@ int launch_tiled_mma(const void* q, const void* k, const void* v,
   static std::atomic<bool> raised[kMaxDevices];
   cudaError_t err = allow_smem(attention_bwd_tiled_mma<HD>, raised);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * 4 * (size_t)kTileMma * mma_pitch<HD>() +
-      sizeof(float) * 2 * kTileMma;
-  const dim3 grid(B * H, 2 * ((S + kTileMma - 1) / kTileMma));
+  const dim3 grid(B * H, 2 * blocks_per_head(S, kMmaBwdUnits));
   const float scale = 1.0f / sqrtf((float)HD);
   attention_bwd_tiled_mma<HD>
-      <<<grid, kTiledMmaWarps * 32, smem, (cudaStream_t)stream>>>(
+      <<<grid, (kMmaBwdUnits + kMmaBwdProducers) * 32, tiled_mma_bytes<HD>(),
+        (cudaStream_t)stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
           (const __nv_bfloat16*)v, cos_t, sin_t, (const __nv_bfloat16*)o,
           lse, (const __nv_bfloat16*)d_out, (__nv_bfloat16*)dq,
           (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, H, ld_tok, ld_head,
           kLog2e * scale, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int NP, int U>
+int launch_tiled_simt(const void* q, const void* k, const void* v,
+                      const float* cos_t, const float* sin_t, const void* o,
+                      const float* lse, const void* d_out, void* dq, void* dk,
+                      void* dv, int B, int S, int H, int hd, int ld_tok,
+                      int ld_head, void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_bwd_tiled_simt<NP, U>, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, 2 * blocks_per_head(S, U));
+  attention_bwd_tiled_simt<NP, U><<<grid, U * 32,
+                                 sizeof(float) * tiled_simt_floats(hd),
+                                 (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
+      (const float*)o, lse, (const float*)d_out, (float*)dq, (float*)dk,
+      (float*)dv, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}
+
+int launch_tiled_simt_wide(const void* q, const void* k, const void* v,
+                           const float* cos_t, const float* sin_t,
+                           const void* o, const float* lse, const void* d_out,
+                           void* dq, void* dk, void* dv, int B, int S, int H,
+                           int hd, int ld_tok, int ld_head, void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_bwd_tiled_simt_wide, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, 2 * ((S + kTileF32 - 1) / kTileF32));
+  attention_bwd_tiled_simt_wide<<<grid, kTiledF32Threads,
+                                  sizeof(float) * tiled_simt_wide_floats(hd),
+                                  (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
+      (const float*)o, lse, (const float*)d_out, (float*)dq, (float*)dk,
+      (float*)dv, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
@@ -1495,17 +1867,17 @@ extern "C" int attention_bwd_tiled_f32(const void* q, const void* k,
                                        void* dq, void* dk, void* dv, int B,
                                        int S, int H, int hd, int ld_tok,
                                        int ld_head, void* stream) {
-  static std::atomic<bool> raised[kMaxDevices];
-  cudaError_t err = allow_smem(attention_bwd_tiled_simt, raised);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, 2 * ((S + kTileF32 - 1) / kTileF32));
-  attention_bwd_tiled_simt<<<grid, kTiledF32Threads,
-                             sizeof(float) * tiled_simt_floats(hd),
-                             (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
-      (const float*)o, lse, (const float*)d_out, (float*)dq, (float*)dk,
-      (float*)dv, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
+  if (hd > kSimtMaxHd)
+    return launch_tiled_simt_wide(q, k, v, cos_t, sin_t, o, lse, d_out, dq,
+                                  dk, dv, B, S, H, hd, ld_tok, ld_head,
+                                  stream);
+  if (hd > 64)
+    return launch_tiled_simt<2, simt_bwd_units(128)>(
+        q, k, v, cos_t, sin_t, o, lse, d_out, dq, dk, dv, B, S, H, hd, ld_tok,
+        ld_head, stream);
+  return launch_tiled_simt<1, simt_bwd_units(64)>(
+      q, k, v, cos_t, sin_t, o, lse, d_out, dq, dk, dv, B, S, H, hd, ld_tok,
+      ld_head, stream);
 }
 
 extern "C" int attention_bwd_tiled_bf16(const void* q, const void* k,

@@ -12,8 +12,9 @@
 // transpose or pad in HBM), rotates q and k in float32 as it stages them
 // in shared memory, and takes the softmax over the S real keys.  Scores
 // never touch HBM.  These whole-sequence forms take the shapes whose
-// sequence fits one block; the key-tiled forms (section "tiled" below)
-// take the longer sequences that JAX's attention_supported admits.
+// sequence fits half an SM's shared memory; the key-tiled forms (section
+// "tiled" below) take the longer sequences that JAX's attention_supported
+// admits.
 //
 // q, k and v are read at a token stride ld_tok and a head stride ld_head
 // (elements; the batch stride is S ld_tok): H hd and hd for contiguous
@@ -52,94 +53,15 @@
 // flagship shape, so the launcher raises the kernel's dynamic shared
 // memory limit to the device's opt-in maximum once per device.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kMaxDevices = 64;
 constexpr int kMmaMaxWarps = 8;     // a warp loops over 16-row tiles
 constexpr int kSimtMaxThreads = 512;
 
 // ---------------------------------------------------------------- bf16 --
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// c += a b, a 16 x 16 (row), b 16 x 8 (col), bfloat16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bfloat16 x 2 (round to nearest even), the first in the
-// low half, as an mma fragment register holds them
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-// The two bfloat16 of a register, exactly, as floats.
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// a, b: two bfloat16 of the first and the second half of a row, rotated
-// in float32 by their angles' cos c0, c1 and sin s0, s1, rounded back.
-__device__ __forceinline__ void rotate2(uint32_t& a, uint32_t& b, float c0,
-                                        float c1, float s0, float s1) {
-  const float a0 = bf16_lo(a), a1 = bf16_hi(a);
-  const float b0 = bf16_lo(b), b1 = bf16_hi(b);
-  a = pack_bf16(a0 * c0 - b0 * s0, a1 * c1 - b1 * s1);
-  b = pack_bf16(a0 * s0 + b0 * c0, a1 * s1 + b1 * c1);
-}
-
-// x0, x1: 8 bfloat16 each of the first and the second half of a row; c,
-// s: the 8 angles' cos and sin as two float4 each.
-__device__ __forceinline__ void rotate8(uint4& x0, uint4& x1, float4 c0,
-                                        float4 c1, float4 s0, float4 s1) {
-  rotate2(x0.x, x1.x, c0.x, c0.y, s0.x, s0.y);
-  rotate2(x0.y, x1.y, c0.z, c0.w, s0.z, s0.w);
-  rotate2(x0.z, x1.z, c1.x, c1.y, s1.x, s1.y);
-  rotate2(x0.w, x1.w, c1.z, c1.w, s1.z, s1.w);
-}
-
-// Rows of HD + 8 bfloat16: ldmatrix's eight 16-byte row reads land on
-// eight different 4-bank groups.
-template <int HD>
-__host__ __device__ constexpr int mma_pitch() {
-  return HD + 8;
-}
+// The fragment helpers, rotate8 and mma_pitch are attention_tiles.cuh's.
 
 template <int HD>
 __global__ void __launch_bounds__(kMmaMaxWarps * 32)
@@ -305,25 +227,7 @@ __global__ void __launch_bounds__(kMmaMaxWarps * 32)
 }
 
 // ---------------------------------------------------------------- f32 --
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc += p * v, componentwise over v's four columns
-__device__ __forceinline__ void axpy4(float p, float4 v, float4& acc) {
-  acc.x = fmaf(p, v.x, acc.x);
-  acc.y = fmaf(p, v.y, acc.y);
-  acc.z = fmaf(p, v.z, acc.z);
-  acc.w = fmaf(p, v.w, acc.w);
-}
+// ld4, dot4 and axpy4 are attention_tiles.cuh's.
 
 // Shared-memory layout of the float32 kernel, in floats: q and k rows of
 // hd + 4, v rows of hd, probability rows of Sp + 4, Sp = S rounded up to 4.
@@ -482,93 +386,100 @@ __global__ void __launch_bounds__(kSimtMaxThreads)
 //
 // The key-tiled forms (attention_fwd_tiled_f32, attention_fwd_tiled_bf16)
 // replace the same pallas_call (_attn_fwd_call) at the shapes whose whole
-// sequence does not fit one block's shared memory: S 260 at image 256
-// (default_config(256), 8 heads of 64) needs 482,560 bytes in the float32
-// form above, and JAX's attention_supported admits up to about S 330 at 8
-// heads of 64.  One block per (query tile, batch x head) keeps its query
-// tile, rotated on load, and walks the keys one tile at a time: K rotated
-// on load, V, then an online softmax (a running maximum and sum per row in
-// float32, the partial output rescaled by exp(m_old - m_new)).  Keys past S
-// are masked to -1e30 (attention_pallas.py::_NEG); query rows past S are
-// zero and never stored.  Shared memory does not depend on S.  With a
-// non-null lse the block also writes each row's log-sum-exp of the scaled
-// scores, float32 (B, H, S), which the tiled backward reads to recompute P.
+// sequence does not fit half an SM's shared memory
+// (kernels/attention.py::route): S 260 at image 256 (default_config(256),
+// 8 heads of 64) needs 482,560 bytes in the float32 form above, and the
+// bfloat16 one, at 117,504, would run 32 blocks on 132 SMs.  A block owns
+// 16-row query units of one (batch, head) and walks the keys a tile at a
+// time through a ring of shared-memory stages filled by cp.async
+// (attention_tiles.cuh): the next tiles' copies are in flight during a
+// tile's products, K is rotated by the threads that copied it, and each
+// unit's walk is split among several warps, each with its own online
+// softmax (a running maximum and sum per row in float32, the partial
+// output rescaled by exp(m_old - m_new)), merged in split order at the end
+// through shared memory.  Keys past S are masked to -1e30
+// (attention_pallas.py::_NEG); query rows past S are zero and never
+// stored.  Shared memory does not depend on S.  With a non-null lse the
+// block also writes each row's log-sum-exp of the scaled scores, float32
+// (B, H, S), which the tiled backward reads to recompute P.
 //
 // What bounds it: at image 256's shape (B 4, S 260, H 8, hd 64) the
 // function moves 8.6 MB in float32 (q, k, v, out, the tables; 4.3 MB in
 // bfloat16) and does 4 B H S^2 hd = 0.55 GFLOP: the float32 form is bound
 // by the CUDA cores' rate (8.3 us at 67 TFLOP/s; its bytes take 2.6 us),
 // the bfloat16 form by HBM bandwidth (1.3 us at 3.35 TB/s; the tensor
-// cores need 0.56 us).
+// cores need 0.56 us).  Neither comes near.  With 32 (batch, head)s each
+// unit's walk of 260 keys is long: the float32 form is held by
+// shared-memory reads (a float4 read takes four cycles of the SM's 128
+// bytes a cycle) and the warps an SM holds, the bfloat16 one by the walk's
+// chain of dependent steps (a tile's copies, its rotation, its products,
+// the softmax between them) in few warps.  The design: a unit's keys are
+// split among warps, so each walks a third (float32) or half (bfloat16) of
+// them, and a block holds every unit it can, so that each block's copies
+// and rotation of K serve more rows.
 //
-// float32 (attention_fwd_tiled_simt): tiles of 32 queries and 32 keys, 128
-// threads.  A thread computes 2 query rows x 4 keys of the scores (rows
-// ti, ti + 16, keys tj + 8c) from float4 reads; the softmax takes one warp
-// per row, lane j on key j; the partial output lives in shared memory and
-// a thread updates 2 rows x 4 columns of it per key tile.  Four row tiles
-// of hd + 4 floats, the 32 x 36 probabilities and three row vectors: 39.8
-// KB at hd 64, so several blocks share an SM.
+// float32 (attention_fwd_tiled_simt): up to head_dim 64, blocks of 5
+// units whose keys are split among 3 warps (15 warps; 4 blocks of 4 or 5
+// units a (batch, head), 128 blocks, one wave): rounds of 96 keys, a
+// 32-key sub-tile for each split, in two stages; scores in a 4 x 4
+// register tile a thread (attention_tiles.cuh, float32 tiled forms), the
+// row maximum by shuffles among the row's 8 lanes, P through the warp's
+// own scratch rows, and O with each row's maximum and sum in registers for
+// the whole walk (4 rows x 8 columns a thread at hd 64).  185 KB of shared
+// memory at hd 64, one block an SM.  Up to 128, 4 units and no split;
+// wider head_dims (up to 440) keep the first tiled form, its partial output in
+// shared memory (attention_fwd_tiled_simt_wide).
 //
-// bfloat16 (attention_fwd_tiled_mma): tiles of 64 queries (four warps of
-// 16 rows) and 64 keys.  Each warp keeps its rotated q rows as A fragments
-// and runs the whole-sequence form's inner loop (scores on mma.sync, the
-// online softmax on the fragments, P reused in registers for P v) over
-// each staged key tile.  A warp whose 16 rows lie past S stages and
-// synchronises with the others but computes nothing.  q, k and v tiles in
-// rows of hd + 8: 27.6 KB at hd 64.
+// bfloat16 (attention_fwd_tiled_mma): blocks of 6 units whose key tiles of
+// 64 are split between 2 warps (12 warps; 3 blocks of 5 or 6 units a
+// (batch, head), 96 blocks), two stages.  Each warp keeps its rotated q
+// rows as A fragments and takes its half of a landed tile at once: the
+// scores of 32 keys (four independent m16n8 sums), one online-softmax step
+// on the fragments, P reused in registers for P v.  66 KB at hd 64.
 
-constexpr float kNeg = -1e30f;  // attention_pallas.py::_NEG
-constexpr int kTileF32 = 32;    // float32 tiled form: queries and keys a tile
-constexpr int kTiledF32Threads = 128;
-constexpr int kTileMma = 64;    // bfloat16 tiled form: queries and keys a tile
-constexpr int kTiledMmaWarps = kTileMma / 16;
+// The float32 tiled forward's geometry by head_dim: up to 64, blocks of
+// up to 5 own units, each unit's keys split among 3 warps (15 warps); up to
+// kSimtMaxHd, up to 4 units and no split (their ring would not fit).
+__host__ __device__ constexpr int simt_fwd_splits(int hd) {
+  return hd <= 64 ? 3 : 1;
+}
+__host__ __device__ constexpr int simt_fwd_units(int hd) {
+  return hd <= 64 ? 5 : 4;
+}
 
-// floats of shared memory of the float32 tiled forward: q, k, v and the
-// partial output in rows of hd + 4, the probabilities in rows of 36, and
-// the running maximum, sum and correction of each row
+// floats of shared memory of the float32 tiled forward: the block's query
+// rows; a ring of two stages of a key round (KS sub-tiles of 32 keys) and
+// its values, in rows of hd + 4; one round's RoPE tables; each warp's
+// probabilities.  The split warps' partial outputs are merged through the
+// ring once the walk is done.
 __host__ __device__ inline size_t tiled_simt_floats(int hd) {
+  const int U = simt_fwd_units(hd), KS = simt_fwd_splits(hd);
+  return (size_t)(16 * U + 4 * KS * kSimtWalk) * (hd + 4) +
+         (size_t)KS * kSimtWalk * hd + (size_t)U * KS * 16 * kSimtScratch;
+}
+
+// floats of the wide form: q, k, v and the partial output in rows of
+// hd + 4, the probabilities in rows of 36, three row vectors
+__host__ __device__ inline size_t tiled_simt_wide_floats(int hd) {
   return (size_t)4 * kTileF32 * (hd + 4) + kTileF32 * (kTileF32 + 4) +
          3 * kTileF32;
 }
 
-__device__ __forceinline__ void rotate4(float4& x0, float4& x1, float4 c,
-                                        float4 s) {
-  const float4 a = x0, b = x1;
-  x0 = make_float4(a.x * c.x - b.x * s.x, a.y * c.y - b.y * s.y,
-                   a.z * c.z - b.z * s.z, a.w * c.w - b.w * s.w);
-  x1 = make_float4(a.x * s.x + b.x * c.x, a.y * s.y + b.y * c.y,
-                   a.z * s.z + b.z * c.z, a.w * s.w + b.w * c.w);
+// bytes of the bfloat16 tiled forward: the block's query rows and the ring
+// of key and value tiles in rows of hd + 8, the RoPE tables of the tiles in
+// flight
+template <int HD>
+constexpr size_t tiled_mma_bytes() {
+  return sizeof(__nv_bfloat16) *
+             (16 * kMmaFwdUnits + 2 * kMmaFwdStages * kMmaFwdWalk) *
+             mma_pitch<HD>() +
+         sizeof(float) * (kMmaFwdStages - 1) * kMmaFwdWalk * HD;
 }
 
-// Rows t0..t0+31 of x (tokens at stride ld from xbase) into xs (rows of
-// hd + 4), rotated when cos_t is given; rows past S zero.
-__device__ __forceinline__ void stage_f32(float* xs, const float* __restrict__ x,
-                                          size_t xbase, size_t ld, int t0,
-                                          int S, int hd,
-                                          const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t) {
-  const int half = hd / 2;
-  const int CH = half / 4;
-  const int pitch = hd + 4;
-  for (int e = threadIdx.x; e < kTileF32 * CH; e += blockDim.x) {
-    const int r = e / CH;
-    const int col = (e % CH) * 4;
-    const int s = t0 + r;
-    float4 x0 = make_float4(0, 0, 0, 0), x1 = x0;
-    if (s < S) {
-      const size_t g = xbase + (size_t)s * ld + col;
-      x0 = ld4(x + g);
-      x1 = ld4(x + g + half);
-      if (cos_t != nullptr)
-        rotate4(x0, x1, ld4(cos_t + s * half + col),
-                ld4(sin_t + s * half + col));
-    }
-    *reinterpret_cast<float4*>(xs + r * pitch + col) = x0;
-    *reinterpret_cast<float4*>(xs + r * pitch + col + half) = x1;
-  }
-}
-
-__global__ void __launch_bounds__(kTiledF32Threads)
+// NP: 16-byte column pairs a lane owns (1 up to head_dim 64, 2 up to 128);
+// KS: key splits (simt_fwd_splits), U: own units a block at most.
+template <int NP, int KS, int U>
+__global__ void __launch_bounds__(U * KS * 32)
     attention_fwd_tiled_simt(const float* __restrict__ q,
                              const float* __restrict__ k,
                              const float* __restrict__ v,
@@ -577,6 +488,245 @@ __global__ void __launch_bounds__(kTiledF32Threads)
                              float* __restrict__ out, float* __restrict__ lse,
                              int S, int H, int hd, int ld_tok, int ld_head,
                              float scale) {
+  constexpr int TW = kSimtWalk;  // keys of a warp's sub-tile
+  constexpr int RW = KS * TW;    // keys of a round
+  constexpr int PP = kSimtScratch;
+  extern __shared__ __align__(16) float smem[];
+  const int QP = hd + 4;
+  const int half = hd / 2;
+  float* qs = smem;                 // the block's query rows
+  float* ring = qs + 16 * U * QP;   // a stage: a round's K rows, then V
+  float* cs = ring + 4 * RW * QP;   // the round in flight's tables
+  float* sn = cs + RW * half;
+  float* scratch = sn + RW * half;  // each warp's P
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh % H;
+  const UnitSpan span = unit_span((S + 15) / 16, gridDim.y, blockIdx.y);
+  const int warp = threadIdx.x >> 5;
+  const int nw = span.n * KS;  // warps with work: (unit, split)
+  if (warp >= nw) return;      // leave before any barrier
+  const int unit = warp % span.n;
+  const int split = warp / span.n;
+  const int tid = threadIdx.x;
+  const int nthreads = nw * 32;
+  const int lane = tid & 31;
+  const int rg = lane >> 3;  // rows rg + 4 a of the warp's unit
+  const int cg = lane & 7;   // keys cg + 8 c of a sub-tile; columns 4 cg + 32 i
+  const int q0 = span.u0 * 16;
+  const size_t tok = (size_t)H * hd;
+  const size_t base = (size_t)b * S * tok + (size_t)h * hd;
+  const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
+  const bool rope = cos_t != nullptr;
+  const int nrounds = (S + RW - 1) / RW;
+  const float* qw = qs + unit * 16 * QP;
+  float* ps = scratch + warp * 16 * PP;
+
+  auto issue = [&](int r) {  // K (with its tables) and V of round r
+    float* st = ring + (r & 1) * 2 * RW * QP;
+    async_pairs(st, QP, cs, sn, k, ibase, ld_tok, cos_t, sin_t, r * RW, RW,
+                S, half, tid, nthreads);
+    async_rows(st + RW * QP, QP, v, ibase, ld_tok, r * RW, RW, S, hd, tid,
+               nthreads);
+    cp_async_commit();
+  };
+  issue(0);
+  stage_rows_f32(qs, QP, q, ibase, ld_tok, q0, span.n * 16, S, hd, cos_t,
+                 sin_t, tid, nthreads);
+
+  float4 o0[4][NP], o1[4][NP];  // O at columns 4 cg + 32 i, + hd/2
+  float m[4], l[4];             // running maximum; this lane's share of sums
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    m[a] = -INFINITY;
+    l[a] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) o0[a][i] = o1[a][i] = make_float4(0, 0, 0, 0);
+  }
+
+  for (int r = 0; r < nrounds; ++r) {
+    cp_async_wait<0>();  // this thread's copies of round r
+    float* st = ring + (r & 1) * 2 * RW * QP;
+    if (rope) rotate_pairs_f32(st, QP, cs, sn, RW, half, tid, nthreads);
+    bar_sync(nthreads);  // round r ready; round r - 1, the tables unread
+    if (r + 1 < nrounds) issue(r + 1);
+    const int k0 = r * RW + split * TW;  // the warp's sub-tile
+    if (k0 >= S) continue;
+    const float* ks = st + split * TW * QP;
+    const float* vs = st + (RW + split * TW) * QP;
+    // 1. scores of rows rg + 4 a and keys cg + 8 c
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[a][c] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < hd; d += 4) {
+      float4 qa[4], kb[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) qa[a] = ld4(qw + (rg + 4 * a) * QP + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kb[c] = ld4(ks + (cg + 8 * c) * QP + d);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[a][c] = dot4(qa[a], kb[c], s[a][c]);
+    }
+    // 2. online softmax: a row's 32 keys lie in its 8 lanes
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mt = kNeg;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[a][c] = k0 + cg + 8 * c < S ? scale * s[a][c] : kNeg;
+        mt = fmaxf(mt, s[a][c]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+      const float m_new = fmaxf(m[a], mt);  // finite: key k0 is real
+      const float corr = expf(m[a] - m_new);
+      m[a] = m_new;
+      l[a] *= corr;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        scale4(o0[a][i], corr);
+        scale4(o1[a][i], corr);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float p = expf(s[a][c] - m_new);
+        l[a] += p;
+        ps[(rg + 4 * a) * PP + cg + 8 * c] = p;
+      }
+    }
+    __syncwarp();
+    // 3. O += P V
+#pragma unroll 2
+    for (int jj = 0; jj < TW; jj += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) pa[a] = ld4(ps + (rg + 4 * a) * PP + jj);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = vs + (jj + u) * QP;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int c = 4 * cg + 32 * i;
+          if (c >= half) continue;
+          const float4 v0 = ld4(vr + c), v1 = ld4(vr + c + half);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float w = comp(pa[a], u);
+            axpy4(w, v0, o0[a][i]);
+            axpy4(w, v1, o1[a][i]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // P is rewritten by the next sub-tile
+  }
+
+  // 4. a row's sum over its 8 lanes; the splits past the first hand their
+  //    maximum, sum and partial output to the first through the ring, which
+  //    merges them in split order
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 1);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 2);
+    l[a] += __shfl_xor_sync(0xffffffffu, l[a], 4);
+  }
+  const int MS = 16 * (hd + 2);  // floats of a handed-over unit
+  if (KS > 1) {
+    bar_sync(nthreads);  // every warp is done with the ring
+    if (split > 0) {
+      float* mo = ring + ((split - 1) * span.n + unit) * MS;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int rr = rg + 4 * a;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int c = 4 * cg + 32 * i;
+          if (c >= half) continue;
+          st4(mo + rr * hd + c, o0[a][i]);
+          st4(mo + rr * hd + c + half, o1[a][i]);
+        }
+        if (cg == 0) {
+          mo[16 * hd + rr] = m[a];
+          mo[16 * hd + 16 + rr] = l[a];
+        }
+      }
+    }
+    bar_sync(nthreads);
+    if (split > 0) return;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int rr = rg + 4 * a;
+      float mm = m[a];
+#pragma unroll
+      for (int x = 1; x < KS; ++x)
+        mm = fmaxf(mm, ring[((x - 1) * span.n + unit) * MS + 16 * hd + rr]);
+      const float w = expf(m[a] - mm);
+      l[a] *= w;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        scale4(o0[a][i], w);
+        scale4(o1[a][i], w);
+      }
+#pragma unroll
+      for (int x = 1; x < KS; ++x) {
+        const float* mo = ring + ((x - 1) * span.n + unit) * MS;
+        const float wx = expf(mo[16 * hd + rr] - mm);
+        l[a] = fmaf(mo[16 * hd + 16 + rr], wx, l[a]);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int c = 4 * cg + 32 * i;
+          if (c >= half) continue;
+          axpy4(wx, ld4(mo + rr * hd + c), o0[a][i]);
+          axpy4(wx, ld4(mo + rr * hd + c + half), o1[a][i]);
+        }
+      }
+      m[a] = mm;
+    }
+  }
+
+  // 5. out = O / l, and the log-sum-exp m + log l
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int row = q0 + unit * 16 + rg + 4 * a;
+    if (row >= S) continue;
+    const float inv = 1.0f / l[a];
+    float* dst = out + base + (size_t)row * tok;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int c = 4 * cg + 32 * i;
+      if (c >= half) continue;
+      float4 x0 = o0[a][i], x1 = o1[a][i];
+      scale4(x0, inv);
+      scale4(x1, inv);
+      st4(dst + c, x0);
+      st4(dst + c + half, x1);
+    }
+    if (lse != nullptr && cg == 0)
+      lse[(size_t)bh * S + row] = m[a] + logf(l[a]);
+  }
+}
+
+// The first float32 tiled forward, for head_dims above kSimtMaxHd (no model
+// of the repo has one): tiles of 32 queries and 32 keys, 128 threads; a
+// thread computes 2 query rows x 4 keys of the scores, the softmax takes
+// one warp a row, and the partial output lives in shared memory.
+__global__ void __launch_bounds__(kTiledF32Threads)
+    attention_fwd_tiled_simt_wide(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ cos_t,
+                                  const float* __restrict__ sin_t,
+                                  float* __restrict__ out,
+                                  float* __restrict__ lse, int S, int H,
+                                  int hd, int ld_tok, int ld_head,
+                                  float scale) {
   constexpr int T = kTileF32;
   constexpr int PP = T + 4;
   extern __shared__ __align__(16) float smem[];
@@ -598,23 +748,28 @@ __global__ void __launch_bounds__(kTiledF32Threads)
   const size_t base = (size_t)b * S * tok + (size_t)h * hd;
   const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
   const int C4 = hd / 4;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int nwarps = nt / 32;
 
-  stage_f32(qs, q, ibase, ld_tok, q0, S, hd, cos_t, sin_t);
-  for (int e = threadIdx.x; e < T * QP; e += blockDim.x) os[e] = 0.0f;
-  for (int r = threadIdx.x; r < T; r += blockDim.x) {
+  stage_rows_f32(qs, QP, q, ibase, ld_tok, q0, T, S, hd, cos_t, sin_t, tid,
+                 nt);
+  for (int e = tid; e < T * QP; e += nt) os[e] = 0.0f;
+  for (int r = tid; r < T; r += nt) {
     m_s[r] = -INFINITY;
     l_s[r] = 0.0f;
   }
   for (int k0 = 0; k0 < S; k0 += T) {
     __syncthreads();  // the last tile's k, v and P are no longer read
-    stage_f32(ks, k, ibase, ld_tok, k0, S, hd, cos_t, sin_t);
-    stage_f32(vs, v, ibase, ld_tok, k0, S, hd, nullptr, nullptr);
+    stage_rows_f32(ks, QP, k, ibase, ld_tok, k0, T, S, hd, cos_t, sin_t, tid,
+                   nt);
+    stage_rows_f32(vs, QP, v, ibase, ld_tok, k0, T, S, hd, nullptr, nullptr,
+                   tid, nt);
     __syncthreads();
     // 1. scores of rows ti + 16 a (a < 2) and keys tj + 8 c (c < 4)
-    for (int e = threadIdx.x; e < 16 * 8; e += blockDim.x) {
+    for (int e = tid; e < 16 * 8; e += nt) {
       const int ti = e / 8;
       const int tj = e % 8;
       float acc[2][4] = {};
@@ -662,7 +817,7 @@ __global__ void __launch_bounds__(kTiledF32Threads)
     }
     __syncthreads();
     // 3. O = O corr + P v: rows ti + 16 a, columns 4 tc .. 4 tc + 3
-    for (int e = threadIdx.x; e < 16 * C4; e += blockDim.x) {
+    for (int e = tid; e < 16 * C4; e += nt) {
       const int ti = e / C4;
       const int tc = e % C4;
       float4 acc[2];
@@ -689,61 +844,27 @@ __global__ void __launch_bounds__(kTiledF32Threads)
       }
 #pragma unroll
       for (int a = 0; a < 2; ++a)
-        *reinterpret_cast<float4*>(os + (ti + 16 * a) * QP + 4 * tc) = acc[a];
+        st4(os + (ti + 16 * a) * QP + 4 * tc, acc[a]);
     }
   }
   __syncthreads();
   // 4. out = O / l, and the log-sum-exp m + log l
-  for (int e = threadIdx.x; e < T * C4; e += blockDim.x) {
+  for (int e = tid; e < T * C4; e += nt) {
     const int r = e / C4;
     const int tc = e % C4;
     if (q0 + r >= S) continue;
     const float inv = 1.0f / l_s[r];
     const float4 o = ld4(os + r * QP + 4 * tc);
-    *reinterpret_cast<float4*>(out + base + (size_t)(q0 + r) * tok + 4 * tc) =
-        make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv);
+    st4(out + base + (size_t)(q0 + r) * tok + 4 * tc,
+        make_float4(o.x * inv, o.y * inv, o.z * inv, o.w * inv));
   }
   if (lse != nullptr)
-    for (int r = threadIdx.x; r < T; r += blockDim.x)
+    for (int r = tid; r < T; r += nt)
       if (q0 + r < S) lse[(size_t)bh * S + q0 + r] = m_s[r] + logf(l_s[r]);
 }
 
-// Rows t0..t0+63 of x (tokens at stride ld from xbase) into xs (rows of
-// hd + 8), rotated in float32 when cos_t is given; rows past S zero.
 template <int HD>
-__device__ __forceinline__ void stage_mma(__nv_bfloat16* xs,
-                                          const __nv_bfloat16* __restrict__ x,
-                                          size_t xbase, size_t ld, int t0,
-                                          int S,
-                                          const float* __restrict__ cos_t,
-                                          const float* __restrict__ sin_t) {
-  constexpr int P = mma_pitch<HD>();
-  constexpr int HALF = HD / 2;
-  constexpr int CH = HALF / 8;
-  for (int e = threadIdx.x; e < kTileMma * CH; e += blockDim.x) {
-    const int r = e / CH;
-    const int col = (e % CH) * 8;
-    const int s = t0 + r;
-    uint4 x0 = make_uint4(0, 0, 0, 0), x1 = x0;
-    if (s < S) {
-      const size_t g = xbase + (size_t)s * ld + col;
-      x0 = *reinterpret_cast<const uint4*>(x + g);
-      x1 = *reinterpret_cast<const uint4*>(x + g + HALF);
-      if (cos_t != nullptr) {
-        const float4* cp =
-            reinterpret_cast<const float4*>(cos_t + s * HALF + col);
-        const float4* sp =
-            reinterpret_cast<const float4*>(sin_t + s * HALF + col);
-        rotate8(x0, x1, cp[0], cp[1], sp[0], sp[1]);
-      }
-    }
-    *reinterpret_cast<uint4*>(xs + r * P + col) = x0;
-    *reinterpret_cast<uint4*>(xs + r * P + col + HALF) = x1;
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kTiledMmaWarps * 32)
+__global__ void __launch_bounds__(kMmaFwdUnits * kMmaFwdSplits * 32)
     attention_fwd_tiled_mma(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
@@ -753,113 +874,204 @@ __global__ void __launch_bounds__(kTiledMmaWarps * 32)
                             float* __restrict__ lse, int S, int H, int ld_tok,
                             int ld_head, float scale_log2) {
   constexpr int P = mma_pitch<HD>();
+  constexpr int HALF = HD / 2;
+  constexpr int TW = kMmaFwdWalk;
+  constexpr int KS = kMmaFwdSplits;
+  constexpr int NC = TW / 16 / KS;  // 16-key chunks of a warp's share
+  constexpr int STAGES = kMmaFwdStages;
+  constexpr int MS = 32 * (HD / 2 + 4);  // floats a handed-over warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the block's query rows; a ring of STAGES stages of a K tile and a V
+  // tile; the tables of the STAGES - 1 key tiles in flight
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kTileMma * P;
-  __nv_bfloat16* vs = ks + kTileMma * P;
+  __nv_bfloat16* ring = qs + 16 * kMmaFwdUnits * P;
+  float* tables = reinterpret_cast<float*>(ring + STAGES * 2 * TW * P);
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.y * kTileMma;
+  const UnitSpan span = unit_span((S + 15) / 16, gridDim.y, blockIdx.y);
+  const int warp = threadIdx.x >> 5;
+  const int nw = span.n * KS;  // warps with work: (unit, split)
+  if (warp >= nw) return;      // leave before any barrier
+  const int unit = warp % span.n;
+  const int split = warp / span.n;  // takes chunks split NC.. of a tile
+  const int tid = threadIdx.x;
+  const int nthreads = nw * 32;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = span.u0 * 16;
+  const int m0 = unit * 16;  // the warp's rows of the block's
   const size_t tok = (size_t)H * HD;
   const size_t base = (size_t)b * S * tok + (size_t)h * HD;
   const size_t ibase = (size_t)b * S * ld_tok + (size_t)h * ld_head;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = warp * 16;  // the warp's rows of the tile
-  const bool active = q0 + m0 < S;
+  const bool rope = cos_t != nullptr;
+  const int ntiles = (S + TW - 1) / TW;
 
-  stage_mma<HD>(qs, q, ibase, ld_tok, q0, S, cos_t, sin_t);
-  __syncthreads();
+  auto issue = [&](int j) {  // K (with its tables) and V of key tile j
+    if (j < ntiles) {
+      __nv_bfloat16* ks = ring + (j % STAGES) * 2 * TW * P;
+      float* cs = tables + (j % (STAGES - 1)) * TW * HD;
+      async_pairs(ks, P, cs, cs + TW * HALF, k, ibase, ld_tok, cos_t, sin_t,
+                  j * TW, TW, S, HALF, tid, nthreads);
+      async_rows(ks + TW * P, P, v, ibase, ld_tok, j * TW, TW, S, HD, tid,
+                 nthreads);
+    }
+    cp_async_commit();  // one group a tile, empty past the last
+  };
+  for (int j = 0; j < STAGES - 1; ++j) issue(j);
+  stage_rows_mma<HD>(qs, q, ibase, ld_tok, q0, span.n * 16, S, cos_t, sin_t,
+                     tid, nthreads);
+  bar_sync(nthreads);
   uint32_t qa[HD / 16][4];
-  if (active) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      ldsm_x4(qa[kk], qs + (m0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
-  }
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(qa[kk], qs + (m0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
   float o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0;
   float mx[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};
 
-  for (int k0 = 0; k0 < S; k0 += kTileMma) {
-    __syncthreads();  // the last tile's k and v are no longer read
-    stage_mma<HD>(ks, k, ibase, ld_tok, k0, S, cos_t, sin_t);
-    stage_mma<HD>(vs, v, ibase, ld_tok, k0, S, nullptr, nullptr);
-    __syncthreads();
-    if (!active) continue;
-    const int rest = (S - k0 + 15) & ~15;
-    const int nk = rest < kTileMma ? rest : kTileMma;
-    for (int n0 = 0; n0 < nk; n0 += 16) {
-      float sc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t kb[4];
-        ldsm_x4(kb, ks + (n0 + (lane & 7) + ((lane >> 4) << 3)) * P + kk * 16 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[0], qa[kk], kb[0], kb[1]);
-        mma_bf16(sc[1], qa[kk], kb[2], kb[3]);
-      }
-      float rmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + n0 + nt * 8 + 2 * t + (e & 1);
-          sc[nt][e] = key < S ? sc[nt][e] * scale_log2 : kNeg;
-          rmax[e >> 1] = fmaxf(rmax[e >> 1], sc[nt][e]);
-        }
-      float corr[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
-        rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
-        const float m_new = fmaxf(mx[r], rmax[r]);
-        corr[r] = exp2f(mx[r] - m_new);
-        mx[r] = m_new;
-        l[r] *= corr[r];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[nt][e] = exp2f(sc[nt][e] - mx[e >> 1]);
-          l[e >> 1] += sc[nt][e];
-        }
-#pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        o[n][0] *= corr[0];
-        o[n][1] *= corr[0];
-        o[n][2] *= corr[1];
-        o[n][3] *= corr[1];
-      }
-      const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
-                              pack_bf16(sc[0][2], sc[0][3]),
-                              pack_bf16(sc[1][0], sc[1][1]),
-                              pack_bf16(sc[1][2], sc[1][3])};
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, vs + (n0 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                              dp * 16 + (lane >> 4) * 8);
-        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
-      }
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile j
+    __nv_bfloat16* ks = ring + (j % STAGES) * 2 * TW * P;
+    if (rope) {
+      const float* cs = tables + (j % (STAGES - 1)) * TW * HD;
+      rotate_pairs_mma<HD>(ks, cs, cs + TW * HALF, TW, tid, nthreads);
     }
+    bar_sync(nthreads);  // tile j ready; tile j - 1 and its tables unread
+    issue(j + STAGES - 1);
+    const int k0 = j * TW + split * NC * 16;  // the warp's first key
+    const int nc = min(NC, (S - k0 + 15) >> 4);  // chunks with a real key
+    if (nc <= 0) continue;
+    ks += split * NC * 16 * P;
+    const __nv_bfloat16* vs = ks + TW * P;
+    // 1. the share's scores at once: 2 NC independent m16n8 sums
+    float sc[2 * NC][4];
+#pragma unroll
+    for (int n = 0; n < 2 * NC; ++n)
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        if (c < nc) {
+          uint32_t kb[4];
+          ldsm_x4(kb, ks + (16 * c + (lane & 7) + ((lane >> 4) << 3)) * P +
+                          kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(sc[2 * c], qa[kk], kb[0], kb[1]);
+          mma_bf16(sc[2 * c + 1], qa[kk], kb[2], kb[3]);
+        }
+    // 2. one online-softmax step for the share, in base 2; keys past S get
+    //    probability 0
+    float rmax[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + n * 8 + 2 * t + (e & 1);
+        sc[n][e] = key < S ? sc[n][e] * scale_log2 : kNeg;
+        rmax[e >> 1] = fmaxf(rmax[e >> 1], sc[n][e]);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+      const float m_new = fmaxf(mx[r], rmax[r]);  // finite: key k0 is real
+      corr[r] = exp2f(mx[r] - m_new);
+      mx[r] = m_new;
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 2 * NC; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[n][e] = exp2f(sc[n][e] - mx[e >> 1]);
+        l[e >> 1] += sc[n][e];
+      }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+    // 3. o += P v, a chunk of 16 keys a k-step: P's accumulators are its A
+    //    fragment
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      if (c < nc) {
+        const uint32_t pa[4] = {pack_bf16(sc[2 * c][0], sc[2 * c][1]),
+                                pack_bf16(sc[2 * c][2], sc[2 * c][3]),
+                                pack_bf16(sc[2 * c + 1][0], sc[2 * c + 1][1]),
+                                pack_bf16(sc[2 * c + 1][2], sc[2 * c + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vs + (16 * c + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                     P +
+                                 dp * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
   }
-  if (!active) return;
 
-  // normalise; the log-sum-exp in natural units; the output staged in the
-  // warp's own q rows (read by this warp alone) and stored 16 bytes a lane
-  float inv[2];
+  // 4. a row's sum over its quad; the splits past the first hand their
+  //    maximum, sum and output fragments to the first through the ring,
+  //    which merges them in split order
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (KS > 1) {
+    float* mrg = reinterpret_cast<float*>(ring);
+    bar_sync(nthreads);  // every warp is done with the ring
+    if (split > 0) {
+      float* mo = mrg + ((split - 1) * span.n + unit) * MS + lane * 4;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float4*>(mo + 128 + n * 128) =
+            make_float4(o[n][0], o[n][1], o[n][2], o[n][3]);
+      *reinterpret_cast<float4*>(mo) = make_float4(mx[0], mx[1], l[0], l[1]);
+    }
+    bar_sync(nthreads);
+    if (split > 0) return;
+#pragma unroll
+    for (int x = 1; x < KS; ++x) {
+      const float* mo = mrg + ((x - 1) * span.n + unit) * MS + lane * 4;
+      const float4 ml = *reinterpret_cast<const float4*>(mo);
+      const float mxx[2] = {ml.x, ml.y}, lx[2] = {ml.z, ml.w};
+      float w[2], wx[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mm = fmaxf(mx[r], mxx[r]);
+        w[r] = exp2f(mx[r] - mm);
+        wx[r] = exp2f(mxx[r] - mm);
+        l[r] = l[r] * w[r] + lx[r] * wx[r];
+        mx[r] = mm;
+      }
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        const float4 ox = *reinterpret_cast<const float4*>(mo + 128 + n * 128);
+        o[n][0] = o[n][0] * w[0] + ox.x * wx[0];
+        o[n][1] = o[n][1] * w[0] + ox.y * wx[0];
+        o[n][2] = o[n][2] * w[1] + ox.z * wx[1];
+        o[n][3] = o[n][3] * w[1] + ox.w * wx[1];
+      }
+    }
+  }
+
+  // 5. normalise; the log-sum-exp in natural units; the output staged in
+  //    the warp's own q rows (read by this warp alone) and stored 16 bytes
+  //    a lane
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
     inv[r] = 1.0f / l[r];
     const int row = q0 + m0 + g + 8 * r;
     if (lse != nullptr && t == 0 && row < S)
@@ -888,27 +1100,6 @@ __global__ void __launch_bounds__(kTiledMmaWarps * 32)
 
 // --------------------------------------------------------------- launch --
 
-// A kernel's dynamic shared-memory limit is raised to the device's opt-in
-// maximum once per (kernel, device), not on every launch; the wrapper
-// refuses shapes above that maximum.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, std::atomic<bool> (&raised)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (raised[dev].load()) return cudaSuccess;
-  int optin = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
-  if (err != cudaSuccess) return err;
-  raised[dev].store(true);
-  return cudaSuccess;
-}
-
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, const float* cos_t,
                const float* sin_t, void* out, int B, int S, int H,
@@ -935,14 +1126,46 @@ int launch_tiled_mma(const void* q, const void* k, const void* v,
   static std::atomic<bool> raised[kMaxDevices];
   cudaError_t err = allow_smem(attention_fwd_tiled_mma<HD>, raised);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem =
-      sizeof(__nv_bfloat16) * 3 * (size_t)kTileMma * mma_pitch<HD>();
-  const dim3 grid(B * H, (S + kTileMma - 1) / kTileMma);
+  const dim3 grid(B * H, blocks_per_head(S, kMmaFwdUnits));
   attention_fwd_tiled_mma<HD>
-      <<<grid, kTiledMmaWarps * 32, smem, (cudaStream_t)stream>>>(
+      <<<grid, kMmaFwdUnits * kMmaFwdSplits * 32, tiled_mma_bytes<HD>(),
+        (cudaStream_t)stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
           (const __nv_bfloat16*)v, cos_t, sin_t, (__nv_bfloat16*)out, lse, S,
-          H, ld_tok, ld_head, 1.4426950408889634f / sqrtf((float)HD));
+          H, ld_tok, ld_head, kLog2e / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+template <int NP, int KS, int U>
+int launch_tiled_simt(const void* q, const void* k, const void* v,
+                      const float* cos_t, const float* sin_t, void* out,
+                      float* lse, int B, int S, int H, int hd, int ld_tok,
+                      int ld_head, void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_fwd_tiled_simt<NP, KS, U>, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, blocks_per_head(S, U));
+  attention_fwd_tiled_simt<NP, KS, U><<<grid, U * KS * 32,
+                                        sizeof(float) * tiled_simt_floats(hd),
+                                        (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
+      (float*)out, lse, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
+  return (int)cudaGetLastError();
+}
+
+int launch_tiled_simt_wide(const void* q, const void* k, const void* v,
+                           const float* cos_t, const float* sin_t, void* out,
+                           float* lse, int B, int S, int H, int hd,
+                           int ld_tok, int ld_head, void* stream) {
+  static std::atomic<bool> raised[kMaxDevices];
+  cudaError_t err = allow_smem(attention_fwd_tiled_simt_wide, raised);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (S + kTileF32 - 1) / kTileF32);
+  attention_fwd_tiled_simt_wide<<<grid, kTiledF32Threads,
+                                  sizeof(float) * tiled_simt_wide_floats(hd),
+                                  (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
+      (float*)out, lse, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
 
@@ -1005,16 +1228,14 @@ extern "C" int attention_fwd_tiled_f32(const void* q, const void* k,
                                        const float* sin_t, void* out,
                                        float* lse, int B, int S, int H, int hd,
                                        int ld_tok, int ld_head, void* stream) {
-  static std::atomic<bool> raised[kMaxDevices];
-  cudaError_t err = allow_smem(attention_fwd_tiled_simt, raised);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (S + kTileF32 - 1) / kTileF32);
-  attention_fwd_tiled_simt<<<grid, kTiledF32Threads,
-                             sizeof(float) * tiled_simt_floats(hd),
-                             (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, cos_t, sin_t,
-      (float*)out, lse, S, H, hd, ld_tok, ld_head, 1.0f / sqrtf((float)hd));
-  return (int)cudaGetLastError();
+  if (hd > kSimtMaxHd)
+    return launch_tiled_simt_wide(q, k, v, cos_t, sin_t, out, lse, B, S, H,
+                                  hd, ld_tok, ld_head, stream);
+  if (hd > 64)
+    return launch_tiled_simt<2, simt_fwd_splits(128), simt_fwd_units(128)>(
+        q, k, v, cos_t, sin_t, out, lse, B, S, H, hd, ld_tok, ld_head, stream);
+  return launch_tiled_simt<1, simt_fwd_splits(64), simt_fwd_units(64)>(
+      q, k, v, cos_t, sin_t, out, lse, B, S, H, hd, ld_tok, ld_head, stream);
 }
 
 extern "C" int attention_fwd_tiled_bf16(const void* q, const void* k,

@@ -694,8 +694,9 @@ Tensor aligned(const Tensor& t) {
 
 // kernel A, on the shapes that kernels/attention.py::kernel_fits holds,
 // in the form its route gives them without a gradient: the whole-sequence
-// form where its shared memory fits, else the key-tiled one
-// (attention.py::smem_bytes, tiled_smem_bytes, jax_supported)
+// form where its block needs at most half of an SM's shared memory, else
+// the key-tiled one, else the whole one where it fits at all
+// (attention.py::smem_bytes, tiled_smem_bytes, jax_supported, _route_problem)
 Tensor attention_fwd_cuda(const Tensor& q_in, const Tensor& k_in,
                           const Tensor& v_in,
                           const c10::optional<Tensor>& cos_t,
@@ -705,27 +706,38 @@ Tensor attention_fwd_cuda(const Tensor& q_in, const Tensor& k_in,
   const int64_t B = q_in.size(0), S = q_in.size(1), H = q_in.size(2),
                 hd = q_in.size(3);
   const bool bf16 = q_in.scalar_type() == at::kBFloat16;
+  // the tiled forms' shared memory (kernels/attention.py::tiled_smem_bytes,
+  // geometry): bfloat16 up to 6 units of 16 own rows a block, walked key
+  // tiles of 64 in a ring of 2 stages, the tables of the tile in flight;
+  // float32 up to head_dim 64 5 units whose
+  // keys are split among 3 warps, rounds of 3 sub-tiles of 32 keys in 2
+  // stages, up to 128 4 units and tiles of 32, above 128 tiles of 32 with
+  // the output in shared memory
   int64_t whole, tiled;
   if (bf16) {
     TORCH_CHECK(hd == 16 || hd == 32 || hd == 64 || hd == 128,
                 "attention_fwd: the bfloat16 kernel takes head_dim 16, 32, "
                 "64 or 128, got ", hd);
     whole = 2 * 3 * round_up(S, 16) * (hd + 8);
-    tiled = 2 * 3 * 64 * (hd + 8);
+    tiled = 2 * (16 * 6 + 2 * 2 * 64) * (hd + 8) + 4 * 64 * hd;
   } else {
     TORCH_CHECK(hd % 8 == 0, "attention_fwd: the float32 kernel takes "
                 "head_dim a multiple of 8, got ", hd);
     const int64_t Sp = round_up(S, 4);
     whole = 4 * Sp * (2 * (hd + 4) + hd + Sp + 4);
-    tiled = 4 * (4 * 32 * (hd + 4) + 32 * 36 + 3 * 32);
+    const int64_t units = hd <= 64 ? 5 : 4, splits = hd <= 64 ? 3 : 1;
+    const int64_t fown = 16 * units, walk = 32 * splits;
+    tiled = hd > 128 ? 4 * (4 * 32 * (hd + 4) + 32 * 36 + 3 * 32)
+                     : 4 * ((fown + 4 * walk) * (hd + 4) + walk * hd +
+                            fown * splits * 40);
   }
   const int64_t Sj = round_up(S, 8);
   const int64_t working = (7 * H * Sj * hd + 2 * Sj * hd + 3 * Sj * Sj) * 4;
   TORCH_CHECK(working < kJaxWorkingMax && S >= 2, "attention_fwd: S=", S,
               ", H=", H, ", hd=", hd, " lies beyond the JAX package's "
               "attention_supported (its XLA branch's shapes)");
-  const bool use_tiled = whole > kSmemMax;
-  TORCH_CHECK(!use_tiled || tiled <= kSmemMax, "attention_fwd: hd=", hd,
+  const bool use_tiled = whole > kSmemMax / 2 && tiled <= kSmemMax;
+  TORCH_CHECK(use_tiled || whole <= kSmemMax, "attention_fwd: hd=", hd,
               " needs ", tiled, " bytes of shared memory in the tiled form "
               "and S=", S, " does not fit the whole-sequence one, above ",
               kSmemMax);

@@ -30,21 +30,28 @@ Each kernel has two forms per dtype (``fwd_form``, ``bwd_form``, chosen
 from the shape in the same way):
 
 * whole-sequence ("mma", "simt"): one block per (batch, head) holds the
-  whole sequence in shared memory, where it fits (``smem_bytes``,
-  ``bwd_smem_bytes``): flagship32 and vit128 (S 68), and the bfloat16
-  forward without a gradient at S 260;
-* key-tiled ("mma_tiled", "simt_tiled"): one block per (query tile,
-  batch x head) walks the key tiles with an online softmax, and the
-  forward writes each row's log-sum-exp; the backward recomputes P from it
-  in one launch whose blocks own either a query tile (dq) or a key tile
-  (dk, dv), so it needs no atomics and gives the same bits on every run.
-  Shared memory does not depend on S (``tiled_smem_bytes``).  Under
-  autograd the tiled forms serve both directions wherever the
-  whole-sequence backward does not fit (image 256's S 260).
+  whole sequence in shared memory, where that block needs at most half of
+  an SM's (``smem_bytes``, ``bwd_smem_bytes`` against ``_SMEM_WHOLE``), so
+  that two blocks share an SM: flagship32 and vit128 (S 68);
+* key-tiled ("mma_tiled", "simt_tiled"): blocks of 16-row units of one
+  (batch, head) (``geometry``) walk the other side a tile at a time
+  through a ring of shared-memory stages (the forwards split each unit's
+  walk among warps), with an online softmax, and the forward writes each
+  row's log-sum-exp; the backward recomputes P from it in one
+  launch whose blocks own either query units (dq) or key units (dk, dv),
+  so it needs no atomics and gives the same bits on every run.  Shared
+  memory does not depend on S (``tiled_smem_bytes``).  Every case at
+  image 256's S 260 takes them, the bfloat16 forward without a gradient
+  too: its whole-sequence block (117,504 bytes) would leave 32 blocks on
+  132 SMs.  Under autograd one form serves both directions.  A shape whose
+  whole-sequence block fits an SM but not half of one, and whose head_dim
+  no tiled form takes, stays whole.
 
 bfloat16 runs on the tensor cores (``mma.sync``, head_dim 16, 32, 64 or
 128), float32 on the CUDA cores (head_dim a multiple of 8; the tiled form
-up to the head_dim its tiles fit, 280 with a gradient, 440 without).
+with its accumulators in registers up to head_dim 128, and above it, up
+to the head_dim its tiles fit (280 with a gradient, 440 without), with
+them in shared memory).
 
 ``fused_attention_qkv`` takes the packed (B, S, H, 3, hd) product of a
 ``fused_proj`` projection (``nn/vit_vae.py::Attention``): every form
@@ -75,6 +82,7 @@ tiled_bwd_launches = 0  # the backward launches that took the tiled form
 dense_calls = 0  # fused_attention calls on CUDA that took attention_dense
 
 _SMEM_MAX = 232448  # bytes of shared memory one H100 block may use
+_SMEM_WHOLE = _SMEM_MAX // 2  # a whole-sequence block: two an SM
 _SYMBOLS = {torch.float32: "attention_fwd_f32",
             torch.bfloat16: "attention_fwd_bf16"}
 _BWD_SYMBOLS = {torch.float32: "attention_bwd_f32",
@@ -83,8 +91,23 @@ _TILED_SYMBOLS = {torch.float32: "attention_fwd_tiled_f32",
                   torch.bfloat16: "attention_fwd_tiled_bf16"}
 _TILED_BWD_SYMBOLS = {torch.float32: "attention_bwd_tiled_f32",
                       torch.bfloat16: "attention_bwd_tiled_bf16"}
-# rows of a query tile and of a key tile of the tiled forms
-TILE = {torch.float32: 32, torch.bfloat16: 64}
+# The tiled forms' tiles (csrc/attention_tiles.cuh): a block holds up to
+# ``units`` units of 16 own rows of one (batch, head), split evenly
+# (``unit_spans``), and splits each unit's walk of the other side among
+# ``splits`` warps (``geometry``); the other side is walked WALK rows a
+# tile, by dtype and direction.  float32 head_dims above SIMT_MAX_HD keep
+# the first tiled form: tiles of WIDE_TILE queries and keys, the
+# accumulators in shared memory.
+UNITS = 4  # the default of unit_spans
+# (units, splits, stages): see ``geometry``
+SIMT_FWD = (5, 3, 2)
+SIMT_BWD = (9, 1, 2)
+MMA_FWD = (6, 2, 2)
+MMA_BWD = (9, 1, 4)  # 3 stages above head_dim 64
+WALK = {(torch.float32, False): 32, (torch.float32, True): 32,
+        (torch.bfloat16, False): 64, (torch.bfloat16, True): 32}
+SIMT_MAX_HD = 128
+WIDE_TILE = 32
 _BASE = {torch.float32: "simt", torch.bfloat16: "mma"}  # forms by dtype
 _JAX_WORKING_MAX = 6 * 1024 * 1024  # attention_pallas.py::attention_supported
 
@@ -208,22 +231,73 @@ def bwd_smem_bytes(S: int, hd: int, dtype=torch.float32) -> int:
     return 4 * Sp * (4 * (hd + 4) + 2 * (Sp + 4))
 
 
-def tiled_smem_bytes(hd: int, dtype=torch.float32,
-                     backward: bool = False) -> int:
-    """Shared memory of one tiled block, whatever S.  float32 (tiles of
-    32): the forward's q, k, v and partial output in rows of hd + 4, the
-    32 x 36 probabilities and three row vectors; the backward's six row
-    tiles, P and dS, lse and delta.  bfloat16 (tiles of 64, rows of
-    hd + 8): the forward's q, k and v; the backward's four tiles, lse and
-    delta."""
-    T = TILE[dtype]
+def unit_spans(S: int, max_units: int = UNITS):
+    """The rows [start, stop) of each tiled block of a (batch, head): the
+    S rows in units of 16 (the last one ragged), ceil(units / max_units)
+    blocks, block y holding units [units y // nb, units (y + 1) // nb)
+    (``attention_tiles.cuh::unit_span``)."""
+    units = -(-S // 16)
+    nb = -(-units // max_units)
+    return [(16 * (units * y // nb), min(S, 16 * (units * (y + 1) // nb)))
+            for y in range(nb)]
+
+
+def geometry(hd: int, dtype=torch.float32, backward: bool = False):
+    """(units a block at most, warps a unit's walk splits among, stages of
+    the ring) of the tiled form: the C sources' constants
+    (``attention_tiles.cuh``: kSimtBwdUnits, kMmaFwdUnits, kMmaFwdSplits,
+    kMmaFwdStages, kMmaBwdUnits, kMmaBwdStages; ``attention_fwd.cu``:
+    simt_fwd_units, simt_fwd_splits; ``attention_bwd.cu``:
+    simt_bwd_units).  float32 up to head_dim 64: the forward 5 units of 3
+    splits, the backward 9 units unsplit; above it 4 units unsplit; two
+    stages; bfloat16 forward: 6 units of 2 splits, two stages; bfloat16
+    backward: 9 units unsplit, four stages up to head_dim 64, three above
+    (``attention_bwd.cu::mma_bwd_stages``)."""
     if dtype == torch.bfloat16:
         if backward:
-            return 2 * 4 * T * (hd + 8) + 4 * 2 * T
-        return 2 * 3 * T * (hd + 8)
+            return MMA_BWD if hd <= 64 else MMA_BWD[:2] + (3,)
+        return MMA_FWD
+    if hd > 64:  # what fits beside the wider ring
+        return (4, 1, 2)
+    return SIMT_BWD if backward else SIMT_FWD
+
+
+def tiled_smem_bytes(hd: int, dtype=torch.float32,
+                     backward: bool = False) -> int:
+    """Shared memory of one tiled block, whatever S (the C launchers'
+    sums; rows of hd + 8 bfloat16 or hd + 4 floats).  The forward: the
+    block's query rows, a ring of key and value tiles (float32: of rounds,
+    one 32-key sub-tile for each split), the RoPE tables of the tiles in
+    flight (float32: and each warp's probabilities).  The backward, its key
+    block's (the larger kind): its key and value rows; a ring of query and
+    output-gradient tiles with their lse and delta; for each stage
+    (float32: one) the forward's output and the tables (float32: and each
+    warp's P^T and dS^T).  float32 above SIMT_MAX_HD: the first form's
+    tiles of 32, four row tiles, the 32 x 36 probabilities and three row
+    vectors forward; six row tiles, P and dS, lse and delta backward."""
+    walk = WALK[dtype, backward]
+    units, splits, stages = geometry(hd, dtype, backward)
+    own = 16 * units
+    if dtype == torch.bfloat16:
+        pitch = hd + 8
+        if backward:
+            return (2 * 2 * own * pitch + stages * (2 * 2 * walk * pitch
+                                                    + 8 * walk)
+                    + stages * (2 * walk * pitch + 4 * walk * hd))
+        return 2 * (own + 2 * stages * walk) * pitch + 4 * (
+            stages - 1) * walk * hd
+    if hd > SIMT_MAX_HD:
+        T = WIDE_TILE
+        if backward:
+            return 4 * (6 * T * (hd + 4) + 2 * T * (T + 4) + 2 * T)
+        return 4 * (4 * T * (hd + 4) + T * (T + 4) + 3 * T)
+    scratch = walk + 8  # a warp's P (dS, P^T, dS^T) rows
     if backward:
-        return 4 * (6 * T * (hd + 4) + 2 * T * (T + 4) + 2 * T)
-    return 4 * (4 * T * (hd + 4) + T * (T + 4) + 3 * T)
+        return 4 * ((2 * own + 5 * walk) * (hd + 4) + 4 * walk + walk * hd
+                    + 2 * own * scratch)
+    walk *= splits  # a round: a sub-tile for each split
+    return 4 * ((own + 4 * walk) * (hd + 4) + walk * hd + own * splits
+                * scratch)
 
 
 def _head_dim_problem(hd: int, dtype) -> Optional[str]:
@@ -245,12 +319,18 @@ def _route_problem(S: int, H: int, hd: int, dtype, backward: bool):
     if not jax_supported(S, H, hd):
         return None, (f"S={S}, H={H}, hd={hd} lies beyond the JAX package's "
                       f"attention_supported (its XLA branch's shapes)")
-    if smem_bytes(S, hd, dtype) <= _SMEM_MAX and (
-            not backward or bwd_smem_bytes(S, hd, dtype) <= _SMEM_MAX):
+
+    def whole_fits(limit):
+        return smem_bytes(S, hd, dtype) <= limit and (
+            not backward or bwd_smem_bytes(S, hd, dtype) <= limit)
+
+    if whole_fits(_SMEM_WHOLE):
         return "whole", None
     if tiled_smem_bytes(hd, dtype) <= _SMEM_MAX and (
             not backward or tiled_smem_bytes(hd, dtype, True) <= _SMEM_MAX):
         return "tiled", None
+    if whole_fits(_SMEM_MAX):
+        return "whole", None
     return None, (f"hd={hd} needs {tiled_smem_bytes(hd, dtype, backward)} "
                   f"bytes of shared memory in the tiled {_BASE[dtype]} form "
                   f"and S={S} does not fit the whole-sequence one, above "
@@ -395,8 +475,8 @@ def _ptr(t):
 
 
 def _launch_fwd(q, k, v, cos, sin) -> torch.Tensor:
-    """Kernel A in the form the shape takes without a gradient: the
-    whole-sequence form where it fits, else the tiled one (no lse)."""
+    """Kernel A in the form the route gives the shape without a gradient:
+    the whole-sequence form, or the tiled one (no lse)."""
     global launches
     B, S, H, hd = q.shape
     form, problem = _route_problem(S, H, hd, q.dtype, False)

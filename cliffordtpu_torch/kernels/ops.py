@@ -7,8 +7,9 @@ implementation gives the output's shape, and its body runs eagerly, on the
 host, when the program runs.
 
 * ``attention_fwd(q, k, v, cos, sin)``: kernel A (``csrc/attention_fwd.cu``)
-  for CUDA tensors, in the form the shape takes (the whole-sequence one
-  where it fits, else the key-tiled one), ``attention_plain`` for CPU
+  for CUDA tensors, in the form the route gives the shape (the
+  whole-sequence one where its block needs at most half an SM's shared
+  memory, else the key-tiled one), ``attention_plain`` for CPU
   tensors.  ``attention.fused_attention`` calls it on both devices once its
   shape route has chosen the kernels; under autograd ``_FusedAttention``
   calls it in its whole-sequence forward and keeps its own backward (kernel

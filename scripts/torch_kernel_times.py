@@ -6,6 +6,7 @@ GPU.
                                           [--kernels attention_fwd,torus_fwd]
                                           [--attention 64x68x8x64]
                                           [--root OTHER_CHECKOUT]
+                                          [--tiled | --whole]
 
 For every kernel named it runs ``chip_smoke.py``'s own case for that kernel
 (the kernel held against its plain PyTorch version, then the device times
@@ -17,7 +18,11 @@ epilogue), ``sampler_bwd`` (with it), ``sampler_keyed`` and ``sampler_rng``
 float32, then bfloat16, at every ``--attention`` shape B x S x H x hd
 (default the flagship's: B 64, S 68, 8 heads of 64), with the 2-D RoPE
 tables of S - 4 patch tokens and 4 registers (S - 4 a square), or without
-RoPE after ``/norope``.
+RoPE after ``/norope``.  ``--tiled`` times A and B in their key-tiled
+forms whatever form the route gives the shape (A with its log-sum-exp, as
+under autograd; B from it); ``--whole`` times them in their
+whole-sequence forms, where the block fits an SM, whatever the route
+gives.
 The first line names the card and its power limit as ``nvidia-smi`` gives
 them.
 
@@ -57,6 +62,11 @@ def main() -> int:
                     help="comma-separated B x S x H x hd[/norope]")
     ap.add_argument("--root", default=ROOT,
                     help="checkout to import cliffordtpu_torch from")
+    form = ap.add_mutually_exclusive_group()
+    form.add_argument("--tiled", action="store_true",
+                      help="time A and B in their key-tiled forms")
+    form.add_argument("--whole", action="store_true",
+                      help="time A and B in their whole-sequence forms")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -90,8 +100,15 @@ def main() -> int:
         B, S, H, hd = (int(s) for s in shape.split("x"))
         for name in (n for n in names if n in ATTENTION):
             for dtype in (torch.float32, torch.bfloat16):
+                form = {"tiled": args.tiled}
+                if args.whole:
+                    size = (attention.smem_bytes if name == "attention_fwd"
+                            else attention.bwd_smem_bytes)
+                    if size(S, hd, dtype) > attention._SMEM_MAX:
+                        continue
+                    form = {"whole": True}
                 case = ATTENTION[name](attention, rope, B, S, H, hd, dtype,
-                                       opt != "norope", gen)
+                                       opt != "norope", gen, **form)
                 print(json.dumps({"kernel": name, **case}), flush=True)
     for shape in args.shapes.split(","):
         R, d = (int(s) for s in shape.split("x"))

@@ -144,16 +144,22 @@ def test_autograd_function_routes_to_the_backward_launcher(monkeypatch,
 def test_backward_shared_memory_fits_the_flagship_and_is_refused_above():
     """S = 68, hd = 64 in float32 (the simt form: q, k, v, dO in rows of
     68, P and dS in rows of 72): 113,152 bytes, above the 48 KB default and
-    within the 227 KB opt-in limit; a sequence of 140 fits the
-    whole-sequence forward only, so under autograd it takes the key-tiled
-    forms in both directions; a shape beyond the JAX package's
-    ``attention_supported`` (S 400, 8 heads of 64) is refused."""
+    within the 227 KB opt-in limit and at most half of it, so the
+    flagship takes the whole-sequence form (two blocks an SM); a sequence
+    of 140 fits the whole-sequence forward in one SM but not in half of
+    one, so it takes the key-tiled forms with and without a gradient; a
+    shape beyond the JAX package's ``attention_supported`` (S 400, 8 heads
+    of 64) is refused."""
     assert attention.bwd_smem_bytes(68, 64) == 113152
-    assert 48 * 1024 < attention.bwd_smem_bytes(68, 64) <= attention._SMEM_MAX
+    assert 48 * 1024 < attention.bwd_smem_bytes(68, 64) <= \
+        attention._SMEM_WHOLE
     assert attention.bwd_smem_bytes(140, 64) > attention._SMEM_MAX
-    assert attention.smem_bytes(140, 64) <= attention._SMEM_MAX
+    assert attention._SMEM_WHOLE < attention.smem_bytes(140, 64) <= \
+        attention._SMEM_MAX
+    q = torch.zeros(1, 68, 1, 64)
+    assert attention._check(q, q, q, None, None, bwd=True) == "whole"
     q = torch.zeros(1, 140, 1, 64)
-    assert attention._check(q, q, q, None, None) == "whole"
+    assert attention._check(q, q, q, None, None) == "tiled"
     assert attention._check(q, q, q, None, None, bwd=True) == "tiled"
     q = torch.zeros(1, 400, 8, 64)
     with pytest.raises(ValueError, match="attention_supported"):
@@ -164,9 +170,10 @@ def test_backward_forms_and_their_shared_memory():
     """``bwd_form``: the tensor-core form for bfloat16, register tiles for
     float32.  The mma form keeps q, k, v, dO in rows of hd + 8 bfloat16 and
     P, dS in rows of Sk + 8 (S padded to 16): 74,240 bytes at the flagship
-    shape, three blocks per SM.  Each whole-sequence form is bounded by
-    its own size: S 136 fits the mma form and not the simt one, S 200
-    neither; a shape beyond them takes the key-tiled form of its dtype."""
+    shape, three blocks per SM.  Each whole-sequence form is taken where
+    its own size is at most half an SM's: S 96 in the mma form and not in
+    the simt one, S 200 in neither; a shape beyond them takes the
+    key-tiled form of its dtype."""
     assert attention.bwd_form(torch.bfloat16) == "mma"
     assert attention.bwd_form(torch.float32) == "simt"
     mma = attention.bwd_smem_bytes(68, 64, torch.bfloat16)
@@ -175,7 +182,7 @@ def test_backward_forms_and_their_shared_memory():
     assert attention.bwd_smem_bytes(17, 64, torch.bfloat16) == \
         2 * (4 * 32 * 72 + 2 * 32 * 40)
     assert attention.bwd_smem_bytes(17, 64) == 4 * 20 * (4 * 68 + 2 * 24)
-    for S, fits in ((136, {torch.bfloat16}), (200, set())):
+    for S, fits in ((96, {torch.bfloat16}), (200, set())):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.zeros(1, S, 1, 64, dtype=dtype)
             form = attention._check(q, q, q, None, None, bwd=True)

@@ -9,9 +9,9 @@ cliffordtpu/nn/vit_vae.py::Attention.
 The route test drives ``_routed`` (the CUDA side of ``fused_attention``) on
 CPU tensors with the launch functions stubbed to record the route and run
 the plain versions.  The tiled algorithm itself (online softmax over key
-tiles; the backward from the log-sum-exp and rowsum(dO o O) in a pass over
-query tiles and a pass over key tiles) is emulated in PyTorch at the
-kernels' tile sizes and held against the JAX package's kernel in interpret
+tiles; the backward from the log-sum-exp and rowsum(dO o O) in blocks of
+query rows and blocks of key rows) is emulated in PyTorch at the kernels'
+blocks and tiles and held against the JAX package's kernel in interpret
 mode.  Bars: 1e-5 for float32 outputs and gradients against the plain
 versions and against JAX; bfloat16 outputs within 2e-2 of the output's
 magnitude, and bfloat16 gradients within 2e-2 of max(1, their magnitude)
@@ -42,35 +42,94 @@ F32, BF16 = torch.float32, torch.bfloat16
     (68, 64, F32, False, "whole"), (68, 64, F32, True, "whole"),
     (68, 64, BF16, False, "whole"), (68, 64, BF16, True, "whole"),
     (260, 64, F32, False, "tiled"), (260, 64, F32, True, "tiled"),
-    (260, 64, BF16, False, "whole"), (260, 64, BF16, True, "tiled"),
-    (68, 96, BF16, False, "dense"), (68, 96, F32, True, "whole"),
+    (260, 64, BF16, False, "tiled"), (260, 64, BF16, True, "tiled"),
+    (256, 64, BF16, False, "whole"), (257, 64, BF16, False, "tiled"),
+    (68, 96, BF16, False, "dense"), (68, 96, F32, True, "tiled"),
     (68, 12, F32, False, "dense"),
 ], ids=lambda p: str(p).replace("torch.", ""))
 def test_kernel_fits(S, hd, dtype, backward, route):
-    """At 8 heads: the flagship shape fits every whole-sequence form; S 260
-    (``default_config(256)``) takes the kernels in every case, the
-    bfloat16 forward without a gradient whole, the rest tiled; head_dim 96
-    fits no bfloat16 form, 12 no float32 one."""
+    """At 8 heads: the flagship shape takes every whole-sequence form (each
+    block needs at most half an SM's shared memory); S 260
+    (``default_config(256)``) takes the kernels in every case, all tiled:
+    the bfloat16 forward's whole block (117,504 bytes) needs more than
+    half, which its boundary shows (S 256: 110,592 bytes, whole; S 257:
+    117,504, tiled); the flagship's float32 backward at head_dim 96
+    (147,968 bytes) is tiled; head_dim 96 fits no bfloat16 form, 12 no
+    float32 one."""
     assert attention.route(S, 8, hd, dtype, backward) == route
     assert attention.kernel_fits(S, 8, hd, dtype, backward) is (
         route != "dense")
 
 
 def test_shared_memory_at_s260():
-    """The whole-sequence forms at S 260 (only the bfloat16 forward fits),
-    and the tiled forms at head_dim 64, which do not depend on S."""
+    """The whole-sequence forms at S 260 (only the bfloat16 forward fits an
+    SM, and not half of one), and the tiled forms, which do not depend on
+    S, at head_dim 64 and 128 (``geometry``): the forward's query rows (5
+    units in float32 up to head_dim 64, 4 above; 6 in bfloat16), a ring of
+    two stages of key and value tiles (float32 rounds of 3 sub-tiles of 32
+    up to head_dim 64, single tiles of 32 above; bfloat16 tiles of 64), the
+    tables of the tiles in flight, the float32 warps' P rows (40 floats);
+    the backward's key block: its key and value rows (9 units up to head_dim
+    64, 4 above in float32; 9 in bfloat16), a ring of query and dO tiles of
+    32 with their lse and delta (two stages in float32; four in bfloat16, 3
+    at head_dim 128), a tile of O and the tables (float32: one; bfloat16: one
+    a stage), the float32 warps' P^T and dS^T.  Above head_dim 128 float32
+    keeps the first tiled form's tiles of 32."""
     assert attention.smem_bytes(260, 64, F32) == 482560
     assert attention.smem_bytes(260, 64, BF16) == 117504
     assert attention.bwd_smem_bytes(260, 64, F32) == 832000
     assert attention.bwd_smem_bytes(260, 64, BF16) == 461312
     assert attention._SMEM_MAX == 232448
+    assert attention._SMEM_WHOLE == 116224 < 117504 <= attention._SMEM_MAX
     assert attention.tiled_smem_bytes(64, F32) == 4 * (
-        4 * 32 * 68 + 32 * 36 + 3 * 32) == 39808
+        (80 + 4 * 96) * 68 + 96 * 64 + 80 * 3 * 40) == 189184
+    assert attention.tiled_smem_bytes(128, F32) == 4 * (
+        (64 + 4 * 32) * 132 + 32 * 128 + 64 * 40) == 128000
     assert attention.tiled_smem_bytes(64, F32, True) == 4 * (
-        6 * 32 * 68 + 2 * 32 * 36 + 2 * 32) == 61696
-    assert attention.tiled_smem_bytes(64, BF16) == 2 * 3 * 64 * 72 == 27648
+        (288 + 5 * 32) * 68 + 4 * 32 + 32 * 64 + 2 * 144 * 40) == 176640
+    assert attention.tiled_smem_bytes(128, F32, True) == 4 * (
+        (128 + 5 * 32) * 132 + 4 * 32 + 32 * 128 + 2 * 64 * 40) == 189440
+    assert attention.tiled_smem_bytes(64, BF16) == (
+        2 * (96 + 4 * 64) * 72 + 4 * 64 * 64) == 67072
+    assert attention.tiled_smem_bytes(128, BF16) == (
+        2 * (96 + 4 * 64) * 136 + 4 * 64 * 128) == 128512
     assert attention.tiled_smem_bytes(64, BF16, True) == (
-        2 * 4 * 64 * 72 + 4 * 2 * 64) == 37376
+        2 * 2 * 144 * 72 + 4 * (2 * 2 * 32 * 72 + 8 * 32)
+        + 4 * (2 * 32 * 72 + 4 * 32 * 64)) == 130560
+    assert attention.tiled_smem_bytes(128, BF16, True) == (
+        2 * 2 * 144 * 136 + 3 * (2 * 2 * 32 * 136 + 8 * 32)
+        + 3 * (2 * 32 * 136 + 4 * 32 * 128)) == 206592
+    assert attention.tiled_smem_bytes(136, F32) == 4 * (
+        4 * 32 * 140 + 32 * 36 + 3 * 32) == 76672
+    assert attention.tiled_smem_bytes(280, F32, True) == 4 * (
+        6 * 32 * 284 + 2 * 32 * 36 + 2 * 32) <= attention._SMEM_MAX
+
+
+@pytest.mark.parametrize("S", [2, 16, 17, 68, 130, 260, 331],
+                         ids=lambda S: f"S{S}")
+def test_unit_spans_cover_the_rows_once(S):
+    """The tiled blocks of a (batch, head), at every form's units a block
+    (``geometry``): S rows in 16-row units, split as evenly as the blocks
+    allow, so every block holds at least one unit and at most its form's
+    (no warp of a launch without rows) and every row lies in exactly one
+    block."""
+    limits = {attention.UNITS} | {
+        attention.geometry(hd, dtype, backward)[0] for hd in (64, 128)
+        for dtype in (F32, BF16) for backward in (False, True)}
+    units = -(-S // 16)
+    for limit in sorted(limits):
+        spans = attention.unit_spans(S, limit)
+        assert len(spans) == -(-units // limit)
+        assert spans[0][0] == 0 and spans[-1][1] == S
+        for (a, b), (c, _) in zip(spans, spans[1:]):
+            assert b == c
+        for a, b in spans:
+            n = -(-(b - a) // 16)
+            assert a % 16 == 0 and 1 <= n <= limit
+        if S == 260:
+            assert [-(-(b - a) // 16) for a, b in spans] == {
+                4: [3, 3, 4, 3, 4], 5: [4, 4, 4, 5], 6: [5, 6, 6],
+                9: [8, 9]}[limit]
 
 
 _GRID = [(S, H, hd) for S in (2, 17, 68, 140, 260, 330, 331, 400, 520)
@@ -248,94 +307,143 @@ def test_attention_dense_matches_jax_xla_branch(use_rope):
 _NEG = -1e30  # attention_pallas.py::_NEG, the kernels' kNeg
 
 
-def _tiled_forward(qr, kr, v, T):
+def _blocks(S, kind):
+    """The own-row spans of the tiled blocks of a (batch, head): "units"
+    the redesigned forms' (up to four 16-row units a block, "unitsN" up to
+    N, split evenly: ``attention.unit_spans``), or fixed tiles of 32 or 64
+    rows (the first tiled forms; 32 is the float32 form's above head_dim
+    128)."""
+    if kind.startswith("units"):
+        return attention.unit_spans(S, int(kind[5:] or attention.UNITS))
+    T = {"tiles32": 32, "tiles64": 64}[kind]
+    return [(a, min(a + T, S)) for a in range(0, S, T)]
+
+
+def _padded(S, walk, *tensors):
+    """(Sp, the (B, S, H, hd) tensors padded with zero rows to Sp = S
+    rounded up to ``walk``, as (B, H, Sp, hd))."""
+    Sp = -(-S // walk) * walk
+    pad = (0, 0, 0, 0, 0, Sp - S)
+    return Sp, [torch.nn.functional.pad(t, pad).transpose(1, 2)
+                for t in tensors]
+
+
+def _tiled_forward(qr, kr, v, blocks, walk, splits=1):
     """The tiled forward kernels' algorithm on rotated q, k (B, S, H, hd)
-    float32: query tiles of T rows; keys padded to tiles of T and walked a
-    tile at a time with a running maximum and sum (online softmax), keys
-    past S masked to -1e30.  Returns (out (B, S, H, hd), lse (B, H, S))."""
+    float32: each block's query rows walk the keys in rounds of ``splits``
+    sub-tiles of ``walk``, padded to whole rounds; split i takes the i-th
+    sub-tile of every round (one before S) with a running maximum and sum
+    of its own (online softmax), keys past S masked to -1e30; the splits
+    are merged in split order at the end.  Returns (out (B, S, H, hd), lse
+    (B, H, S))."""
     B, S, H, hd = qr.shape
     scale = 1.0 / math.sqrt(hd)
-    Sp = -(-S // T) * T
-    pad = (0, 0, 0, 0, 0, Sp - S)
-    qp, kp, vp = (torch.nn.functional.pad(t, pad).transpose(1, 2)
-                  for t in (qr, kr, v))
-    out = torch.zeros(B, H, Sp, hd)
-    lse = torch.zeros(B, H, Sp)
-    for q0 in range(0, Sp, T):
-        q = qp[:, :, q0:q0 + T]
-        m = torch.full((B, H, T), -math.inf)
-        l = torch.zeros(B, H, T)
-        o = torch.zeros(B, H, T, hd)
-        for k0 in range(0, Sp, T):
-            s = q @ kp[:, :, k0:k0 + T].transpose(-1, -2) * scale
-            real = torch.arange(k0, k0 + T) < S
-            s = torch.where(real, s, torch.full_like(s, _NEG))
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(-1)
-            o = o * corr[..., None] + p @ vp[:, :, k0:k0 + T]
-            m = m_new
-        out[:, :, q0:q0 + T] = o / l[..., None]
-        lse[:, :, q0:q0 + T] = m + torch.log(l)
-    return out[:, :, :S].transpose(1, 2), lse[:, :, :S]
+    Sp, (qp, kp, vp) = _padded(S, walk * splits, qr, kr, v)
+    out = torch.zeros(B, H, S, hd)
+    lse = torch.zeros(B, H, S)
+    for a, b in blocks:
+        q = qp[:, :, a:b]
+        parts = []
+        for i in range(splits):
+            m = torch.full((B, H, b - a), -math.inf)
+            l = torch.zeros(B, H, b - a)
+            o = torch.zeros(B, H, b - a, hd)
+            for k0 in range(i * walk, Sp, splits * walk):
+                if k0 >= S:
+                    continue
+                s = q @ kp[:, :, k0:k0 + walk].transpose(-1, -2) * scale
+                real = torch.arange(k0, k0 + walk) < S
+                s = torch.where(real, s, torch.full_like(s, _NEG))
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                o = o * corr[..., None] + p @ vp[:, :, k0:k0 + walk]
+                m = m_new
+            parts.append((m, l, o))
+        m = parts[0][0]
+        for mx, _, _ in parts[1:]:
+            m = torch.maximum(m, mx)
+        w = torch.exp(parts[0][0] - m)
+        l, o = parts[0][1] * w, parts[0][2] * w[..., None]
+        for mx, lx, ox in parts[1:]:
+            wx = torch.exp(mx - m)
+            l = l + lx * wx
+            o = o + wx[..., None] * ox
+        out[:, :, a:b] = o / l[..., None]
+        lse[:, :, a:b] = m + torch.log(l)
+    return out.transpose(1, 2), lse
 
 
-def _tiled_backward(qr, kr, v, out, lse, d_out, T):
+def _tiled_backward(qr, kr, v, out, lse, d_out, blocks, walk):
     """The tiled backward kernels' algorithm: P = exp(scale Qr Kr^T - lse)
-    recomputed a (query tile, key tile) at a time, delta = rowsum(dO o O);
-    a pass over query tiles sums dQr = dS Kr over the key tiles, a pass
-    over key tiles sums dV = P^T dO and dKr = dS^T Qr over the query
-    tiles; queries and keys past S get P = dS = 0.  Returns the rotated
-    (dQr, dKr, dV), (B, S, H, hd)."""
+    recomputed a (rows, tile) pair at a time, delta = rowsum(dO o O); the
+    query blocks sum dQr = dS Kr over key tiles of ``walk``, the key blocks
+    sum dV = P^T dO and dKr = dS^T Qr over query tiles of ``walk``;
+    queries and keys past S get P = dS = 0.  Returns the rotated (dQr,
+    dKr, dV), (B, S, H, hd)."""
     B, S, H, hd = qr.shape
     scale = 1.0 / math.sqrt(hd)
-    Sp = -(-S // T) * T
-    pad = (0, 0, 0, 0, 0, Sp - S)
-    qp, kp, vp, op, dop = (torch.nn.functional.pad(t, pad).transpose(1, 2)
-                           for t in (qr, kr, v, out, d_out))
+    Sp, (qp, kp, vp, op, dop) = _padded(S, walk, qr, kr, v, out, d_out)
     lp = torch.nn.functional.pad(lse, (0, Sp - S))
     delta = (dop * op).sum(-1)
     real = torch.arange(Sp) < S
 
-    def tile(q0, k0):
-        s = qp[:, :, q0:q0 + T] @ kp[:, :, k0:k0 + T].transpose(-1, -2)
-        keep = real[q0:q0 + T, None] & real[None, k0:k0 + T]
-        p = torch.where(keep, torch.exp(scale * s - lp[:, :, q0:q0 + T,
-                                                         None]), 0.0)
-        dp = dop[:, :, q0:q0 + T] @ vp[:, :, k0:k0 + T].transpose(-1, -2)
-        return p, p * (dp - delta[:, :, q0:q0 + T, None]) * scale
+    def tile(q0, q1, k0, k1):
+        s = qp[:, :, q0:q1] @ kp[:, :, k0:k1].transpose(-1, -2)
+        keep = real[q0:q1, None] & real[None, k0:k1]
+        p = torch.where(keep, torch.exp(scale * s - lp[:, :, q0:q1, None]),
+                        0.0)
+        dp = dop[:, :, q0:q1] @ vp[:, :, k0:k1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, q0:q1, None]) * scale
 
     dq, dk, dv = (torch.zeros(B, H, Sp, hd) for _ in range(3))
-    for q0 in range(0, Sp, T):  # the query-tile blocks
-        for k0 in range(0, Sp, T):
-            _, ds = tile(q0, k0)
-            dq[:, :, q0:q0 + T] += ds @ kp[:, :, k0:k0 + T]
-    for k0 in range(0, Sp, T):  # the key-tile blocks
-        for q0 in range(0, Sp, T):
-            p, ds = tile(q0, k0)
-            dv[:, :, k0:k0 + T] += p.transpose(-1, -2) @ dop[:, :, q0:q0 + T]
-            dk[:, :, k0:k0 + T] += ds.transpose(-1, -2) @ qp[:, :, q0:q0 + T]
+    for a, b in blocks:  # the query blocks
+        for k0 in range(0, Sp, walk):
+            _, ds = tile(a, b, k0, k0 + walk)
+            dq[:, :, a:b] += ds @ kp[:, :, k0:k0 + walk]
+    for a, b in blocks:  # the key blocks
+        for q0 in range(0, Sp, walk):
+            p, ds = tile(q0, q0 + walk, a, b)
+            dv[:, :, a:b] += p.transpose(-1, -2) @ dop[:, :, q0:q0 + walk]
+            dk[:, :, a:b] += ds.transpose(-1, -2) @ qp[:, :, q0:q0 + walk]
     return tuple(t[:, :, :S].transpose(1, 2) for t in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("T,H", [(32, 2), (64, 1)],
-                         ids=["simt_tiles32", "mma_tiles64"])
-def test_tiled_algorithm_matches_jax_kernel_interpret(T, H):
+@pytest.mark.parametrize("fwd_blocks,fwd_walk,splits,bwd_blocks,bwd_walk,H", [
+    ("tiles32", 32, 1, "tiles32", 32, 2), ("tiles64", 64, 1, "tiles64", 64, 1),
+    ("units", 32, 1, "units", 32, 2), ("units", 64, 1, "units", 32, 1),
+    ("units5", 32, 3, "units9", 32, 2), ("units6", 32, 2, "units9", 32, 1)],
+    ids=["simt_tiles32", "mma_tiles64", "simt_units_walk32",
+         "mma_units_walk64_32", "simt_units5_split3_units9_walk32",
+         "mma_units6_split2_units9_walk64_32"])
+def test_tiled_algorithm_matches_jax_kernel_interpret(
+        fwd_blocks, fwd_walk, splits, bwd_blocks, bwd_walk, H):
     """At image 256's sequence (S 260, RoPE of a 16 x 16 grid and 4
-    registers, heads of 64), the tiled algorithm at the float32 form's
-    tiles (32) and the bfloat16 form's (64), in float32: its output
-    against JAX's ``fused_attention`` run in interpret mode, its lse
-    against torch's logsumexp, and its two-pass backward against the VJP
-    of the interpret-mode kernel (``_attn_bwd``), all within 1e-5."""
+    registers, heads of 64), the tiled algorithm in float32 at each form's
+    blocks and walked tiles: the float32 forward (units of 16 rows, up to
+    five a block, 4 blocks of 4 or 5 units, each unit's keys split among
+    3 warps that take every third 32-key sub-tile and merge at the end)
+    and backward (up to nine units a block, 2 blocks of 8 or 9; 32-row
+    walks), the bfloat16 ones (the forward up to six units a block, 3
+    blocks of 5 or 6, walking 64 keys a tile, each unit's split between 2
+    warps that take one half of every tile; the backward as the float32
+    one's, 32-row walks), the first geometry of this design (up to four
+    units, no split), and the first tiled forms' fixed tiles of 32 (the
+    float32 form above head_dim 128) and of 64.  Its output against JAX's
+    ``fused_attention`` run in interpret mode, its lse against torch's
+    logsumexp, and its two-kind backward against the VJP of the
+    interpret-mode kernel (``_attn_bwd``), all within 1e-5."""
     S, hd = 260, 64
     q, k, v = _qkv(1, S, H, hd, 7)
     d_out = _qkv(1, S, H, hd, 8)[0]
     c, s_ = rope_2d_cos_sin(256, 16, hd, cls_token_num=4)
     cos, sin = torch.from_numpy(c), torch.from_numpy(s_)
     qr, kr = apply_rotary_half(q, cos, sin), apply_rotary_half(k, cos, sin)
-    out, lse = _tiled_forward(qr, kr, v, T)
-    dqr, dkr, dv = _tiled_backward(qr, kr, v, out, lse, d_out, T)
+    out, lse = _tiled_forward(qr, kr, v, _blocks(S, fwd_blocks), fwd_walk,
+                              splits)
+    dqr, dkr, dv = _tiled_backward(qr, kr, v, out, lse, d_out,
+                                   _blocks(S, bwd_blocks), bwd_walk)
     dq = apply_rotary_half(dqr, cos, -sin)
     dk = apply_rotary_half(dkr, cos, -sin)
 

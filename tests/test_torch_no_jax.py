@@ -175,8 +175,9 @@ def test_entry_points_without_a_device_need_cuda(monkeypatch, tmp_path):
 
 def test_kernel_sources_name_what_they_replace():
     """Every CUDA source is built by ``kernels/build.py`` from ``csrc/`` and
-    says which TPU kernel it replaces; the three shared headers are there
-    (the basis table, the circle sampler, the FFT core)."""
+    says which TPU kernel it replaces; the four shared headers are there
+    (the basis table, the circle sampler, the FFT core, the attention
+    kernels' fragments and tiles)."""
     from cliffordtpu_torch.kernels import build
 
     assert build.sources() == ["attention_bwd", "attention_fwd",
@@ -187,4 +188,5 @@ def test_kernel_sources_name_what_they_replace():
         assert "Replaces cliffordtpu/kernels/" in text, name
         assert "fast_math" not in " ".join(build.NVCC_FLAGS)
     assert {p.name for p in build.CSRC.glob("*.cuh")} == {
-        "torus_basis.cuh", "circle_sampler.cuh", "torus_fft.cuh"}
+        "torus_basis.cuh", "circle_sampler.cuh", "torus_fft.cuh",
+        "attention_tiles.cuh"}
